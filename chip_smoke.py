@@ -1,0 +1,580 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check every result.
+
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
+
+The main path is the paper's case study at a real size: the 5-point stencil
+``spd_system(thermal_like(1 << 20))`` (1,048,576 rows, about 5.2M nonzeros,
+the size class of thermal2) row-partitioned over ``PodTopology(npods=4,
+ppn=4)`` -- 16 ranks of 65,536 rows, four per node as on Lassen -- all held
+on one card.  Phases, each of which fails the run on any error:
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds printed);
+2. run the kernels B1 (``spmv_ell``) and B2 (``spmm_ell``) at the path's
+   shapes, masked and unmasked, f32 and bf16, against their plain PyTorch
+   versions; time kernel, plain version and a ``torch.sparse`` CSR product
+   on the same matrix; print the bound;
+3. the exchange of all four strategies, barrier and split-phase, on the card
+   against the host ``execute_numpy``, bitwise;
+4. the distributed SpMV of every strategy: overlap == barrier and
+   ``matmat == matmat_looped`` bitwise, and agreement with a float64 host
+   CSR product; then a small system solved on the card and on the CPU;
+5. the main path: CG (strategy "auto", the advisor on ``lassen``), BiCGStab
+   on ``shifted_system`` of the same grid, and one ``matmat`` of 8 columns,
+   with the kernels' launch counts reset just before and read just after;
+6. one JSON line of the kernels, the card's name and power limit, and the
+   device line last.
+
+Without a CUDA device, or without the rest of the checkout beside it, it
+exits non-zero and prints no result.  Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+import warnings
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+SEED = 0
+SIDE = 1024  # grid side: SIDE * SIDE = 1 << 20 rows
+NPODS, PPN = 4, 4
+STRATEGIES = ("standard", "two_step", "three_step", "split")
+MM_COLS = 8
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+#: tolerances: f32 kernel vs plain version (the reference's own kernel
+#: tolerance), bf16 (one bf16 rounding of an fp32 sum), and the f32 SpMV vs a
+#: float64 host product, relative to (|A| |v|) per row
+TOL_F32 = 2e-5
+TOL_BF16 = 5e-2
+TOL_SPMV = 1e-5
+TOL_SOLVE = 1e-6
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+class Timer:
+    """CUDA-event timing of one callable, with the L2 flushed before each run."""
+
+    def __init__(self, torch, reps: int = 20):
+        self.torch = torch
+        self.reps = reps
+        # 256 MB, five times the H100's 50 MB L2
+        self.flush_buf = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        total = 0.0
+        for _ in range(self.reps):
+            self.flush_buf.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        return total / self.reps
+
+
+def bound(nbytes: int, flops: int) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_product64(A, V: np.ndarray, absolute: bool = False) -> np.ndarray:
+    """``A @ V`` (or ``|A| @ |V|``) in float64 on the host; ``V: [n]`` or ``[n, k]``."""
+    rows = np.repeat(np.arange(A.n), np.diff(A.indptr))
+    data = A.data.astype(np.float64)
+    vals = V.astype(np.float64)[A.indices]
+    if absolute:
+        data, vals = np.abs(data), np.abs(vals)
+    if vals.ndim == 1:
+        return np.bincount(rows, weights=data * vals, minlength=A.n)
+    return np.stack(
+        [np.bincount(rows, weights=data * vals[:, c], minlength=A.n) for c in range(vals.shape[1])],
+        axis=1,
+    )
+
+
+def ell_as_csr(torch, data, cols, N: int):
+    """The stacked ELL block as one block-diagonal CSR matrix (padding slots
+    kept as stored zeros), for the library yardstick."""
+    g, R, K = data.shape
+    crow = torch.arange(0, g * R * K + 1, K, device=data.device, dtype=torch.int64)
+    offs = (torch.arange(g, device=data.device) * N)[:, None, None]
+    col = (cols.long() + offs).reshape(-1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "CSR support is in beta"
+        return torch.sparse_csr_tensor(
+            crow, col, data.reshape(-1), size=(g * R, g * N), check_invariants=False
+        )
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build(ctx) -> None:
+    from repro_torch.kernels import build as kbuild
+
+    t0 = time.perf_counter()
+    built = kbuild.build()
+    seconds = time.perf_counter() - t0
+    for name, info in built.items():
+        log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] done in {seconds:.2f} s ({len(built)} compiled)")
+    ctx["details"]["build_s"] = seconds
+
+
+def phase_setup(ctx) -> None:
+    from repro_torch.comm import PodTopology
+    from repro_torch.solve import shifted_system, spd_system
+    from repro_torch.sparse import partition_csr, thermal_like
+
+    t0 = time.perf_counter()
+    topo = PodTopology(npods=NPODS, ppn=PPN)
+    A = spd_system(thermal_like(SIDE * SIDE, np.random.default_rng(SEED)))
+    part = partition_csr(A, topo)
+    B = shifted_system(thermal_like(SIDE * SIDE, np.random.default_rng(SEED + 1)))
+    part_b = partition_csr(B, topo)
+    ctx.update(topo=topo, A=A, part=part, B=B, part_b=part_b)
+    log(
+        f"[setup] n={A.n} nnz={A.nnz} ranks={topo.nranks} L={part.rows_per_rank} "
+        f"diag K={part.diag.data.shape[1]} off K={part.off.data.shape[1]} "
+        f"halo H={part.halo_width} needs={len(part.pattern.needs)} "
+        f"({time.perf_counter() - t0:.1f} s on the host)"
+    )
+
+
+def phase_kernels(ctx) -> None:
+    import torch
+    from repro_torch.comm import IrregularExchange
+    from repro_torch.core.split_plan import split_rows
+    from repro_torch.kernels import spmv_ell as K
+
+    part, topo = ctx["part"], ctx["topo"]
+    g, L = topo.nranks, part.rows_per_rank
+    rng = np.random.default_rng(SEED + 2)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.as_tensor(a, device=dev).contiguous()
+
+    dd, dc = t(part.diag.data.reshape(g, L, -1)), t(part.diag.cols.reshape(g, L, -1))
+    od, oc = t(part.off.data.reshape(g, L, -1)), t(part.off.cols.reshape(g, L, -1))
+    v = t(rng.normal(size=(g, L)).astype(np.float32))
+    halo = IrregularExchange(part.pattern, "two_step")(v)
+    halo_dep = part.off_row_nnz.reshape(g, L) > 0
+    bnd = t(split_rows(halo_dep, K.TILE_R).boundary_tiles.astype(np.int32))
+    bnd_mm = t(split_rows(halo_dep, K.TILE_R_MM).boundary_tiles.astype(np.int32))
+    V = {c: t(rng.normal(size=(g, L, c)).astype(np.float32)) for c in (1, MM_COLS)}
+    H = {c: IrregularExchange(part.pattern, "two_step")(V[c]) for c in (1, MM_COLS)}
+    errs = ctx["details"].setdefault("kernel_checks", [])
+
+    def check(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        errs.append({"case": name, "max_abs_err": err, "tol": tol, "ok": bool(ok)})
+        log(f"[kernels] {name}: max_abs_err={err:.3e} (rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        return err
+
+    rows = K.rows_of_tiles
+    max_err = {"spmv_ell": 0.0, "spmm_ell": 0.0}
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        d_, o_, x_, h_ = dd.to(dtype), od.to(dtype), v.to(dtype), halo.to(dtype)
+        cases = [
+            ("spmv_ell", f"diag {tag}", K.spmv_ell(d_, dc, x_), K.spmv_ell_ref(d_, dc, x_)),
+            ("spmv_ell", f"off {tag}", K.spmv_ell(o_, oc, h_), K.spmv_ell_ref(o_, oc, h_)),
+            ("spmv_ell", f"off masked {tag}", K.spmv_ell(o_, oc, h_, bnd),
+             K.spmv_ell_masked_ref(o_, oc, h_, rows(bnd, K.TILE_R, L))),
+            ("spmv_ell", f"diag masked {tag}", K.spmv_ell(d_, dc, x_, bnd),
+             K.spmv_ell_masked_ref(d_, dc, x_, rows(bnd, K.TILE_R, L))),
+        ]
+        for c in (1, MM_COLS):
+            X, Hc = V[c].to(dtype), H[c].to(dtype)
+            cases += [
+                ("spmm_ell", f"diag C={c} {tag}", K.spmm_ell(d_, dc, X), K.spmm_ell_ref(d_, dc, X)),
+                ("spmm_ell", f"off masked C={c} {tag}", K.spmm_ell(o_, oc, Hc, bnd_mm),
+                 K.spmm_ell_masked_ref(o_, oc, Hc, rows(bnd_mm, K.TILE_R_MM, L))),
+            ]
+        for kname, name, got, want in cases:
+            err = check(f"{kname} {name}", got, want, tol)
+            if dtype == torch.float32:
+                max_err[kname] = max(max_err[kname], err)
+        one = V[1][..., 0].contiguous().to(dtype)
+        same = torch.equal(K.spmm_ell(d_, dc, one[..., None]).squeeze(-1), K.spmv_ell(d_, dc, one))
+        log(f"[kernels] spmm(C=1) == spmv bitwise ({tag}): {same}")
+        if not same:
+            raise AssertionError("spmm_ell at C=1 differs from spmv_ell")
+
+    timer = Timer(torch)
+    csr = ell_as_csr(torch, dd, dc, L)
+    rows_all = g * L
+    timings = {}
+    for kname, shape, fn, plain, lib, nbytes, flops in (
+        (
+            "spmv_ell", [g, L, dd.shape[2]],
+            lambda: K.spmv_ell(dd, dc, v), lambda: K.spmv_ell_ref(dd, dc, v),
+            lambda: csr @ v.reshape(rows_all, 1),
+            dd.nbytes + dc.nbytes + v.nbytes + v.nbytes,
+            2 * dd.numel(),
+        ),
+        (
+            "spmm_ell", [g, L, dd.shape[2], MM_COLS],
+            lambda: K.spmm_ell(dd, dc, V[MM_COLS]), lambda: K.spmm_ell_ref(dd, dc, V[MM_COLS]),
+            lambda: csr @ V[MM_COLS].reshape(rows_all, MM_COLS),
+            dd.nbytes + dc.nbytes + 2 * V[MM_COLS].nbytes,
+            2 * dd.numel() * MM_COLS,
+        ),
+    ):
+        torch.testing.assert_close(lib().reshape(fn().shape), fn(), rtol=TOL_F32, atol=TOL_F32)
+        b_ms, b_by = bound(nbytes, flops)
+        timings[kname] = {
+            "shape": shape,
+            "ms": timer(fn),
+            "plain_ms": timer(plain),
+            "library_ms": timer(lib),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "max_abs_err": max_err[kname],
+        }
+        log(f"[kernels] {kname} {shape} f32: " + json.dumps(timings[kname]))
+    # the off block and the masked off pass, for the record
+    for name, fn in (
+        ("spmv_ell off f32", lambda: K.spmv_ell(od, oc, halo)),
+        ("spmv_ell off masked f32", lambda: K.spmv_ell(od, oc, halo, bnd)),
+    ):
+        ms = timer(fn)
+        b_ms, _ = bound(od.nbytes + oc.nbytes + halo.nbytes + v.nbytes, 2 * od.numel())
+        log(f"[kernels] {name} {list(od.shape)}: ms={ms:.5f} bound_ms={b_ms:.5f}")
+        ctx["details"].setdefault("extra_timings", {})[name] = {"ms": ms, "bound_ms": b_ms}
+    ctx["timings"] = timings
+
+
+def phase_exchange(ctx) -> None:
+    import torch
+    from repro_torch.comm import IrregularExchange, execute_numpy
+
+    part, topo = ctx["part"], ctx["topo"]
+    rng = np.random.default_rng(SEED + 3)
+    g, L = topo.nranks, part.rows_per_rank
+    for shape in ((g, L), (g, L, 3)):
+        local = rng.normal(size=shape).astype(np.float32)
+        dev_local = torch.as_tensor(local, device="cuda")
+        for strat in STRATEGIES:
+            ex = IrregularExchange(part.pattern, strat)
+            want = execute_numpy(ex.plan, local)
+            barrier = ex(dev_local).cpu().numpy()
+            split = ex.start(dev_local).finish().cpu().numpy()
+            ok = np.array_equal(barrier, want) and np.array_equal(split, want)
+            log(f"[exchange] {strat} feat={shape[2:]} barrier/split == execute_numpy: {ok}")
+            if not ok:
+                raise AssertionError(f"exchange {strat} differs from execute_numpy")
+
+
+def phase_spmv(ctx) -> None:
+    import torch
+    from repro_torch.comm import PodTopology
+    from repro_torch.solve import cg, spd_system
+    from repro_torch.sparse import DistributedSpMV, partition_csr, thermal_like
+
+    A, part, topo = ctx["A"], ctx["part"], ctx["topo"]
+    g, L = topo.nranks, part.rows_per_rank
+    rng = np.random.default_rng(SEED + 4)
+    v = rng.normal(size=(g, L)).astype(np.float32)
+    V = rng.normal(size=(g, L, MM_COLS)).astype(np.float32)
+    w64 = csr_product64(A, v.reshape(-1))
+    scale = csr_product64(A, v.reshape(-1), absolute=True) + 1e-30
+    for strat in STRATEGIES:
+        sp = DistributedSpMV(part, strategy=strat)
+        ov = DistributedSpMV(part, strategy=strat, overlap=True)
+        w = sp(v)
+        same = torch.equal(ov(v), w)
+        rel = float((np.abs(w.cpu().numpy().reshape(-1) - w64) / scale).max())
+        mm = sp.matmat(V)
+        mm_same = torch.equal(mm, sp.matmat_looped(V)) and torch.equal(ov.matmat(V), mm)
+        log(
+            f"[spmv] {strat}: overlap == barrier {same}; max |w - w64| / (|A||v|) = {rel:.3e} "
+            f"(tol {TOL_SPMV}); matmat(k={MM_COLS}) == matmat_looped, overlap == barrier {mm_same}"
+        )
+        if not (same and mm_same and rel <= TOL_SPMV):
+            raise AssertionError(f"distributed SpMV {strat} failed its checks")
+    # a small system, solved on the card and on the CPU by the same code
+    small_topo = PodTopology(npods=2, ppn=4)
+    S = spd_system(thermal_like(4096, np.random.default_rng(SEED + 5)))
+    sp_part = partition_csr(S, small_topo)
+    b = rng.normal(size=(small_topo.nranks, sp_part.rows_per_rank)).astype(np.float32)
+    on_card = cg(DistributedSpMV(sp_part, strategy="split"), b, tol=TOL_SOLVE)
+    on_cpu = cg(DistributedSpMV(sp_part, strategy="split", device="cpu"), b, tol=TOL_SOLVE)
+    dx = float((on_card.x.cpu() - on_cpu.x).abs().max())
+    log(
+        f"[spmv] small CG card vs cpu: {on_card.status}/{on_cpu.status} "
+        f"iterations {on_card.iterations}/{on_cpu.iterations} max |dx| = {dx:.3e}"
+    )
+    if not (on_card.converged and on_cpu.converged and abs(on_card.iterations - on_cpu.iterations) <= 1
+            and dx <= 1e-4):
+        raise AssertionError("small CG on the card disagrees with the CPU")
+
+
+def phase_solve(ctx) -> None:
+    import torch
+    from repro_torch.comm import cache_stats, clear_caches
+    from repro_torch.kernels.spmv_ell import spmm_ell, spmv_ell
+    from repro_torch.solve import bicgstab, cg
+    from repro_torch.sparse import DistributedSpMV
+
+    A, B, part, part_b, topo = ctx["A"], ctx["B"], ctx["part"], ctx["part_b"], ctx["topo"]
+    g, L = topo.nranks, part.rows_per_rank
+    rng = np.random.default_rng(SEED + 6)
+    b = torch.as_tensor(rng.normal(size=(g, L)).astype(np.float32), device="cuda")
+    b2 = torch.as_tensor(rng.normal(size=(g, L)).astype(np.float32), device="cuda")
+    V = torch.as_tensor(rng.normal(size=(g, L, MM_COLS)).astype(np.float32), device="cuda")
+    clear_caches()
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts reset just before, read just after ----
+    spmv_ell.launches = 0
+    spmm_ell.launches = 0
+    t0 = time.perf_counter()
+    op = DistributedSpMV(part, strategy="auto")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = cg(op, b, tol=TOL_SOLVE, maxiter=1000)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stats = cache_stats()
+    op_b = DistributedSpMV(part_b, strategy="auto")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    res_b = bicgstab(op_b, b2, tol=TOL_SOLVE, maxiter=1000)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    W = op.matmat(V)
+    torch.cuda.synchronize()
+    launches = {"spmv_ell": spmv_ell.launches, "spmm_ell": spmm_ell.launches}
+    # ---- end of the main path ----
+
+    x64 = res.x.double().cpu().numpy().reshape(-1)
+    true_rel = np.linalg.norm(b.double().cpu().numpy().reshape(-1) - csr_product64(A, x64)) / float(
+        b.double().norm()
+    )
+    xb64 = res_b.x.double().cpu().numpy().reshape(-1)
+    true_rel_b = np.linalg.norm(
+        b2.double().cpu().numpy().reshape(-1) - csr_product64(B, xb64)
+    ) / float(b2.double().norm())
+    W64 = csr_product64(A, V.cpu().numpy().reshape(-1, MM_COLS))
+    mm_rel = float(
+        np.abs(W.cpu().numpy().reshape(-1, MM_COLS) - W64).max() / np.abs(W64).max()
+    )
+    summary = {
+        "cg": {
+            "strategy": op.strategy,
+            "status": res.status,
+            "iterations": res.iterations,
+            "matvecs": res.matvecs,
+            "final_residual": res.final_residual,
+            "true_residual": true_rel,
+            "setup_s": t1 - t0,
+            "solve_s": t2 - t1,
+            "ms_per_iteration": (t2 - t1) / max(res.iterations, 1) * 1e3,
+            "plan_misses": stats.plan_misses,
+        },
+        "bicgstab": {
+            "status": res_b.status,
+            "iterations": res_b.iterations,
+            "matvecs": res_b.matvecs,
+            "final_residual": res_b.final_residual,
+            "true_residual": true_rel_b,
+            "solve_s": t4 - t3,
+            "ms_per_iteration": (t4 - t3) / max(res_b.iterations, 1) * 1e3,
+        },
+        "matmat_rel_err": mm_rel,
+        "launches": launches,
+    }
+    ctx["details"]["solve"] = summary
+    log("[solve] " + json.dumps(summary))
+    matvecs = res.matvecs + res_b.matvecs
+    checks = {
+        "cg converged": res.converged,
+        "bicgstab converged": res_b.converged,
+        "one plan miss in the CG solve": stats.plan_misses == 1,
+        "CG true residual <= 1e-5": true_rel <= 1e-5,
+        "BiCGStab true residual <= 1e-5": true_rel_b <= 1e-5,
+        "matmat agrees with float64 (1e-5)": mm_rel <= 1e-5,
+        f"spmv_ell launches {launches['spmv_ell']} >= 2 x {matvecs} matvecs":
+            launches["spmv_ell"] >= 2 * matvecs,
+        "spmm_ell launched": launches["spmm_ell"] >= 2,
+    }
+    for name, ok in checks.items():
+        log(f"[solve] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("main path failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+    ctx["launches"] = launches
+    ctx.update(op=op, b=b)
+
+
+def phase_profile(ctx) -> None:
+    """Where a CG iteration's time goes (outside the main path's counts):
+    host wall per iteration, barrier and overlapped, and the device time by
+    kernel from ``torch.profiler`` over ten iterations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.solve import cg
+    from repro_torch.sparse import DistributedSpMV
+
+    op, b, iters = ctx["op"], ctx["b"], 10
+    wall = {}
+    for overlap in (False, True):
+        run = op if not overlap else DistributedSpMV(ctx["part"], strategy=op.strategy, overlap=True)
+        cg(run, b, tol=0.0, maxiter=2)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg(run, b, tol=0.0, maxiter=iters)
+        torch.cuda.synchronize()
+        wall["overlap" if overlap else "barrier"] = (time.perf_counter() - t0) / res.iterations * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # an observation, not a check: a profiler that cannot trace the card
+    # leaves the device numbers "not measured" and the run goes on
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cg(op, b, tol=0.0, maxiter=iters)
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies): an aten op's self device
+        # time repeats that of the kernels it launched
+        events = [
+            e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0
+        ]
+    except Exception as e:  # noqa: BLE001
+        log(f"[profile] torch.profiler gave no device trace: {e!r}")
+        events = []
+    device_ms = sum(device_us(e) for e in events) / 1e3 / iters
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    summary = {
+        "strategy": op.strategy,
+        "wall_ms_per_iteration": wall,
+        "device_ms_per_iteration": device_ms if events else "not measured",
+        "device_busy_share": device_ms / wall["barrier"] if events else "not measured",
+        "top_kernels": [
+            {"name": e.key[:80], "calls_per_iteration": e.count / iters,
+             "us_per_iteration": device_us(e) / iters}
+            for e in top
+        ],
+    }
+    ctx["details"]["profile"] = summary
+    log("[profile] " + json.dumps(summary))
+
+
+def kernels_line(ctx) -> dict:
+    replaces = {
+        "spmv_ell": "src/repro/kernels/spmv_ell.py:131",
+        "spmm_ell": "src/repro/kernels/spmv_ell.py:173",
+    }
+    out = []
+    for name in ("spmv_ell", "spmm_ell"):
+        t = ctx["timings"][name]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/spmv_ell.cu",
+            "replaces": replaces[name],
+            "launches": ctx["launches"][name],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": t["shape"],
+            "dtype": "float32",
+        })
+    return {"kernels": out}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device is available; this script runs only on a GPU")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    ctx = {"details": {"card": smi}}
+    phases = (
+        ("build", phase_build),
+        ("setup", phase_setup),
+        ("kernels", phase_kernels),
+        ("exchange", phase_exchange),
+        ("spmv", phase_spmv),
+        ("solve", phase_solve),
+        ("profile", phase_profile),
+    )
+    t_all = time.perf_counter()
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        try:
+            fn(ctx)
+            torch.cuda.synchronize()
+        except Exception:
+            traceback.print_exc()
+            log(f"chip_smoke: phase {name} FAILED")
+            return 1
+        log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    line = kernels_line(ctx)
+    ctx["details"]["kernels"] = line["kernels"]
+    ctx["details"]["seconds"] = time.perf_counter() - t_all
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(ctx["details"], f, indent=1)
+    print(json.dumps(line))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

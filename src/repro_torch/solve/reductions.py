@@ -1,0 +1,73 @@
+"""Node-aware reductions for the Krylov solvers.
+
+Every dot product / norm inside :mod:`repro_torch.solve.krylov` goes through
+one of these backends, so the solver's scalar traffic follows the paper's
+hierarchy: reduce on the cheap on-pod fabric first, cross the expensive
+inter-pod hop once per pod.
+
+* :class:`TorchReductions` -- the tree (rank partials -> per-pod sums ->
+  world sum) in float64 on the operator's device; one ``.item()`` per dot.
+* :class:`NumpyReductions` -- the same tree in numpy on the host.
+
+Both are deterministic, so residual histories are bitwise reproducible
+across strategies and barrier-vs-overlap execution.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.comm.topology import PodTopology
+
+
+@dataclasses.dataclass(frozen=True)
+class NumpyReductions:
+    """Hierarchical dot products in numpy (rank -> pod -> world order).
+
+    Partials are accumulated in float64 regardless of the vector dtype.
+    """
+
+    topo: PodTopology
+
+    def dot(self, x: np.ndarray, y: np.ndarray) -> float:
+        """``<x, y>`` for ``[nranks, L]`` operands, hierarchical order."""
+        x = np.asarray(x, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        part = (x * y).reshape(self.topo.nranks, -1).sum(axis=1)  # per rank
+        pods = part.reshape(self.topo.npods, self.topo.ppn).sum(axis=1)
+        return float(pods.sum())
+
+    def norm(self, x: np.ndarray) -> float:
+        return float(np.sqrt(max(self.dot(x, x), 0.0)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchReductions:
+    """The :class:`NumpyReductions` tree in float64 on the operands' device.
+
+    Each :meth:`dot` brings one scalar back to the host (one ``.item()``),
+    as the reference's device reductions do.
+    """
+
+    topo: PodTopology
+
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> float:
+        """``<x, y>`` for ``[nranks, L]`` operands, hierarchical order."""
+        part = (x.double() * y.double()).reshape(self.topo.nranks, -1).sum(dim=1)
+        pods = part.reshape(self.topo.npods, self.topo.ppn).sum(dim=1)
+        return float(pods.sum().item())
+
+    def norm(self, x: torch.Tensor) -> float:
+        return float(np.sqrt(max(self.dot(x, x), 0.0)))
+
+
+def default_reductions(op) -> "TorchReductions | NumpyReductions":
+    """The reduction backend matching an operator's executor: the torch
+    tree for an operator with a ``device`` (the port's
+    :class:`repro_torch.sparse.spmv.DistributedSpMV`), numpy otherwise."""
+    if isinstance(getattr(op, "device", None), torch.device):
+        return TorchReductions(op.topo)
+    return NumpyReductions(op.topo)

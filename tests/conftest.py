@@ -13,6 +13,10 @@ def pytest_configure(config):
         "Run by default -- the full suite is the verify tier; deselect with "
         "-m 'not slow' for a quick inner-loop pass",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU (the port's hand-written kernels); skips elsewhere",
+    )
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
