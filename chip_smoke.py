@@ -1,28 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check every result.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check every result.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
-The main path is the paper's case study at a real size: the 5-point stencil
-``spd_system(thermal_like(1 << 20))`` (1,048,576 rows, about 5.2M nonzeros,
-the size class of thermal2) row-partitioned over ``PodTopology(npods=4,
-ppn=4)`` -- 16 ranks of 65,536 rows, four per node as on Lassen -- all held
-on one card.  Phases, each of which fails the run on any error:
+Two main paths, each driven with the kernels' launch counts set to 0 just
+before it and read just after:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` (seconds printed);
-2. run the kernels B1 (``spmv_ell``) and B2 (``spmm_ell``) at the path's
-   shapes, masked and unmasked, f32 and bf16, against their plain PyTorch
-   versions; time kernel, plain version and a ``torch.sparse`` CSR product
-   on the same matrix; print the bound;
+* the paper's case study at a real size: the 5-point stencil
+  ``spd_system(thermal_like(1 << 20))`` (1,048,576 rows, about 5.2M
+  nonzeros, the size class of thermal2) row-partitioned over
+  ``PodTopology(npods=4, ppn=4)`` -- 16 ranks of 65,536 rows, four per node
+  as on Lassen -- all held on one card; kernels B1/B2;
+* LLM serving: hymba-1.5b at full width and depth (32 hybrid layers,
+  d_model 1600, 1,640,812,800 parameters, random weights from a seed),
+  batch 4, prompts of 4096 tokens (longer than its 2048-token window), 32
+  greedy tokens, through ``repro_torch.launch.serve``; kernels B3/B4.
+
+Phases, each of which fails the run on any error:
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all started together; seconds, registers and spills printed);
+2. B1 (``spmv_ell``) and B2 (``spmm_ell``) at the solve path's shapes,
+   masked and unmasked, f32 and bf16, against their plain PyTorch versions;
+   kernel, plain and ``torch.sparse`` CSR times and the bound;
 3. the exchange of all four strategies, barrier and split-phase, on the card
    against the host ``execute_numpy``, bitwise;
 4. the distributed SpMV of every strategy: overlap == barrier and
    ``matmat == matmat_looped`` bitwise, and agreement with a float64 host
    CSR product; then a small system solved on the card and on the CPU;
-5. the main path: CG (strategy "auto", the advisor on ``lassen``), BiCGStab
-   on ``shifted_system`` of the same grid, and one ``matmat`` of 8 columns,
-   with the kernels' launch counts reset just before and read just after;
-6. one JSON line of the kernels, the card's name and power limit, and the
+5. the solve path: CG (strategy "auto", the advisor on ``lassen``), BiCGStab
+   on ``shifted_system`` of the same grid, and one ``matmat`` of 8 columns;
+6. a CG iteration's host wall time and its device time by kernel under
+   ``torch.profiler``;
+7. B3 (``flash_attention``, f32 and bf16) and B4 (``ssd_chunked``, f32) at the
+   serving path's shapes and at ragged / ``Sq < Sk`` / non-causal / no-window
+   / other-chunk cases, against their plain versions (B3 against the plain
+   version in float32 on the same inputs); kernel, plain and
+   library (``scaled_dot_product_attention``; none for the SSD) times and the
+   bound;
+8. the serving path: in float32, the kernel route against the plain route
+   (prefill logits, greedy tokens) and decode against the full forward;
+   then the bfloat16 run, its prefill and decode times, peak memory, and the
+   device's busy share over ten decode steps;
+9. one JSON line of the kernels, the card's name and power limit, and the
    device line last.
 
 Without a CUDA device, or without the rest of the checkout beside it, it
@@ -51,9 +71,16 @@ NPODS, PPN = 4, 4
 STRATEGIES = ("standard", "two_step", "three_step", "split")
 MM_COLS = 8
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+#: the LLM serving path: hymba-1.5b at full width and depth, a batch of
+#: prompts longer than its 2048-token window, greedy decode
+LM_ARCH = "hymba-1.5b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
+#: and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 
 #: tolerances: f32 kernel vs plain version (the reference's own kernel
 #: tolerance), bf16 (one bf16 rounding of an fp32 sum), and the f32 SpMV vs a
@@ -62,6 +89,22 @@ TOL_F32 = 2e-5
 TOL_BF16 = 5e-2
 TOL_SPMV = 1e-5
 TOL_SOLVE = 1e-6
+#: B3 / B4 against their plain versions: f32 at the reference's own kernel
+#: tolerances (tests/test_kernels.py); B3 on bf16 inputs against the plain
+#: version in float32 on the same (bf16-rounded) inputs, where only the
+#: kernel's rounding of its output to bf16 (at most 2**-8 of it) is left:
+#: rtol twice that, atol far under the outputs' typical size (about 0.03 at
+#: the path's shapes); the SDPA yardstick in bf16 (which rounds its own
+#: probabilities to bf16) at the reference's bf16 3e-2; the model's prefill
+#: logits, kernel route against plain route in float32, relative to the
+#: largest |logit|; decode against the full forward (tests/test_models.py)
+TOL_ATTN_F32 = 2e-4
+TOL_ATTN_BF16 = (8e-3, 1e-4)
+TOL_SDPA_BF16 = 3e-2
+TOL_SSD = 2e-4
+TOL_SSD_SEQ = 5e-4
+TOL_LOGITS = 1e-3
+TOL_DECODE = 5e-2
 
 
 def log(*args) -> None:
@@ -94,10 +137,32 @@ class Timer:
         return total / self.reps
 
 
-def bound(nbytes: int, flops: int) -> tuple:
+def bound(nbytes: int, flops: int, peak_flops: float = FP32_FLOPS) -> tuple:
+    """The least ms the card could take: the larger of bytes over the HBM
+    rate and operations over ``peak_flops``, and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs of one head: query i sits at key i + Sk - Sq."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def ssd_flops(S: int, Q: int, P: int, N: int) -> int:
+    """fp32 operations of the chunked SSD for one (batch, head): per chunk of
+    q steps, the causal c.b scores and their product with x, the incoming
+    state's term and the state update."""
+    total = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        tri = q * (q + 1) // 2
+        total += tri * 2 * N + tri * 2 * P + 2 * (q * 2 * N * P) + N * P
+    return total
 
 
 def csr_product64(A, V: np.ndarray, absolute: bool = False) -> np.ndarray:
@@ -127,6 +192,32 @@ def ell_as_csr(torch, data, cols, N: int):
         return torch.sparse_csr_tensor(
             crow, col, data.reshape(-1), size=(g * R, g * N), check_invariants=False
         )
+
+
+def device_profile(fn, steps: int, top_n: int = 8) -> tuple:
+    """Device ms per step and the top kernels of ``fn()`` (``steps`` steps)
+    under ``torch.profiler``.  Device-side events only (kernels, copies): an
+    aten op's self device time repeats that of the kernels it launched.  A
+    profiler that records no device time fails the phase."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device time")
+    device_ms = sum(device_us(e) for e in events) / 1e3 / steps
+    top = [
+        {"name": e.key[:80], "calls_per_step": e.count / steps, "us_per_step": device_us(e) / steps}
+        for e in sorted(events, key=device_us, reverse=True)[:top_n]
+    ]
+    return device_ms, top
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +348,9 @@ def phase_kernels(ctx) -> None:
         torch.testing.assert_close(lib().reshape(fn().shape), fn(), rtol=TOL_F32, atol=TOL_F32)
         b_ms, b_by = bound(nbytes, flops)
         timings[kname] = {
+            "source": "src/repro_torch/csrc/spmv_ell.cu",
+            "replaces": f"src/repro/kernels/spmv_ell.py:{131 if kname == 'spmv_ell' else 173}",
+            "dtype": "float32",
             "shape": shape,
             "ms": timer(fn),
             "plain_ms": timer(plain),
@@ -436,7 +530,7 @@ def phase_solve(ctx) -> None:
         log(f"[solve] {name}: {ok}")
     if not all(checks.values()):
         raise AssertionError("main path failed: " + ", ".join(k for k, ok in checks.items() if not ok))
-    ctx["launches"] = launches
+    ctx.setdefault("launches", {}).update(launches)
     ctx.update(op=op, b=b)
 
 
@@ -445,8 +539,6 @@ def phase_profile(ctx) -> None:
     host wall per iteration, barrier and overlapped, and the device time by
     kernel from ``torch.profiler`` over ten iterations."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.solve import cg
     from repro_torch.sparse import DistributedSpMV
@@ -462,63 +554,285 @@ def phase_profile(ctx) -> None:
         torch.cuda.synchronize()
         wall["overlap" if overlap else "barrier"] = (time.perf_counter() - t0) / res.iterations * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # an observation, not a check: a profiler that cannot trace the card
-    # leaves the device numbers "not measured" and the run goes on
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            cg(op, b, tol=0.0, maxiter=iters)
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies): an aten op's self device
-        # time repeats that of the kernels it launched
-        events = [
-            e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0
-        ]
-    except Exception as e:  # noqa: BLE001
-        log(f"[profile] torch.profiler gave no device trace: {e!r}")
-        events = []
-    device_ms = sum(device_us(e) for e in events) / 1e3 / iters
-    top = sorted(events, key=device_us, reverse=True)[:8]
+    device_ms, top = device_profile(lambda: cg(op, b, tol=0.0, maxiter=iters), iters)
     summary = {
         "strategy": op.strategy,
         "wall_ms_per_iteration": wall,
-        "device_ms_per_iteration": device_ms if events else "not measured",
-        "device_busy_share": device_ms / wall["barrier"] if events else "not measured",
-        "top_kernels": [
-            {"name": e.key[:80], "calls_per_iteration": e.count / iters,
-             "us_per_iteration": device_us(e) / iters}
-            for e in top
-        ],
+        "device_ms_per_iteration": device_ms,
+        "device_busy_share": device_ms / wall["barrier"],
+        "top_kernels": top,
     }
     ctx["details"]["profile"] = summary
     log("[profile] " + json.dumps(summary))
 
 
-def kernels_line(ctx) -> dict:
-    replaces = {
-        "spmv_ell": "src/repro/kernels/spmv_ell.py:131",
-        "spmm_ell": "src/repro/kernels/spmv_ell.py:173",
+def phase_lm_kernels(ctx) -> None:
+    """B3 and B4 at the serving path's shapes (and a few others) against
+    their plain versions; times of kernel, plain version and library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.ssd import ssd_chunked as ssd_plain
+
+    cfg = get_config(LM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    H, KV, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.window
+    Hs, P, N, Q = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    checks = ctx["details"].setdefault("lm_kernel_checks", [])
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def check(name, got, want, tol):
+        """``tol`` is one number (rtol = atol) or ``(rtol, atol)``; the log
+        gives the largest share of the allowance an element used."""
+        rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        used = (diff / (atol + rtol * want.float().abs())).max().item()
+        ok = used <= 1.0
+        checks.append({"case": name, "max_abs_err": err, "rtol": rtol, "atol": atol,
+                       "allowance_used": used, "ok": ok})
+        log(f"[lm_kernels] {name}: max_abs_err={err:.3e} (rtol={rtol}, atol={atol}; "
+            f"{used:.3f} of it used) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        return err
+
+    # ---- B3: the path's shapes, then ragged S, Sq < Sk, non-causal, no window
+    attn_cases = [
+        ("path", B, S, S, True, W),
+        ("ragged S=1000 window=300", 2, 1000, 1000, True, 300),
+        ("Sq=100 < Sk=1000", 2, 100, 1000, True, 256),
+        ("non-causal S=600", 2, 600, 600, False, None),
+        ("causal no window S=1000", 2, 1000, 1000, True, None),
+    ]
+    path_err = {}
+    for tag, b, sq, sk, causal, win in attn_cases:
+        q32, k32, v32 = randn(b, sq, H, D), randn(b, sk, KV, D), randn(b, sk, KV, D)
+        for dtype, tol in ((torch.float32, TOL_ATTN_F32), (torch.bfloat16, TOL_ATTN_BF16)):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            got = FA.flash_attention(q, k, v, causal=causal, window=win)
+            if got.dtype != dtype:
+                raise AssertionError(f"flash_attention returned {got.dtype} for {dtype} inputs")
+            err = check(
+                f"flash_attention {tag} [{b},{sq},{H},{D}]/[{b},{sk},{KV},{D}] {dtype}".replace("torch.", ""),
+                got, FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win), tol,
+            )
+            if tag == "path":
+                path_err[dtype] = err
+        del q32, k32, v32, q, k, v
+        torch.cuda.empty_cache()
+
+    timer = Timer(torch)
+    timings = ctx.setdefault("timings", {})
+    q32, k32, v32 = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+    pairs = attention_pairs(S, S, True, W) * B * H
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+    mask &= ~torch.ones((S, S), dtype=torch.bool, device="cuda").tril(-W)
+    for dtype, peak in ((torch.bfloat16, BF16_TENSOR_FLOPS), (torch.float32, FP32_FLOPS)):
+        q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        tol = TOL_ATTN_F32 if dtype == torch.float32 else TOL_SDPA_BF16
+        check(f"sdpa yardstick vs kernel {dtype}".replace("torch.", ""), lib().transpose(1, 2),
+              FA.flash_attention(q, k, v, causal=True, window=W), tol)
+        nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+        b_ms, b_by = bound(nbytes, 4 * D * pairs, peak)
+        t = {
+            "name": "flash_attention",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "shape": [[B, S, H, D], [B, S, KV, D]],
+            "dtype": str(dtype).replace("torch.", ""),
+            "ms": timer(lambda: FA.flash_attention(q, k, v, causal=True, window=W)),
+            "plain_ms": timer(lambda: FA.attention_ref(q, k, v, causal=True, window=W)),
+            "library_ms": timer(lib),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "max_abs_err": path_err[dtype],
+            "visible_pairs": pairs,
+        }
+        log(f"[lm_kernels] flash_attention path {t['dtype']}: " + json.dumps(t))
+        ctx["details"].setdefault("lm_kernel_timings", []).append(t)
+        if dtype == torch.bfloat16:  # the dtype the serving path runs
+            timings["flash_attention"] = t
+        del q, k, v, qt, kt, vt
+    del q32, k32, v32, mask
+    torch.cuda.empty_cache()
+
+    # ---- B4: the path's shapes against the chunked plain version and the
+    # sequential oracle, chunk invariance, and a ragged S
+    def ssd_inputs(b, s):
+        return (randn(b, s, Hs, P), (-torch.rand((b, s, Hs), generator=gen, device="cuda") * 0.2),
+                randn(b, s, N), randn(b, s, N))
+
+    x, loga, bb, cc = ssd_inputs(B, S)
+    y = SSD.ssd_chunked(x, loga, bb, cc, Q)
+    err = check(f"ssd_chunked path [{B},{S},{Hs},{P}] N={N} Q={Q} vs chunked", y, ssd_plain(x, loga, bb, cc, Q), TOL_SSD)
+    check("ssd_chunked path vs sequential oracle", y, SSD.ssd_scan_ref(x, loga, bb, cc), TOL_SSD_SEQ)
+    check("ssd_chunked path Q=64 vs Q=128 (chunk invariance)", SSD.ssd_chunked(x, loga, bb, cc, 64), y, TOL_SSD)
+    xr, lr, br, cr = ssd_inputs(2, 1000)
+    check("ssd_chunked ragged S=1000 vs chunked", SSD.ssd_chunked(xr, lr, br, cr, Q), ssd_plain(xr, lr, br, cr, Q), TOL_SSD)
+    nbytes = 2 * x.nbytes + loga.nbytes + bb.nbytes + cc.nbytes
+    b_ms, b_by = bound(nbytes, ssd_flops(S, SSD.kernel_chunk(Q, S, P, N, x.device), P, N) * B * Hs)
+    t = {
+        "name": "ssd_chunked",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:57",
+        "shape": [[B, S, Hs, P], [B, S, N]],
+        "dtype": "float32",
+        "ms": timer(lambda: SSD.ssd_chunked(x, loga, bb, cc, Q)),
+        "plain_ms": timer(lambda: ssd_plain(x, loga, bb, cc, Q)),
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "max_abs_err": err,
     }
+    log("[lm_kernels] ssd_chunked path float32: " + json.dumps(t))
+    ctx["details"].setdefault("lm_kernel_timings", []).append(t)
+    timings["ssd_chunked"] = t
+
+
+def phase_serve(ctx) -> None:
+    """hymba-1.5b at full width and depth through the port's serving entry
+    point: float32 checks of the kernel route against the plain route and of
+    decode against the full forward, then the bfloat16 main path (counts
+    reset just before, read just after), its times and memory, and the
+    device's busy share over ten decode steps."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.serve import build, generate, make_prompts
+
+    dev = torch.device("cuda")
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    model, p32 = build(LM_ARCH, "full", seed=SEED, device=dev, dtype=torch.float32)
+    L = model.cfg.n_layers
+    prompts = torch.as_tensor(make_prompts(model.cfg.vocab_size, B, S, SEED), device=dev)
+    summary = {"arch": LM_ARCH, "parameters": model.param_count(), "layers": L,
+               "batch": B, "prompt": S, "gen": G, "window": model.cfg.window}
+    log(f"[serve] {LM_ARCH}: {summary['parameters']:,} parameters, {L} layers, batch {B}, "
+        f"prompt {S}, {G} greedy tokens")
+
+    # ---- float32: the kernel route against the plain route ----
+    FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+    k_out = generate(model, p32, prompts, G, impl="kernel")
+    f32_launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    c_out = generate(model, p32, prompts, G, impl="chunked")
+    scale = k_out["logits"][0].abs().max().item()
+    prefill_rel = (k_out["logits"][0] - c_out["logits"][0]).abs().max().item() / scale
+    tol_abs = TOL_LOGITS * scale
+    compared, tokens_ok = 0, True
+    for row in range(B):
+        for t in range(G):
+            gap = min(
+                float(torch.topk(out["logits"][t][row], 2).values.diff().abs()) for out in (k_out, c_out)
+            )
+            if gap < tol_abs:
+                break
+            if k_out["tokens"][row, t] != c_out["tokens"][row, t]:
+                tokens_ok = False
+                break
+            compared += 1
+    # decode against the full forward over the same tokens
+    with torch.inference_mode():
+        full = model.apply(p32, torch.cat([prompts, k_out["tokens"][:, :3]], dim=1), impl="kernel")
+    decode_err, decode_ok = 0.0, True
+    for t in range(3):
+        got, want = k_out["logits"][t + 1], full[:, S + t].float()
+        decode_err = max(decode_err, (got - want).abs().max().item())
+        decode_ok &= torch.allclose(got, want, rtol=TOL_DECODE, atol=TOL_DECODE)
+    f32_finite = all(bool(torch.isfinite(lg).all()) for out in (k_out, c_out) for lg in out["logits"])
+    summary["float32"] = {
+        "prefill_rel_err": prefill_rel, "max_abs_logit": scale,
+        "tokens_compared": compared, "tokens_equal": tokens_ok,
+        "decode_vs_apply_max_abs_err": decode_err, "launches": f32_launches,
+        "prefill_s": {"kernel": k_out["prefill_s"], "chunked": c_out["prefill_s"]},
+    }
+    del p32, k_out, c_out, full
+    torch.cuda.empty_cache()
+
+    # ---- bfloat16: the main path, counts reset just before, read just after ----
+    model, p16 = build(LM_ARCH, "full", seed=SEED, device=dev)
+    generate(model, p16, prompts[:, :256], 2, impl="kernel")  # warm: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+    out = generate(model, p16, prompts, G, impl="kernel")
+    launches = {"flash_attention": FA.flash_attention.launches, "ssd_chunked": SSD.ssd_chunked.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the main path ----
+    bf16_finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
+
+    cache, token, pos = out["cache"], out["tokens"][:, -1:], S + G - 1
+
+    def decode(n):
+        nonlocal cache, pos
+        with torch.inference_mode():
+            for _ in range(n):
+                _, cache = model.decode_step(p16, token, cache, pos)
+                pos += 1
+
+    n0 = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    decode(2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(10)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    decode_extra = (FA.flash_attention.launches - n0[0], SSD.ssd_chunked.launches - n0[1])
+    device_ms, top = device_profile(lambda: decode(10), 10)
+    with torch.inference_mode():
+        prefill_device_ms, prefill_top = device_profile(lambda: model.prefill(p16, prompts, impl="kernel"), 1, 10)
+    summary["bfloat16"] = {
+        "prefill_ms": out["prefill_s"] * 1e3,
+        "prefill_tokens_per_s": B * S / out["prefill_s"],
+        "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
+        "decode_tokens_per_s": B * (G - 1) / out["decode_s"],
+        "max_memory_allocated": peak,
+        "launches": launches,
+        "decode_profile": {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                           "device_busy_share": device_ms / wall_ms, "top_kernels": top},
+        "prefill_profile": {"device_ms": prefill_device_ms, "top_kernels": prefill_top},
+        "tokens": out["tokens"][:, :8].tolist(),
+    }
+    ctx["details"]["serve"] = summary
+    log("[serve] " + json.dumps(summary))
+    checks = {
+        f"float32 kernel route launched B3/B4 {f32_launches} = {L} each (one prefill, none in decode)":
+            f32_launches == (L, L),
+        f"bfloat16 main path launched B3/B4 {tuple(launches.values())} = {L} each":
+            tuple(launches.values()) == (L, L),
+        f"decode launches no B3/B4 {decode_extra}": decode_extra == (0, 0),
+        f"float32 prefill logits kernel vs chunked {prefill_rel:.3e} <= {TOL_LOGITS}": prefill_rel <= TOL_LOGITS,
+        f"greedy tokens equal up to the first top-2 gap under tol ({compared} compared)": tokens_ok,
+        f"decode vs apply within {TOL_DECODE} (max abs err {decode_err:.3e})": bool(decode_ok),
+        "every logit finite (float32 and bfloat16)": f32_finite and bf16_finite,
+    }
+    for name, ok in checks.items():
+        log(f"[serve] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("serving path failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+    ctx.setdefault("launches", {}).update(launches)
+
+
+def kernels_line(ctx) -> dict:
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     out = []
-    for name in ("spmv_ell", "spmm_ell"):
-        t = ctx["timings"][name]
-        out.append({
-            "name": name,
-            "route": "cuda",
-            "source": "src/repro_torch/csrc/spmv_ell.cu",
-            "replaces": replaces[name],
-            "launches": ctx["launches"][name],
-            "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "shape": t["shape"],
-            "dtype": "float32",
-        })
+    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked"):
+        t = {"name": name, "route": "cuda", "launches": ctx["launches"][name], **ctx["timings"][name]}
+        out.append({k: t[k] for k in keys})
     return {"kernels": out}
 
 
@@ -545,6 +859,8 @@ def main() -> int:
         ("spmv", phase_spmv),
         ("solve", phase_solve),
         ("profile", phase_profile),
+        ("lm_kernels", phase_lm_kernels),
+        ("serve", phase_serve),
     )
     t_all = time.perf_counter()
     for name, fn in phases:

@@ -21,7 +21,11 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 #: library name -> source file under ``csrc/``
-SOURCES = {"spmv_ell": "spmv_ell.cu"}
+SOURCES = {
+    "spmv_ell": "spmv_ell.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd_scan": "ssd_scan.cu",
+}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: ``<checkout>/build/repro_torch``; listed in ``.gitignore``

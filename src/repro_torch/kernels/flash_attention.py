@@ -1,0 +1,144 @@
+"""Flash attention (forward): a hand-written CUDA kernel and its plain version.
+
+:func:`flash_attention` computes softmax attention for ``q [B, Sq, H, D]``
+over ``k``/``v [B, Sk, KV, D]`` with grouped query heads (query head ``h``
+reads KV head ``h // (H // KV)``), a causal and/or sliding-window mask built
+from absolute positions (query ``i`` sits at key position ``i + Sk - Sq``),
+a float32 online softmax and the output in ``q``'s dtype.  It replaces the
+Pallas kernel ``flash_attention_kernel`` of
+``src/repro/kernels/flash_attention.py``; the CUDA source is
+``csrc/flash_attention.cu``, which also says what bounds it on an H100.
+
+A tensor on the CPU goes to the plain PyTorch version
+(:func:`attention_ref`, the batched form of ``repro.kernels.ref.attention``);
+a CUDA tensor goes to the kernel, or the call raises.  The wrapper counts its
+kernel launches in ``flash_attention.launches``.
+
+Rows that see no key at all (causal with ``Sq > Sk``) are outside the
+contract: the plain version averages every value there, the kernel writes
+zeros.  They never occur on the model's path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as kbuild
+
+#: head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)
+NEG_INF = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Softmax attention with every score materialised.
+
+    q: ``[B, Sq, H, D]``; k/v: ``[B, Sk, KV, D]`` (GQA by repeat).  Scores in
+    float32, probabilities cast to ``q``'s dtype before the value product.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits.masked_fill_(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _check(q, k, v, window) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            "flash_attention: q must be [B, Sq, H, D] and k/v [B, Sk, KV, D] of one shape, got "
+            f"{tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}"
+        )
+    B, Sq, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: batch/head_dim of k {tuple(k.shape)} differ from q {tuple(q.shape)}")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: {H} query heads do not group over {KV} KV heads")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention: q/k/v must all be float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, got {window}")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"flash_attention: inputs lie on several devices: {sorted(map(str, devices))}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = kbuild.load("flash_attention")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.repro_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        lib.repro_flash_attention.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of ``q [B, Sq, H, D]`` over ``k``/``v [B, Sk, KV, D]`` -> ``[B, Sq, H, D]``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    B, Sq, H, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
+    Sk, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _library().repro_flash_attention(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Sk, H, KV, D, int(causal), int(window or 0), float(scale), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with cudaError_t {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,237 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, MLP.
+
+The port of ``repro.models.layers``.  Layers are frozen dataclasses whose
+``params()`` declares a tree of :class:`~repro_torch.models.sharding.ParamSpec`
+with the reference's names, and whose calls are plain functions over
+(params dict, inputs).
+
+Attention implementations (``impl``):
+
+* ``dot``     -- materialized scores (short sequences, decode tests)
+* ``chunked`` -- online softmax over key blocks in plain torch ops
+* ``kernel``  -- the CUDA flash kernel B3
+  (:func:`repro_torch.kernels.flash_attention.flash_attention`; its plain
+  version on a CPU tensor).  The port's name for the reference's
+  ``"pallas"``.
+
+The reference's ``"fused"`` stub serves its XLA dry-run only and waits for
+the port's analysis slice (ROADMAP A.5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.flash_attention import attention_ref as attend_dot  # materialized scores
+from repro_torch.models.sharding import ParamSpec
+
+#: attention implementations the port runs
+ATTENTION_IMPLS = ("dot", "chunked", "kernel")
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_params(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones", keep_f32=True)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float = 1e4,
+    fraction: float = 1.0,
+) -> torch.Tensor:
+    """Rotary embedding. x: [..., S, H, D]; positions: [..., S].
+
+    ``fraction < 1`` rotates only the leading ``fraction * D`` dims
+    (ChatGLM's 2D/partial RoPE).  Angles in float32.
+    """
+    D = x.shape[-1]
+    rot = int(D * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., :, None, None].float() * freqs  # [..., S, 1, half]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = xr[..., :half].float(), xr[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores (batched; q: [B, Sq, H, D], k/v: [B, Sk, Hkv, D])
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    rep = h // k.shape[-2]
+    return k.repeat_interleave(rep, dim=-2) if rep > 1 else k
+
+
+def _mask(Sq: int, Sk: int, kpos: torch.Tensor, causal: bool, window: Optional[int], device):
+    """[Sq, len(kpos)] visibility of keys at ``kpos`` from queries at ``i + Sk - Sq``."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    mask = torch.ones((Sq, kpos.shape[-1]), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attend_chunked(q, k, v, causal: bool = True, window: Optional[int] = None,
+                   scale: Optional[float] = None, block: int = 1024) -> torch.Tensor:
+    """Online-softmax (flash) attention over key blocks, plain torch ops.
+
+    Memory is O(Sq * block) per head instead of O(Sq * Sk).
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    Dv = v.shape[-1]
+    k = _repeat_kv(k, H)
+    v = _repeat_kv(v, H)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    nblk = -(-Sk // block)
+    qf = q.float()
+    acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for b_idx in range(nblk):
+        lo, hi = b_idx * block, min((b_idx + 1) * block, Sk)
+        kblk, vblk = k[:, lo:hi].float(), v[:, lo:hi].float()
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, kblk) * scale
+        logits = logits.masked_fill(~_mask(Sq, Sk, kpos, causal, window, q.device), NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        denom = denom * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attend(q, k, v, *, impl: str = "dot", causal: bool = True, window=None, scale=None) -> torch.Tensor:
+    if impl == "dot":
+        return attend_dot(q, k, v, causal=causal, window=window, scale=scale)
+    if impl == "chunked":
+        return attend_chunked(q, k, v, causal=causal, window=window, scale=scale)
+    if impl == "kernel":
+        return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    if impl == "fused":
+        raise NotImplementedError(
+            "attention impl 'fused' is the reference's dry-run stub; it waits for ROADMAP A.5"
+        )
+    raise ValueError(f"unknown attention impl {impl!r}; the port runs {ATTENTION_IMPLS}")
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsm,m...->bs...", x, w)`` as one matrix product."""
+    M = w.shape[0]
+    return (x @ w.reshape(M, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionLayer:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    rope_fraction: float = 1.0
+    window: Optional[int] = None
+
+    def params(self) -> dict:
+        H, KV, D, M = self.n_heads, self.n_kv_heads, self.head_dim, self.d_model
+        p = {
+            "wq": ParamSpec((M, H, D), ("fsdp", "heads", None)),
+            "wk": ParamSpec((M, KV, D), ("fsdp", "kv_heads", None)),
+            "wv": ParamSpec((M, KV, D), ("fsdp", "kv_heads", None)),
+            "wo": ParamSpec((H, D, M), ("heads", None, "fsdp")),
+        }
+        if self.qk_norm:
+            p["q_norm"] = rmsnorm_params(D)
+            p["k_norm"] = rmsnorm_params(D)
+        return p
+
+    def qkv(self, params, x, positions):
+        """x: [B, S, M] -> q [B,S,H,D], k/v [B,S,KV,D] (rotated, normed)."""
+        q = _proj(x, params["wq"])
+        k = _proj(x, params["wk"])
+        v = _proj(x, params["wv"])
+        if self.qk_norm:
+            q = rmsnorm(params["q_norm"], q)
+            k = rmsnorm(params["k_norm"], k)
+        q = rope(q, positions, self.rope_theta, self.rope_fraction)
+        k = rope(k, positions, self.rope_theta, self.rope_fraction)
+        return q.contiguous(), k.contiguous(), v.contiguous()
+
+    def out(self, params, attn_out):
+        wo = params["wo"]
+        B, S = attn_out.shape[:2]
+        return attn_out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+    def __call__(self, params, x, positions, impl="dot", causal: bool = True):
+        q, k, v = self.qkv(params, x, positions)
+        o = attend(q, k, v, impl=impl, causal=causal, window=self.window)
+        return self.out(params, o)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLP:
+    d_model: int
+    d_ff: int
+    act: str = "silu"  # silu (-> SwiGLU) | gelu
+
+    def params(self) -> dict:
+        p = {
+            "w_in": ParamSpec((self.d_model, self.d_ff), ("fsdp", "mlp")),
+            "w_out": ParamSpec((self.d_ff, self.d_model), ("mlp", "fsdp")),
+        }
+        if self.act == "silu":
+            p["w_gate"] = ParamSpec((self.d_model, self.d_ff), ("fsdp", "mlp"))
+        return p
+
+    def __call__(self, params, x):
+        h = x @ params["w_in"]
+        if self.act == "silu":
+            h = F.silu(x @ params["w_gate"]) * h
+        else:
+            # jax.nn.gelu defaults to the tanh approximation
+            h = F.gelu(h, approximate="tanh")
+        return h @ params["w_out"]

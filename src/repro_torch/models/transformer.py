@@ -1,0 +1,343 @@
+"""Transformer blocks and stacked segments.
+
+The port of ``repro.models.transformer`` for the block kinds of this slice:
+
+* ``dense``   -- self-attention (GQA) + MLP
+* ``ssm``     -- Mamba-2 mixer only
+* ``hybrid``  -- parallel attention + SSM heads (Hymba), then MLP
+
+A model is a sequence of **segments**; each segment is ``count`` copies of
+one block with **stacked** ``[count, ...]`` parameters and cache leaves, as
+in the reference.  Where the reference scans the layers with ``lax.scan``,
+the port runs a Python loop over the stacked leaves, so weights carry over
+one to one.  Every block implements ``apply`` (full sequence), ``prefill``
+(full sequence, returns its cache slice) and ``decode`` (one token + cache).
+
+Departure from the reference: ``Block._mix`` hands ``impl="kernel"`` through
+to the Mamba-2 mixer, so the kernel route of a prefill runs the SSD kernel B4.
+The reference's ``Block._mix`` passes ``impl="chunked"`` whatever it was given
+(``src/repro/models/transformer.py:285``), so its ``LMModel`` never reaches
+its own Pallas SSD kernel.  The two compute the same function: the
+reference's tests hold the Pallas kernel to ``ssd_chunked`` within 2e-4
+(``tests/test_kernels.py``).  Every other ``impl`` runs the plain chunked SSD,
+as the reference does.
+
+The MoE, MLA, cross-attention and encoder blocks wait for ROADMAP A.4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.mamba2 import Mamba2Mixer
+from repro_torch.models.sharding import ParamSpec, tree_map
+
+#: block kinds of this slice
+BLOCK_KINDS = ("dense", "ssm", "hybrid")
+
+
+def pad_heads(n_heads: int, n_kv: int, tp: int) -> Tuple[int, int]:
+    """Pad (q heads, kv heads) so q % tp == 0 and q % kv == 0."""
+    hp = -(-n_heads // tp) * tp
+    kv = n_kv
+    while hp % kv:
+        kv += 1
+    return hp, kv
+
+
+def kv_store_heads(kv: int, tp: int) -> int:
+    """KV heads as stored in the decode cache: the true (grouping-padded)
+    count; the reference shards the cache on its sequence dim instead of
+    repeating heads up to the TP size."""
+    del tp
+    return kv
+
+
+# ---------------------------------------------------------------------------
+# Attention with cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CachedAttention:
+    """GQA attention + ring/linear KV cache."""
+
+    attn: L.AttentionLayer
+    kv_store: int  # stored (possibly repeated) kv heads
+    window: Optional[int] = None
+
+    def params(self) -> dict:
+        return self.attn.params()
+
+    def _store(self, k: torch.Tensor) -> torch.Tensor:
+        rep = self.kv_store // k.shape[-2]
+        return k.repeat_interleave(rep, dim=-2) if rep > 1 else k
+
+    def prefill(self, params, x, positions, impl):
+        q, k, v = self.attn.qkv(params, x, positions)
+        o = L.attend(q, k, v, impl=impl, causal=True, window=self.window)
+        out = self.attn.out(params, o)
+        ks, vs = self._store(k), self._store(v)
+        if self.window is not None:
+            W = self.window
+            S = ks.shape[1]
+            if S >= W:
+                # ring holds the last W keys at slot = pos % W
+                idx = torch.arange(S - W, S, device=ks.device) % W
+                ring_k = torch.zeros((ks.shape[0], W, *ks.shape[2:]), dtype=ks.dtype, device=ks.device)
+                ring_v = torch.zeros_like(ring_k)
+                ring_k[:, idx] = ks[:, -W:]
+                ring_v[:, idx] = vs[:, -W:]
+                ks, vs = ring_k, ring_v
+            else:
+                pad = (0, 0, 0, 0, 0, W - S)
+                ks = torch.nn.functional.pad(ks, pad)
+                vs = torch.nn.functional.pad(vs, pad)
+        return out, {"k": ks, "v": vs}
+
+    def decode(self, params, x, positions, cache, pos: int):
+        """Single-token decode WITHOUT touching the cache tensors: attention
+        runs over the existing entries (masked to ``< pos``) plus the current
+        token's K/V as an explicit extra term; :meth:`Segment.decode` appends
+        the new entries once per step after every layer has run."""
+        q, k, v = self.attn.qkv(params, x, positions)  # S == 1
+        k, v = self._store(k), self._store(v)
+        ks, vs = cache["k"], cache["v"]
+        if self.window is not None:
+            W = self.window
+            slots = torch.arange(W, device=ks.device)
+            # ring slots hold positions pos-W..pos-1 except the slot about to
+            # be overwritten; all written slots are < pos by construction
+            valid = slots != pos % W if pos >= W else slots < pos
+        else:
+            valid = torch.arange(ks.shape[1], device=ks.device) < pos
+        o = self._decode_attend(q, k, v, ks, vs, valid)
+        return self.attn.out(params, o), {"k_new": k, "v_new": v}
+
+    def _decode_attend(self, q, k_new, v_new, ks, vs, valid):
+        """Grouped-GQA single-query attention over cache + current token;
+        dots in the cache dtype, softmax in float32."""
+        B, _, H, D = q.shape
+        KV = ks.shape[-2]
+        rep = H // KV
+        q5 = q.reshape(B, 1, KV, rep, D).permute(0, 2, 3, 1, 4)  # [B,KV,rep,1,D]
+        scale = 1.0 / float(D) ** 0.5
+        lc = torch.einsum("bkrqd,bskd->bkrqs", q5, ks.to(q.dtype)).float() * scale
+        lc = lc.masked_fill(~valid, L.NEG_INF)
+        lnew = torch.einsum("bkrqd,bskd->bkrqs", q5, k_new.to(q.dtype)).float() * scale
+        m = torch.maximum(lc.amax(dim=-1, keepdim=True), lnew)
+        pc = torch.exp(lc - m)
+        pn = torch.exp(lnew - m)
+        denom = pc.sum(dim=-1, keepdim=True) + pn
+        o = torch.einsum("bkrqs,bskd->bkrqd", pc.to(vs.dtype), vs) + pn.to(
+            v_new.dtype
+        ) * v_new.permute(0, 2, 1, 3)[:, :, None]
+        o = o / denom.to(o.dtype)
+        return o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D).to(q.dtype)
+
+    def init_cache(self, batch, max_len, dtype, device):
+        S = self.window if self.window is not None else max_len
+        D = self.attn.head_dim
+        shape = (batch, S, self.kv_store, D)
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """One transformer block; which sub-layers exist depends on the kind."""
+
+    cfg: ModelConfig
+    tp: int = 1
+    self_attn: Optional[CachedAttention] = None
+    ssm: Optional[Mamba2Mixer] = None
+    mlp: Optional[L.MLP] = None
+
+    @staticmethod
+    def make(cfg: ModelConfig, kind: str, tp: int = 1) -> "Block":
+        if kind not in BLOCK_KINDS:
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported yet (ROADMAP A.4); the port runs {BLOCK_KINDS}"
+            )
+        hp, kvp = pad_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+        attn = L.AttentionLayer(
+            d_model=cfg.d_model, n_heads=hp, n_kv_heads=kvp, head_dim=cfg.resolved_head_dim,
+            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+            rope_fraction=cfg.rope_fraction, window=cfg.window,
+        )
+        cached = CachedAttention(attn, kv_store_heads(kvp, tp), window=cfg.window)
+        mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act) if cfg.d_ff else None
+        if kind == "dense":
+            return Block(cfg=cfg, tp=tp, self_attn=cached, mlp=mlp)
+        if kind == "ssm":
+            return Block(cfg=cfg, tp=tp, ssm=Mamba2Mixer(cfg.d_model, cfg.ssm))
+        return Block(cfg=cfg, tp=tp, self_attn=cached, ssm=Mamba2Mixer(cfg.d_model, cfg.ssm), mlp=mlp)
+
+    def params(self) -> dict:
+        p: Dict[str, Any] = {}
+        if self.self_attn is not None:
+            p["attn"] = self.self_attn.params()
+            p["attn_norm"] = L.rmsnorm_params(self.cfg.d_model)
+        if self.ssm is not None:
+            p["ssm"] = self.ssm.params()
+            if self.self_attn is None:
+                p["ssm_norm"] = L.rmsnorm_params(self.cfg.d_model)
+        if self.mlp is not None:
+            p["mlp"] = self.mlp.params()
+            p["mlp_norm"] = L.rmsnorm_params(self.cfg.d_model)
+        return p
+
+    # -- mixing sub-layer (attention and/or SSM) ---------------------------
+    def _mix(self, p, x, positions, impl, mode, cache=None, pos=None):
+        """Returns (delta, new_cache_pieces)."""
+        new_cache: Dict[str, Any] = {}
+        parts = []
+        eps = self.cfg.norm_eps
+        if self.self_attn is not None:
+            h = L.rmsnorm(p["attn_norm"], x, eps)
+            if mode == "apply":
+                o = self.self_attn.attn(p["attn"], h, positions, impl=impl, causal=True)
+            elif mode == "prefill":
+                o, new_cache["attn"] = self.self_attn.prefill(p["attn"], h, positions, impl)
+            else:
+                o, new_cache["attn"] = self.self_attn.decode(p["attn"], h, positions, cache["attn"], pos)
+            parts.append(o)
+        if self.ssm is not None:
+            hs = L.rmsnorm(p.get("ssm_norm", p.get("attn_norm")), x, eps)
+            if mode == "decode":
+                o, new_cache["ssm"] = self.ssm.decode(p["ssm"], hs, cache["ssm"])
+            else:
+                # the port's departure from transformer.py:285 (module docstring)
+                o = self.ssm(p["ssm"], hs, impl="kernel" if impl == "kernel" else "chunked")
+                if mode == "prefill":
+                    new_cache["ssm"] = self._ssm_prefill_state(p, hs)
+            parts.append(o)
+        delta = parts[0] if len(parts) == 1 else 0.5 * (parts[0] + parts[1])
+        return delta, new_cache
+
+    def _ssm_prefill_state(self, p, hs):
+        """Final SSM state after a prefill (recomputed from the projections).
+
+        The reference weighs step j by ``exp(la[-1] - la[j])`` with ``la`` the
+        float32 cumsum over the whole prompt; at 4096 steps ``la`` reaches
+        thousands, where one float32 ulp is ~5e-4, so the weights of the
+        recent steps (the ones that matter) lose about three digits.  The
+        port sums the same exponent from the end (``sum_{k>j} loga_k``), which
+        stays small exactly where the weight is not negligible.
+        """
+        m = self.ssm
+        xh, z, b, c, dt = m._project(p["ssm"], hs)
+        xh, conv_state = m._conv(p["ssm"], xh)
+        a = -torch.exp(p["ssm"]["a_log"].float())
+        loga = a[None, None, :] * dt
+        xdt = xh.float() * dt[..., None]
+        # state = sum_j exp(sum_{k>j} loga_k) b_j xdt_j
+        after = torch.flip(torch.cumsum(torch.flip(loga[:, 1:], [1]), dim=1), [1])
+        w = torch.exp(torch.nn.functional.pad(after, (0, 0, 0, 1)))  # [B,S,H]
+        h = torch.einsum("bsn,bsh,bshp->bhnp", b.float(), w, xdt)
+        return {"ssm": h, "conv": conv_state[:, -(m.cfg.conv_width - 1):]}
+
+    def run(self, p, x, positions, *, impl, mode, cache=None, pos=None):
+        """mode: apply | prefill | decode. Returns (x, new_cache)."""
+        delta, new_cache = self._mix(p, x, positions, impl, mode, cache, pos)
+        x = x + delta
+        if self.mlp is not None:
+            h = L.rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
+            x = x + self.mlp(p["mlp"], h)
+        return x, new_cache
+
+    def init_cache(self, batch, max_len, dtype, device):
+        c: Dict[str, Any] = {}
+        if self.self_attn is not None:
+            c["attn"] = self.self_attn.init_cache(batch, max_len, dtype, device)
+        if self.ssm is not None:
+            c["ssm"] = self.ssm.init_cache(batch, dtype, device)
+        return c
+
+
+# ---------------------------------------------------------------------------
+# Segments: a loop over stacked homogeneous blocks
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _stack(trees):
+    first = trees[0]
+    return {
+        k: _stack([t[k] for t in trees]) if isinstance(v, dict) else torch.stack([t[k] for t in trees])
+        for k, v in first.items()
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    name: str
+    block: Block
+    count: int
+
+    def params(self) -> dict:
+        """Stacked ParamSpec tree: every leaf gains a leading 'layers' dim."""
+
+        def stack(ps: ParamSpec) -> ParamSpec:
+            return dataclasses.replace(ps, shape=(self.count, *ps.shape), logical=("layers", *ps.logical))
+
+        return tree_map(stack, self.block.params())
+
+    def apply(self, params, x, positions, *, impl):
+        for i in range(self.count):
+            x, _ = self.block.run(_layer(params, i), x, positions, impl=impl, mode="apply")
+        return x
+
+    def prefill(self, params, x, positions, *, impl):
+        caches = []
+        for i in range(self.count):
+            x, cache = self.block.run(_layer(params, i), x, positions, impl=impl, mode="prefill")
+            caches.append(cache)
+        return x, _stack(caches)  # cache leaves stacked [count, ...]
+
+    def decode(self, params, x, positions, caches, pos: int):
+        """One decode step for all layers of this segment.
+
+        Blocks never return updated cache tensors, only the new entries; they
+        are written into the stacked caches **in place** after the loop (one
+        copy per tensor), and the SSM state is replaced.  The caller's cache
+        tensors therefore hold the new step on return.
+        """
+        updates = []
+        for i in range(self.count):
+            x, upd = self.block.run(
+                _layer(params, i), x, positions, impl="dot", mode="decode",
+                cache=_layer(caches, i), pos=pos,
+            )
+            updates.append(upd)
+        updates = _stack(updates)
+        new_caches = dict(caches)
+        if "attn" in updates:
+            W = self.block.self_attn.window
+            slot = pos % W if W is not None else pos
+            for name in ("k", "v"):
+                # old: [count, B, S, ...]; new: [count, B, 1, ...]
+                old = caches["attn"][name]
+                old[:, :, slot] = updates["attn"][f"{name}_new"][:, :, 0].to(old.dtype)
+        if "ssm" in updates:
+            new_caches["ssm"] = updates["ssm"]  # full replacement (O(1) state)
+        return x, new_caches
+
+    def init_cache(self, batch, max_len, dtype, device):
+        one = self.block.init_cache(batch, max_len, dtype, device)
+        return tree_map(lambda a: torch.zeros((self.count, *a.shape), dtype=a.dtype, device=device), one)

@@ -1,6 +1,6 @@
 """The port on a CUDA GPU: the hand-written kernels against their plain
-versions, and the exchange, SpMV and CG on the card against the same code on
-the CPU.
+versions, the exchange, SpMV and CG on the card against the same code on
+the CPU, and a tiny hymba prefill through the kernels against the plain route.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode).  The file imports no JAX, so it runs on a GPU machine
@@ -14,7 +14,11 @@ import pytest
 import torch
 
 from repro_torch.comm import STRATEGY_NAMES, IrregularExchange, PodTopology, execute_numpy, random_pattern
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import spmv_ell as K
+from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.launch.serve import build
+from repro_torch.models.ssd import ssd_chunked as ssd_plain
 from repro_torch.solve import cg, spd_system
 from repro_torch.sparse import DistributedSpMV, partition_csr, thermal_like
 
@@ -102,3 +106,101 @@ def test_spmv_and_cg_on_card(dev):
     assert abs(got.iterations - want.iterations) <= 1
     assert K.spmv_ell.launches - n0 >= 2 * got.matvecs
     torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-4, atol=1e-4)
+
+
+#: (B, Sq, Sk, H, KV, D, causal, window): tests/test_kernels.py's cases, hymba's
+#: head ratio with a window shorter than S, and a ragged Sq < Sk
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 48, 48, 4, 4, 16, True, 16),
+    (2, 16, 64, 4, 2, 32, True, None),
+    (1, 64, 64, 2, 1, 64, False, None),
+    (1, 100, 100, 2, 2, 32, True, 32),
+    (2, 300, 300, 25, 5, 64, True, 128),
+    (1, 70, 200, 4, 2, 128, True, 100),
+]
+
+
+#: B3 against ``attention_ref`` in float32 on the same inputs: f32 within the
+#: reference's 2e-4 (tests/test_kernels.py); bf16 inputs leave only the
+#: rounding of the output to bf16 (at most 2**-8 of it), so rtol 8e-3 and an
+#: atol far under the outputs' typical size
+ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_matches_plain(dev, case, dtype):
+    """B3 against ``attention_ref`` computed in float32 on the same
+    (for bf16: bf16-rounded) inputs, at ``ATTN_TOL``."""
+    B, Sq, Sk, H, KV, D, causal, window = case
+    rtol, atol = ATTN_TOL[dtype]
+    rng = np.random.default_rng(7)
+    q, k, v = (
+        torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
+        for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D))
+    )
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention.launches == n0 + 1
+    want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,P,N,Q",
+    [(2, 32, 3, 4, 8, 8), (1, 50, 2, 16, 8, 16), (2, 128, 4, 8, 16, 32), (1, 7, 1, 2, 3, 4),
+     (2, 300, 5, 64, 16, 128)],
+)
+def test_ssd_matches_plain(dev, B, S, H, P, N, Q):
+    """B4 against the plain chunked SSD (2e-4) and the sequential oracle
+    (5e-4), and its output does not depend on the chunk size."""
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.normal(size=(B, S, H, P)).astype(np.float32), device=dev)
+    loga = torch.as_tensor((-np.abs(rng.normal(size=(B, S, H))) * 0.2).astype(np.float32), device=dev)
+    b = torch.as_tensor(rng.normal(size=(B, S, N)).astype(np.float32), device=dev)
+    c = torch.as_tensor(rng.normal(size=(B, S, N)).astype(np.float32), device=dev)
+    n0 = SSD.ssd_chunked.launches
+    got = SSD.ssd_chunked(x, loga, b, c, chunk=Q)
+    assert SSD.ssd_chunked.launches == n0 + 1
+    torch.testing.assert_close(got, ssd_plain(x, loga, b, c, chunk=Q), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got, SSD.ssd_scan_ref(x, loga, b, c), rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(SSD.ssd_chunked(x, loga, b, c, chunk=max(Q // 2, 1)), got, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_chunk_fits_shared_memory(dev):
+    """hymba-1.5b's shapes keep their chunk; a state too large for a chunk of
+    128 halves it, and the halved chunk gives the plain version's output."""
+    assert SSD.kernel_chunk(128, 4096, 64, 16, dev) == 128
+    assert SSD.kernel_chunk(128, 50, 64, 16, dev) == 50
+    assert SSD.kernel_chunk(128, 4096, 64, 128, dev) == 64
+    rng = np.random.default_rng(10)
+    B, S, H, P, N = 1, 300, 2, 64, 128
+    x = torch.as_tensor(rng.normal(size=(B, S, H, P)).astype(np.float32), device=dev)
+    loga = torch.as_tensor((-np.abs(rng.normal(size=(B, S, H))) * 0.2).astype(np.float32), device=dev)
+    # b, c scaled so that c . b keeps the size it has at N = 16
+    b = torch.as_tensor((rng.normal(size=(B, S, N)) * 0.35).astype(np.float32), device=dev)
+    c = torch.as_tensor((rng.normal(size=(B, S, N)) * 0.35).astype(np.float32), device=dev)
+    torch.testing.assert_close(
+        SSD.ssd_chunked(x, loga, b, c, chunk=128), ssd_plain(x, loga, b, c, chunk=128), rtol=2e-4, atol=2e-4
+    )
+
+
+def test_tiny_hymba_prefill_kernel_vs_plain(dev):
+    """A tiny hymba prefill through B3 and B4 against the plain route on the
+    card: one launch of each per layer, logits and every cache leaf within 1e-4."""
+    model, params = build("hymba-1.5b", "tiny", seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(0, 1024, (2, 80)), device=dev)
+    n_fa, n_ssd = FA.flash_attention.launches, SSD.ssd_chunked.launches
+    with torch.inference_mode():
+        got, cache = model.prefill(params, tokens, impl="kernel")
+        assert FA.flash_attention.launches - n_fa == model.cfg.n_layers
+        assert SSD.ssd_chunked.launches - n_ssd == model.cfg.n_layers
+        want, want_cache = model.prefill(params, tokens, impl="chunked")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for name in ("attn", "ssm"):
+        for leaf in cache["seg_hyb"][name]:
+            torch.testing.assert_close(
+                cache["seg_hyb"][name][leaf], want_cache["seg_hyb"][name][leaf], rtol=1e-4, atol=1e-4
+            )

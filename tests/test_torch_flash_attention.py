@@ -1,0 +1,79 @@
+"""The port's attention kernel B3 against the JAX reference.
+
+On the CPU the wrapper :func:`repro_torch.kernels.flash_attention.flash_attention`
+runs its plain version; it and :func:`attention_ref` are held to the Pallas
+kernel ``flash_attention_kernel`` (interpret mode) and to ``ref.attention``
+at the shapes of ``tests/test_kernels.py`` plus one at hymba-1.5b's head
+ratio (25 query heads over 5 KV heads, head_dim 64, a window shorter than
+the sequence), with the reference's tolerances: 2e-4 in float32, 3e-2 in
+bfloat16.  The CUDA kernel itself is held to the plain version on a GPU by
+``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels import flash_attention as FA
+
+CASES = [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 48, 48, 4, 4, 16, True, 16),
+    (2, 16, 64, 4, 2, 32, True, None),  # cached decode-style Sq < Sk
+    (1, 64, 64, 2, 1, 64, False, None),  # bidirectional (encoder)
+    (1, 100, 100, 2, 2, 32, True, 32),  # non-multiple of block
+    (1, 80, 80, 25, 5, 64, True, 24),  # hymba's head ratio, window < S
+]
+#: one compiled program per case instead of one per eager op
+ref_attention = jax.jit(ref.attention, static_argnames=("causal", "window"))
+DTYPES = {"float32": (np.float32, torch.float32, 2e-4), "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _inputs(B, Sq, Sk, H, KV, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, H, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, KV, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, KV, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_matches_pallas_and_ref(case, dtype):
+    B, Sq, Sk, H, KV, D, causal, win = case
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(B, Sq, Sk, H, KV, D)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(a).to(tdt) for a in (q, k, v))
+    pallas = np.asarray(
+        flash_attention_kernel(jq, jk, jv, causal=causal, window=win, block_q=32, block_k=32, interpret=True),
+        np.float32,
+    )
+    oracle = np.stack(
+        [np.asarray(ref_attention(jq[b], jk[b], jv[b], causal=causal, window=win), np.float32) for b in range(B)]
+    )
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(tq, tk, tv, causal=causal, window=win)
+    assert FA.flash_attention.launches == n0  # the CPU route launches nothing
+    assert got.dtype == tdt and got.shape == (B, Sq, H, D)
+    plain = FA.attention_ref(tq, tk, tv, causal=causal, window=win)
+    np.testing.assert_allclose(got.float().numpy(), pallas, rtol=tol, atol=tol)
+    np.testing.assert_allclose(plain.float().numpy(), oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize(
+    "make,err",
+    [
+        (lambda: (torch.zeros(1, 4, 3, 16), torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16)), ValueError),
+        (lambda: (torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8)), ValueError),
+        (lambda: (torch.zeros(1, 4, 2, 16, dtype=torch.float16),) * 3, TypeError),
+        (lambda: (torch.zeros(1, 2, 4, 16).transpose(1, 2),) + (torch.zeros(1, 4, 2, 16),) * 2, ValueError),
+    ],
+    ids=["heads-do-not-group", "head-dim-differs", "float16", "not-contiguous"],
+)
+def test_flash_attention_rejects_bad_inputs(make, err):
+    with pytest.raises(err):
+        FA.flash_attention(*make())

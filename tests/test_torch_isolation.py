@@ -38,7 +38,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.comm.strategies" in mods and "repro_torch.kernels.spmv_ell" in mods
+    for name in ("repro_torch.comm.strategies", "repro_torch.kernels.spmv_ell",
+                 "repro_torch.models.lm", "repro_torch.kernels.flash_attention"):
+        assert name in mods, name
     proc = _run(
         f"""
         import importlib, sys

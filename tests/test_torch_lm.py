@@ -1,0 +1,155 @@
+"""The port's LMModel against the JAX reference, for its three families.
+
+``hymba-1.5b`` (hybrid: sliding-window GQA + Mamba-2 heads), ``stablelm-3b``
+(dense) and ``mamba2-780m`` (ssm), each shrunk as in ``tests/test_models.py``,
+in float32.  The reference's parameters (``LMModel.init``) are carried over
+with ``from_reference``; the port runs with ``impl="kernel"`` on the CPU
+(the plain versions of B3 and B4), the reference with ``impl="pallas"``
+(Pallas in interpret mode).  The hymba prompt (12) is longer than its window
+(8), so the prefill writes the window ring.  Tolerances: 1e-4 between the
+two packages; 5e-2 for the port's decode against its own full forward, as
+``tests/test_models.py`` allows the reference.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.compat import tree_flatten_with_path
+from repro.configs import get_config as ref_config
+from repro.models import LMModel as RefModel
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.launch.serve import rehome_cache
+from repro_torch.models.convert import from_reference
+from repro_torch.models.lm import LMModel
+from repro_torch.models.sharding import tree_items
+
+ARCHS = ["hymba-1.5b", "stablelm-3b", "mamba2-780m"]
+B, S, EXTRA = 2, 12, 3
+TOL = 1e-4
+
+
+def shrink(cfg, dtype="float32"):
+    kw = dict(
+        n_layers=2, d_model=64, d_ff=128 if cfg.d_ff else 0, n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16, vocab_size=256, dtype=dtype,
+    )
+    if cfg.ssm:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, state_dim=8, head_dim=8, chunk=8)
+    if cfg.window:
+        kw["window"] = 8
+    return dataclasses.replace(cfg, **kw)
+
+
+def _blend(dst, src):
+    if dst.shape != src.shape:
+        return dst.at[tuple(slice(0, s) for s in src.shape)].set(src.astype(dst.dtype))
+    return src.astype(dst.dtype)
+
+
+def _flat(tree) -> dict:
+    return {".".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in tree_flatten_with_path(tree)[0]}
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """The reference's outputs for one arch, and the port's model and weights."""
+    arch = request.param
+    ref = RefModel(shrink(ref_config(arch)))
+    model = LMModel(shrink(get_config(arch)))
+    params = jax.jit(ref.init)(jax.random.PRNGKey(1))  # one compile, not one per leaf
+    toks = np.random.default_rng(0).integers(0, 256, (B, S + EXTRA))
+    last, cache = ref.prefill(params, jnp.asarray(toks[:, :S], jnp.int32), impl="pallas")
+    out = {"arch": arch, "toks": toks, "prefill": np.asarray(last), "cache": _flat(cache)}
+    cache = jax.tree.map(_blend, ref.init_cache(B, S + EXTRA, jnp.float32), cache)
+    out["decode"] = []
+    decode = jax.jit(ref.decode_step)  # one compile for the three steps
+    for t in range(EXTRA):
+        logits, cache = decode(params, jnp.asarray(toks[:, S + t : S + t + 1], jnp.int32), cache,
+                                        jnp.int32(S + t))
+        out["decode"].append(np.asarray(logits[:, 0]))
+    out["apply"] = np.asarray(ref.apply(params, jnp.asarray(toks, jnp.int32)))
+    out["model"] = model
+    out["ref_params"] = jax.tree.map(np.asarray, params)
+    out["params"] = from_reference(model, out["ref_params"], device="cpu")
+    return out
+
+
+def test_prefill_logits_and_cache_match_reference(pair):
+    model, params = pair["model"], pair["params"]
+    tokens = torch.as_tensor(pair["toks"][:, :S])
+    n_fa, n_ssd = FA.flash_attention.launches, SSD.ssd_chunked.launches
+    last, cache = model.prefill(params, tokens, impl="kernel")
+    assert (FA.flash_attention.launches, SSD.ssd_chunked.launches) == (n_fa, n_ssd)
+    np.testing.assert_allclose(last.numpy(), pair["prefill"], rtol=TOL, atol=TOL)
+    got = {k: v.numpy() for k, v in tree_items(cache)}
+    assert sorted(got) == sorted(pair["cache"])
+    for key, want in pair["cache"].items():
+        assert got[key].shape == want.shape, key
+        np.testing.assert_allclose(got[key], want, rtol=TOL, atol=TOL, err_msg=key)
+
+
+def test_decode_after_rehome_matches_reference(pair):
+    model, params, toks = pair["model"], pair["params"], pair["toks"]
+    _, cache = model.prefill(params, torch.as_tensor(toks[:, :S]), impl="kernel")
+    cache = rehome_cache(model, cache, B, S + EXTRA)
+    for t in range(EXTRA):
+        logits, cache = model.decode_step(params, torch.as_tensor(toks[:, S + t : S + t + 1]), cache, S + t)
+        np.testing.assert_allclose(logits[:, 0].numpy(), pair["decode"][t], rtol=TOL, atol=TOL)
+
+
+def test_apply_matches_reference(pair):
+    got = pair["model"].apply(pair["params"], torch.as_tensor(pair["toks"]), impl="dot")
+    np.testing.assert_allclose(got.numpy(), pair["apply"], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "chunked"])
+def test_decode_matches_own_full_forward(pair, impl):
+    model, params, toks = pair["model"], pair["params"], pair["toks"]
+    full = model.apply(params, torch.as_tensor(toks), impl=impl)
+    last, cache = model.prefill(params, torch.as_tensor(toks[:, :S]), impl=impl)
+    torch.testing.assert_close(last[:, 0], full[:, S - 1], rtol=5e-3, atol=5e-3)
+    cache = rehome_cache(model, cache, B, S + EXTRA)
+    for t in range(EXTRA):
+        logits, cache = model.decode_step(params, torch.as_tensor(toks[:, S + t : S + t + 1]), cache, S + t)
+        torch.testing.assert_close(logits[:, 0], full[:, S + t], rtol=5e-2, atol=5e-2)
+
+
+def test_from_reference_rejects_missing_extra_and_misshapen(pair):
+    model, tree = pair["model"], pair["ref_params"]
+    seg = next(k for k in tree if k.startswith("seg_"))
+    with pytest.raises(KeyError, match="missing"):
+        from_reference(model, {k: v for k, v in tree.items() if k != "embed"}, device="cpu")
+    with pytest.raises(KeyError, match="extra"):
+        from_reference(model, {**tree, "adapter": np.zeros((64, 64), np.float32)}, device="cpu")
+    bad = {**tree, "embed": tree["embed"][:-1]}
+    with pytest.raises(ValueError, match="embed"):
+        from_reference(model, bad, device="cpu")
+    # leaves the reference reads in float32 stay float32 in a bfloat16 model
+    half = from_reference(model, tree, device="cpu", dtype=torch.bfloat16)
+    assert half["embed"].dtype == torch.bfloat16
+    assert half["final_norm"]["scale"].dtype == torch.float32
+    if "ssm" in half[seg]:
+        assert {half[seg]["ssm"][k].dtype for k in ("a_log", "dt_bias", "d_skip")} == {torch.float32}
+
+
+@pytest.mark.parametrize(
+    "arch", ["deepseek-v2-lite-16b", "llama4-scout-17b-a16e", "llama-3.2-vision-90b", "whisper-large-v3"]
+)
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+        LMModel(get_config(arch))
+
+
+def test_full_hymba_matches_the_reference_parameter_count():
+    cfg = get_config("hymba-1.5b")
+    model = LMModel(cfg)
+    assert model.param_count() == RefModel(ref_config("hymba-1.5b")).param_count() == 1_640_812_800
+    assert model.vocab == 32016 and [s.name for s in model.segments] == ["hyb"]
