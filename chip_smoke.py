@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
-Two main paths, each driven with the kernels' launch counts set to 0 just
+Three paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * the paper's case study at a real size: the 5-point stencil
@@ -14,7 +14,8 @@ before it and read just after:
 * LLM serving: hymba-1.5b at full width and depth (32 hybrid layers,
   d_model 1600, 1,640,812,800 parameters, random weights from a seed),
   batch 4, prompts of 4096 tokens (longer than its 2048-token window), 32
-  greedy tokens, through ``repro_torch.launch.serve``; kernels B3/B4.
+  greedy tokens, through ``repro_torch.launch.serve``; kernels B3/B4; and
+  a short serve of stablelm-3b (B3 at head width 80).
 
 Phases, each of which fails the run on any error:
 
@@ -34,16 +35,22 @@ Phases, each of which fails the run on any error:
    ``torch.profiler``;
 7. B3 (``flash_attention``, f32 and bf16) and B4 (``ssd_chunked``, f32) at the
    serving path's shapes and at ragged / ``Sq < Sk`` / non-causal / no-window
-   / other-chunk cases, against their plain versions (B3 against the plain
-   version in float32 on the same inputs); kernel, plain and
-   library (``scaled_dot_product_attention``; none for the SSD) times and the
-   bound;
+   / other-chunk cases, and B3 at stablelm-3b's and qwen3-32b's head widths
+   (80, 128), stablelm-3b's at its serve phase's shapes too, against their
+   plain versions (B3 against the plain version in float32 on the same
+   inputs); kernel, plain and library (``scaled_dot_product_attention``;
+   none for the SSD) times and the bound, B3's at both serve phases' shapes;
+   B3 beside SDPA at D = 128, S = 4096, causal; at hymba's shapes (D = 64)
+   the wgmma kernel beside the mma.sync kernel of the other widths;
 8. the serving path: in float32, the kernel route against the plain route
    (prefill logits, greedy tokens) and decode against the full forward;
    then the bfloat16 run, its prefill and decode times, peak memory, and the
    device's busy share over ten decode steps;
-9. one JSON line of the kernels, the card's name and power limit, and the
-   device line last.
+9. a short bfloat16 serve of stablelm-3b at full width and depth (batch 2,
+   prompts of 2048, 8 tokens; counts reset just before, read just after):
+   B3 at head width 80, 32 launches, finite logits;
+10. one JSON line of the kernels, the card's name and power limit, and the
+    device line last.
 
 Without a CUDA device, or without the rest of the checkout beside it, it
 exits non-zero and prints no result.  Details go to
@@ -52,6 +59,7 @@ exits non-zero and prints no result.  Details go to
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -75,6 +83,10 @@ MM_COLS = 8
 #: prompts longer than its 2048-token window, greedy decode
 LM_ARCH = "hymba-1.5b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
+#: a dense config whose head width (80) B3 takes since it took every
+#: multiple of 16: stablelm-3b at full width and depth, a short serve
+SLM_ARCH = "stablelm-3b"
+SLM_BATCH, SLM_PROMPT, SLM_GEN = 2, 2048, 8
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 #: and dense bf16 tensor-core FLOP/s
@@ -153,15 +165,16 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def ssd_flops(S: int, Q: int, P: int, N: int) -> int:
-    """fp32 operations of the chunked SSD for one (batch, head): per chunk of
-    q steps, the causal c.b scores and their product with x, the incoming
-    state's term and the state update."""
+def ssd_flops(S: int, Q: int, H: int, P: int, N: int) -> int:
+    """fp32 operations of the chunked SSD for one batch row of H heads: per
+    chunk of q steps, the causal c.b scores (shared by the heads), and per
+    head their product with x, the incoming state's term and the state
+    update."""
     total = 0
     for s0 in range(0, S, Q):
         q = min(Q, S - s0)
         tri = q * (q + 1) // 2
-        total += tri * 2 * N + tri * 2 * P + 2 * (q * 2 * N * P) + N * P
+        total += tri * 2 * N + H * (tri * 2 * P + 2 * (q * 2 * N * P) + N * P)
     return total
 
 
@@ -604,69 +617,139 @@ def phase_lm_kernels(ctx) -> None:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
         return err
 
-    # ---- B3: the path's shapes, then ragged S, Sq < Sk, non-causal, no window
+    # ---- B3: the path's shapes, then ragged S, Sq < Sk, non-causal, no
+    # window; then the head widths of the other served configs: stablelm-3b's
+    # 80 over 32/32 heads at its serve phase's shapes, and with qwen3-32b's
+    # 128 over 64/8 each with a ragged S and a window edge inside a 64-key tile
+    slm = get_config(SLM_ARCH)
+    slm_heads = (slm.n_heads, slm.n_kv_heads, slm.resolved_head_dim)
+    paths = {  # tag: (batch, S, heads, kv heads, D, window), timed below
+        "path": (B, S, H, KV, D, W),
+        "stablelm-3b path": (SLM_BATCH, SLM_PROMPT, *slm_heads, slm.window),
+    }
     attn_cases = [
-        ("path", B, S, S, True, W),
-        ("ragged S=1000 window=300", 2, 1000, 1000, True, 300),
-        ("Sq=100 < Sk=1000", 2, 100, 1000, True, 256),
-        ("non-causal S=600", 2, 600, 600, False, None),
-        ("causal no window S=1000", 2, 1000, 1000, True, None),
+        ("path", B, S, S, H, KV, D, True, W),
+        ("ragged S=1000 window=300", 2, 1000, 1000, H, KV, D, True, 300),
+        ("Sq=100 < Sk=1000", 2, 100, 1000, H, KV, D, True, 256),
+        ("non-causal S=600", 2, 600, 600, H, KV, D, False, None),
+        ("causal no window S=1000", 2, 1000, 1000, H, KV, D, True, None),
+        ("stablelm-3b path", SLM_BATCH, SLM_PROMPT, SLM_PROMPT, *slm_heads, True, slm.window),
+        ("stablelm-3b heads ragged S=1000 window=300", 2, 1000, 1000, *slm_heads, True, 300),
+        ("qwen3-32b heads ragged S=1000 window=300", 2, 1000, 1000, 64, 8, 128, True, 300),
     ]
     path_err = {}
-    for tag, b, sq, sk, causal, win in attn_cases:
-        q32, k32, v32 = randn(b, sq, H, D), randn(b, sk, KV, D), randn(b, sk, KV, D)
+    for tag, b, sq, sk, h, kv, d, causal, win in attn_cases:
+        q32, k32, v32 = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
         for dtype, tol in ((torch.float32, TOL_ATTN_F32), (torch.bfloat16, TOL_ATTN_BF16)):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             got = FA.flash_attention(q, k, v, causal=causal, window=win)
             if got.dtype != dtype:
                 raise AssertionError(f"flash_attention returned {got.dtype} for {dtype} inputs")
             err = check(
-                f"flash_attention {tag} [{b},{sq},{H},{D}]/[{b},{sk},{KV},{D}] {dtype}".replace("torch.", ""),
+                f"flash_attention {tag} [{b},{sq},{h},{d}]/[{b},{sk},{kv},{d}] {dtype}".replace("torch.", ""),
                 got, FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win), tol,
             )
-            if tag == "path":
-                path_err[dtype] = err
+            if tag in paths:
+                path_err[tag, dtype] = err
         del q32, k32, v32, q, k, v
         torch.cuda.empty_cache()
 
+    # ---- B3's time at each path's shapes beside its plain version, SDPA
+    # (masked for a window, else is_causal) and the bound
     timer = Timer(torch)
     timings = ctx.setdefault("timings", {})
-    q32, k32, v32 = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
-    pairs = attention_pairs(S, S, True, W) * B * H
-    mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
-    mask &= ~torch.ones((S, S), dtype=torch.bool, device="cuda").tril(-W)
-    for dtype, peak in ((torch.bfloat16, BF16_TENSOR_FLOPS), (torch.float32, FP32_FLOPS)):
-        q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    for tag, (b, s, h, kv, d, win) in paths.items():
+        q32, k32, v32 = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d)
+        pairs = attention_pairs(s, s, True, win) * b * h
+        mask = None
+        if win:
+            mask = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+            mask &= ~torch.ones((s, s), dtype=torch.bool, device="cuda").tril(-win)
+        for dtype, peak in ((torch.bfloat16, BF16_TENSOR_FLOPS), (torch.float32, FP32_FLOPS)):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-        def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                                                      enable_gqa=True)
 
-        tol = TOL_ATTN_F32 if dtype == torch.float32 else TOL_SDPA_BF16
-        check(f"sdpa yardstick vs kernel {dtype}".replace("torch.", ""), lib().transpose(1, 2),
-              FA.flash_attention(q, k, v, causal=True, window=W), tol)
-        nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-        b_ms, b_by = bound(nbytes, 4 * D * pairs, peak)
-        t = {
-            "name": "flash_attention",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:72",
-            "shape": [[B, S, H, D], [B, S, KV, D]],
-            "dtype": str(dtype).replace("torch.", ""),
-            "ms": timer(lambda: FA.flash_attention(q, k, v, causal=True, window=W)),
-            "plain_ms": timer(lambda: FA.attention_ref(q, k, v, causal=True, window=W)),
-            "library_ms": timer(lib),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "max_abs_err": path_err[dtype],
-            "visible_pairs": pairs,
-        }
-        log(f"[lm_kernels] flash_attention path {t['dtype']}: " + json.dumps(t))
-        ctx["details"].setdefault("lm_kernel_timings", []).append(t)
-        if dtype == torch.bfloat16:  # the dtype the serving path runs
-            timings["flash_attention"] = t
-        del q, k, v, qt, kt, vt
-    del q32, k32, v32, mask
+            def kern():
+                return FA.flash_attention(q, k, v, causal=True, window=win)
+
+            tol = TOL_ATTN_F32 if dtype == torch.float32 else TOL_SDPA_BF16
+            check(f"sdpa yardstick vs kernel {tag} {dtype}".replace("torch.", ""), lib().transpose(1, 2),
+                  kern(), tol)
+            nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+            b_ms, b_by = bound(nbytes, 4 * d * pairs, peak)
+            t = {
+                "name": "flash_attention",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:72",
+                "path": tag,
+                "shape": [[b, s, h, d], [b, s, kv, d]],
+                "dtype": str(dtype).replace("torch.", ""),
+                "window": win,
+                "ms": timer(kern),
+                "plain_ms": timer(lambda: FA.attention_ref(q, k, v, causal=True, window=win)),
+                "library_ms": timer(lib),
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "max_abs_err": path_err[tag, dtype],
+                "visible_pairs": pairs,
+            }
+            log(f"[lm_kernels] flash_attention {tag} {t['dtype']}: " + json.dumps(t))
+            ctx["details"].setdefault("lm_kernel_timings", []).append(t)
+            if tag == "path" and dtype == torch.bfloat16:  # the dtype the serving path runs
+                timings["flash_attention"] = t
+            del q, k, v, qt, kt, vt
+        del q32, k32, v32, mask
+        torch.cuda.empty_cache()
+
+    # ---- why B3 keeps two bf16 kernels: at hymba's path shapes (D = 64) the
+    # wgmma kernel the wrapper runs beside the mma.sync kernel that serves
+    # every other width, called through its own entry (not counted)
+    mma64 = FA._library().repro_flash_attention_bf16_mma64
+    cp, ci = ctypes.c_void_p, ctypes.c_int
+    mma64.argtypes = [cp, cp, cp, cp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, cp]
+    mma64.restype = ci
+    q, k, v = (randn(B, S, h, D).bfloat16() for h in (H, KV, KV))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_mma64():
+        err = mma64(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, KV, 1, W,
+                    1.0 / D ** 0.5, stream)
+        if err != 0:
+            raise RuntimeError(f"mma.sync B3 at D = 64 failed with cudaError_t {err}")
+
+    run_mma64()
+    want = FA.attention_ref(q.float(), k.float(), v.float(), causal=True, window=W)
+    check(f"flash_attention mma.sync kernel at D = 64 path [{B},{S},{H},{D}] bfloat16", out, want, TOL_ATTN_BF16)
+    del want
+    t = {
+        "shape": [[B, S, H, D], [B, S, KV, D]], "dtype": "bfloat16", "window": W,
+        "wgmma_ms": timer(lambda: FA.flash_attention(q, k, v, causal=True, window=W)),
+        "mma_sync_ms": timer(run_mma64),
+    }
+    log("[lm_kernels] flash_attention bf16 kernels at D = 64, path shapes: " + json.dumps(t))
+    ctx["details"].setdefault("extra_timings", {})["flash_attention wgmma vs mma.sync D=64"] = t
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+    # ---- B3 at qwen3-32b's heads (64/8, D 128), S 4096, causal, no window,
+    # beside SDPA (is_causal: its flash route), for the record
+    q, k, v = (randn(1, S, h, 128).bfloat16() for h in (64, 8, 8))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    t = {
+        "shape": [[1, S, 64, 128], [1, S, 8, 128]], "dtype": "bfloat16", "causal": True,
+        "ms": timer(lambda: FA.flash_attention(q, k, v, causal=True)),
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "bound_ms": bound(2 * q.nbytes + k.nbytes + v.nbytes,
+                          4 * 128 * attention_pairs(S, S, True, None) * 64, BF16_TENSOR_FLOPS)[0],
+    }
+    log("[lm_kernels] flash_attention D=128 S=4096 causal bf16: " + json.dumps(t))
+    ctx["details"].setdefault("extra_timings", {})["flash_attention D=128 S=4096 causal"] = t
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
     # ---- B4: the path's shapes against the chunked plain version and the
@@ -683,7 +766,7 @@ def phase_lm_kernels(ctx) -> None:
     xr, lr, br, cr = ssd_inputs(2, 1000)
     check("ssd_chunked ragged S=1000 vs chunked", SSD.ssd_chunked(xr, lr, br, cr, Q), ssd_plain(xr, lr, br, cr, Q), TOL_SSD)
     nbytes = 2 * x.nbytes + loga.nbytes + bb.nbytes + cc.nbytes
-    b_ms, b_by = bound(nbytes, ssd_flops(S, SSD.kernel_chunk(Q, S, P, N, x.device), P, N) * B * Hs)
+    b_ms, b_by = bound(nbytes, ssd_flops(S, SSD.kernel_chunk(Q, S, P, N, x.device), Hs, P, N) * B)
     t = {
         "name": "ssd_chunked",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -697,6 +780,8 @@ def phase_lm_kernels(ctx) -> None:
         "bound_by": b_by,
         "max_abs_err": err,
     }
+    # one call's CUDA launches and their device time (outside the main path's counts)
+    _, t["launch_profile"] = device_profile(lambda: SSD.ssd_chunked(x, loga, bb, cc, Q), 1, 8)
     log("[lm_kernels] ssd_chunked path float32: " + json.dumps(t))
     ctx["details"].setdefault("lm_kernel_timings", []).append(t)
     timings["ssd_chunked"] = t
@@ -826,6 +911,44 @@ def phase_serve(ctx) -> None:
     ctx.setdefault("launches", {}).update(launches)
 
 
+def phase_serve_stablelm(ctx) -> None:
+    """stablelm-3b (dense, 32 heads of 80) at full width and depth in
+    bfloat16 through the serving entry point: the head width B3 took no
+    earlier; counts reset just before, read just after."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.serve import build, generate, make_prompts
+
+    dev = torch.device("cuda")
+    B, S, G = SLM_BATCH, SLM_PROMPT, SLM_GEN
+    model, params = build(SLM_ARCH, "full", seed=SEED, device=dev)
+    L = model.cfg.n_layers
+    prompts = torch.as_tensor(make_prompts(model.cfg.vocab_size, B, S, SEED), device=dev)
+    torch.cuda.synchronize()
+    FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+    out = generate(model, params, prompts, G, impl="kernel")
+    launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
+    summary = {
+        "arch": SLM_ARCH, "parameters": model.param_count(), "layers": L,
+        "head_dim": model.attention_head_dim, "batch": B, "prompt": S, "gen": G,
+        "prefill_ms": out["prefill_s"] * 1e3, "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
+        "launches": launches, "tokens": out["tokens"].tolist(),
+    }
+    ctx["details"]["serve_stablelm"] = summary
+    log("[serve_stablelm] " + json.dumps(summary))
+    checks = {
+        f"B3/B4 launches {launches} = ({L}, 0)": launches == (L, 0),
+        "every logit finite": finite,
+    }
+    for name, ok in checks.items():
+        log(f"[serve_stablelm] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("stablelm-3b serving failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+
+
 def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
@@ -861,6 +984,7 @@ def main() -> int:
         ("profile", phase_profile),
         ("lm_kernels", phase_lm_kernels),
         ("serve", phase_serve),
+        ("serve_stablelm", phase_serve_stablelm),
     )
     t_all = time.perf_counter()
     for name, fn in phases:

@@ -7,56 +7,628 @@
 //
 // over the keys j visible from query i: j < Sk, j <= i + Sk - Sq when
 // causal, j > i + Sk - Sq - window when a window is set.  rep = H / KV (GQA:
-// the KV head is found from the query head, K/V are never repeated).
+// the KV head is found from the query head, K/V are never repeated).  Any
+// head width D that is a multiple of 16 up to 128 is compiled (REPRO_HEAD_DIMS).
 //
 // What bounds it on an H100: operations.  Each visible (query, key) pair
 // costs 4 * D flops (QK^T and PV) against a few bytes of q/k/v/out, so the
 // least time is the visible band's flops over the peak rate of the input
-// type.  This first kernel does them as fp32 FMAs on the CUDA cores (no
-// wgmma, no TMA), so it sits well above that bound; making it fast is later
-// work (ROADMAP).
+// type (989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32).
 //
-// Design (simple and right first):
-//  * One CTA per (query tile of kBQ rows, query head, batch).  Four threads
-//    own one query row; each holds a quarter of the row of q and of the fp32
-//    accumulator in registers (D / 4 values each, interleaved in float4
-//    chunks so the four threads read four neighbouring float4 of a shared
-//    K/V row and the eight rows of a warp read the same ones: broadcast).
-//  * Key tiles of kBK rows are staged in shared memory as fp32 (bf16 is
-//    widened on the load).  Scores go to a padded [kBQ][kBK + 4] shared
-//    tile, the row's running max and denominator stay in registers, and each
-//    tile rescales the accumulator once (online softmax, as the TPU kernel).
-//  * Tiles wholly outside the causal / window band are never visited: the
-//    TPU grid had to visit every tile of the score square, here the CTA
-//    walks only [first visible key of its first row, last visible key of its
-//    last row].  Within a visited tile the mask is built from absolute
-//    positions, so ragged Sq / Sk need no padding copies.
-//  * A row that has seen no visible key yet keeps m = -inf and adds nothing;
-//    one that never sees any (outside the contract) writes zeros.
-//  * Nothing synchronises the device or allocates; the launch goes on the
-//    caller's stream and returns cudaGetLastError().
+// Three kernels.  All three keep the band rules:
+//  * only the key tiles inside the causal / window band are visited (the
+//    CTA walks from its first row's first visible key to its last row's
+//    last one; a warp or warpgroup skips the tiles its own rows cannot
+//    see).  The mask is built from absolute positions, only on tiles that
+//    straddle a band edge or Sk; interior tiles need none, and ragged Sq /
+//    Sk need no padding copy (keys past Sk load as zeros and are masked);
+//  * a row that has seen no visible key yet keeps m = -inf and adds
+//    nothing; one that never sees any (outside the contract) writes zeros.
+// The two bfloat16 kernels share the softmax and the product:
+//  * the online softmax stays in registers (row max and sum by quad
+//    shuffles over the accumulator layout, in the log2 domain), and P is
+//    fed to O += P V from the S accumulators as a bf16 high part plus its
+//    bf16 residual, both multiplied: one bf16 rounding of P would cost up
+//    to 2^-9 of each term, more than the output check against float32
+//    allows; hi + lo leaves only the output's own bf16 rounding.
+//
+// bfloat16, D = 64 -- flash_fwd_bf16_wgmma, Hopper's shape: one CTA per
+// (128 query rows, query head, batch) of two consumer warpgroups (64 rows
+// each) and one producer warp.  The producer loads q once and keeps a ring
+// of two K/V tiles of 128 keys in flight by TMA (tensor maps from
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint: no
+// -lcuda), gated by full / empty mbarriers; TMA's 128-byte swizzle is the
+// layout wgmma reads and its zero fill covers rows past Sq / Sk.  Each
+// consumer computes S = Q K^T with wgmma m64n128k16 (both operands in
+// shared memory), then O += P V with wgmma m64n64k16, P from registers and
+// V read MN-major from shared memory.
+//
+// bfloat16, other D -- flash_fwd_bf16: mma.sync.m16n8k16 (the
+// FlashAttention-2 shape).  One CTA per (128 query rows, query head,
+// batch), eight warps of 16 rows; q loaded once into mma A fragments; K/V
+// tiles of 64 keys by cp.async into two shared stages, rows padded by 16
+// bytes so the ldmatrix reads (x4 for K, x4.trans for V) are free of bank
+// conflicts at every D.  A D = 80 row is 160 bytes, which no 128-byte
+// swizzle row holds; this kernel takes every width.
+//
+// float32 -- flash_fwd_f32: exact fp32 on the CUDA cores (the tensor
+// cores' TF32 would cost the float32 checks their digits).  One CTA per
+// (64 query rows, query head, batch); four threads own one query row, each
+// holding a quarter of q and of the accumulator in registers (interleaved
+// float4 chunks, so a warp's eight rows read the same K/V float4 from
+// shared memory as a broadcast); K/V tiles of 64 keys in shared memory;
+// scores through a padded shared tile.
+//
+// Nothing synchronises the device or allocates; the launch goes on the
+// caller's stream and returns cudaGetLastError().
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#define REPRO_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
 namespace {
 
+constexpr int kBK = 64;  // keys per shared tile (both kernels)
+
+__device__ __forceinline__ bool visible(int kp, int qpos, int Sk, int causal, int window) {
+  return kp < Sk && (!causal || kp <= qpos) && (window <= 0 || kp > qpos - window);
+}
+
+// first key tile (aligned to kBK) and end key of the band seen by query
+// rows [r0, r0 + rows) at key offset off
+__device__ __forceinline__ void band(int r0, int rows, int off, int Sk, int causal, int window,
+                                     int& kbeg, int& kend) {
+  kend = causal ? min(Sk, r0 + rows - 1 + off + 1) : Sk;
+  kbeg = window > 0 ? max(0, r0 + off - window + 1) / kBK * kBK : 0;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsTC = 8;                // each owns 16 query rows (one mma tile)
+constexpr int kBQTC = 16 * kWarpsTC;       // 128 query rows per CTA
+constexpr int kThreadsTC = 32 * kWarpsTC;
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes_tc() {
+  return (size_t)kStages * 2 * kBK * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> bf16x2 high part (x0 in the low half) and the residual's bf16x2
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+// grid (ceil(Sq / kBQTC), H, B), block kThreadsTC, dynamic smem smem_bytes_tc<D>()
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq,
+               int Sk, int H, int KV, int causal, int window, float scale_log2) {
+  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of 16 up to 128");
+  constexpr int kS = D + 8;       // shared row stride (elements): 16-byte rows, no conflicts
+  constexpr int kKT = D / 16;     // k-steps of Q K^T
+  constexpr int kNT = kBK / 8;    // n-tiles of S
+  constexpr int kDT = D / 8;      // n-tiles of O
+  constexpr int kChunks = D / 8;  // 16-byte chunks per K/V row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kBK][kS]
+  __nv_bfloat16* Vs = Ks + kStages * kBK * kS;                       // [kStages][kBK][kS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // accumulator row (and row + 8)
+  const int t = lane % 4;  // accumulator column pair
+  const int q0 = blockIdx.x * kBQTC;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int off = Sk - Sq;
+
+  int kbeg, kend;
+  band(q0, min(kBQTC, Sq - q0), off, Sk, causal, window, kbeg, kend);
+  const int ntiles = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+
+  // this warp's rows and the keys any of them sees
+  const int w0 = q0 + warp * 16;
+  const int wrows = min(16, Sq - w0);
+  const int wlo = window > 0 ? max(0, w0 + off - window + 1) : 0;
+  const int whi = causal ? min(Sk - 1, w0 + wrows - 1 + off) : Sk - 1;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+
+  // q rows as mma A fragments, loaded once
+  const int64_t qstride = (int64_t)H * D;
+  const __nv_bfloat16* qb = q + (int64_t)b * Sq * qstride + (int64_t)h * D;
+  uint32_t qf[kKT][4];
+#pragma unroll
+  for (int kk = 0; kk < kKT; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rows[e & 1];
+      const int d = kk * 16 + 2 * t + (e >> 1) * 8;
+      qf[kk][e] = r < Sq ? *reinterpret_cast<const uint32_t*>(qb + r * qstride + d) : 0u;
+    }
+  }
+
+  float o[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sums
+
+  const int64_t kvstride = (int64_t)KV * D;
+  const __nv_bfloat16* kb = k + (int64_t)b * Sk * kvstride + (int64_t)kvh * D;
+  const __nv_bfloat16* vb = v + (int64_t)b * Sk * kvstride + (int64_t)kvh * D;
+
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = kbeg + tile * kBK;
+    __nv_bfloat16* ks = Ks + stage * kBK * kS;
+    __nv_bfloat16* vs = Vs + stage * kBK * kS;
+    for (int e = tid; e < kBK * kChunks; e += kThreadsTC) {
+      const int j = e / kChunks;
+      const int c = e - j * kChunks;
+      const bool ok = k0 + j < Sk;
+      const int64_t src = (ok ? (int64_t)(k0 + j) * kvstride : 0) + c * 8;
+      cp_async16(smem_addr(ks + j * kS + c * 8), kb + src, ok);
+      cp_async16(smem_addr(vs + j * kS + c * 8), vb + src, ok);
+    }
+  };
+
+  // ldmatrix row / column of this lane inside an x4 load (matrix lane / 8)
+  const int lm = lane >> 3;
+  const int lr = lane & 7;
+
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_tile(it + 1, (it + 1) % kStages);
+    cp_async_commit();
+    cp_async_wait1();  // tile it has landed
+    __syncthreads();
+
+    const int k0 = kbeg + it * kBK;
+    if (wrows > 0 && k0 <= whi && k0 + kBK - 1 >= wlo) {
+      const __nv_bfloat16* ks = Ks + (it % kStages) * kBK * kS;
+      const __nv_bfloat16* vs = Vs + (it % kStages) * kBK * kS;
+
+      // S = Q K^T: B[d][j] = K[j][d]; matrices (keys +0/+8) x (d +0/+8)
+      float s[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKT; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t b0, b1, b2, b3;
+          const int row = np * 16 + (lm >> 1) * 8 + lr;
+          const int col = kk * 16 + (lm & 1) * 8;
+          ldmatrix_x4(smem_addr(ks + row * kS + col), b0, b1, b2, b3);
+          mma_bf16(s[2 * np], qf[kk], b0, b1);
+          mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
+        }
+      }
+
+      // mask only a tile on a band edge or past Sk
+      const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > w0 + off) ||
+                        (window > 0 && k0 <= w0 + 15 + off - window);
+      if (edge) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = k0 + nt * 8 + 2 * t + (e & 1);
+            if (!visible(kp, rows[e >> 1] + off, Sk, causal, window)) s[nt][e] = -INFINITY;
+          }
+        }
+      }
+      // online softmax in the log2 domain, rows g and g + 8; quads share a row
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]) * scale_log2);
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]) * scale_log2);
+      }
+      float msafe[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        msafe[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // nothing visible yet: p = 0
+        const float alpha = exp2f(m[r] - msafe[r]);
+        m[r] = mx[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt) {
+          o[dt][2 * r] *= alpha;
+          o[dt][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[nt][e], scale_log2, -msafe[e >> 1]));
+          s[nt][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+
+      // O += P V: the S accumulators of keys 16 kk2 .. + 15 are the A
+      // fragment (a bf16 high part and the residual's bf16); B[j][d] = V[j][d]
+      // by ldmatrix.trans, matrices (keys +0/+8) x (d +0/+8)
+#pragma unroll
+      for (int kk2 = 0; kk2 < kNT / 2; ++kk2) {
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // a0..a3: rows g, g + 8 of keys +0, then of keys +8
+          const int nt = 2 * kk2 + (e >> 1);
+          const int c = 2 * (e & 1);
+          split_bf16(s[nt][c], s[nt][c + 1], ahi[e], alo[e]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t v0, v1, v2, v3;
+          const int row = kk2 * 16 + (lm & 1) * 8 + lr;
+          const int col = dp * 16 + (lm >> 1) * 8;
+          ldmatrix_x4_trans(smem_addr(vs + row * kS + col), v0, v1, v2, v3);
+          mma_bf16(o[2 * dp], ahi, v0, v1);
+          mma_bf16(o[2 * dp], alo, v0, v1);
+          mma_bf16(o[2 * dp + 1], ahi, v2, v3);
+          mma_bf16(o[2 * dp + 1], alo, v2, v3);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  __nv_bfloat16* ob = out + (int64_t)b * Sq * qstride + (int64_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    if (rows[r] >= Sq) continue;
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + rows[r] * qstride + dt * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 at D = 64: wgmma, TMA and a producer warp
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int kD = 64;                       // one 128-byte swizzle row per key / query
+constexpr int kBM = 128;                     // query rows per CTA: two consumer warpgroups
+constexpr int kBN = 128;                     // keys per tile
+constexpr int kRing = 2;                     // K/V tiles in flight
+constexpr int kConsumers = 256;              // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;    // + one producer warp
+constexpr uint32_t kQBytes = kBM * kD * 2;
+constexpr uint32_t kTileBytes = kBN * kD * 2;
+// shared layout from a 1024-byte aligned base (the 128-byte swizzle's period)
+constexpr uint32_t kOffK = kQBytes;
+constexpr uint32_t kOffV = kOffK + kRing * kTileBytes;
+constexpr uint32_t kOffBar = kOffV + kRing * kTileBytes;
+constexpr size_t kSmemBytes = kOffBar + 8 * (2 * kRing + 1) + 1024;
+}  // namespace wg
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// box of `map` at coordinates (0, c1, c2, c3) -> shared dst, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle TMA writes: 8-row groups 1024 bytes apart (SBO), layout type 1
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return ((uint64_t)(smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (m64 x n128, fp32) = A (desc, K-major) * B (desc, K-major) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64 x n64, fp32) += A (registers, bf16 fragment) * B (desc, MN-major)
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// grid (ceil(Sq / 128), H, B), block wg::kThreads, dynamic smem wg::kSmemBytes.
+// Warpgroups 0 and 1 each own 64 query rows; warp 8 issues the TMA loads of
+// q (once) and of the K/V ring, gated by full / empty mbarriers.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                     int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2) {
+  using namespace wg;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kOffBar);
+  uint64_t* empty = full + kRing;
+  uint64_t* qbar = empty + kRing;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kBM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int off = Sk - Sq;
+  int kbeg, kend;
+  band(q0, min(kBM, Sq - q0), off, Sk, causal, window, kbeg, kend);
+  const int ntiles = kend > kbeg ? (kend - kbeg + kBN - 1) / kBN : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warp: one lane issues every copy
+    if (tid == kConsumers) {
+      const int kvh = h / (H / KV);
+      mbar_expect_tx(qbar, kQBytes);
+      tma_load(base, &tq, qbar, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kRing;
+        mbar_wait(&empty[s], ((it / kRing) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load(base + kOffK + s * kTileBytes, &tk, &full[s], kvh, kbeg + it * kBN, b);
+        tma_load(base + kOffV + s * kTileBytes, &tv, &full[s], kvh, kbeg + it * kBN, b);
+      }
+    }
+    return;
+  }
+
+  const int wgi = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int g0 = q0 + wgi * 64;  // this warpgroup's rows and the keys any of them sees
+  const int grows = min(64, Sq - g0);
+  const int glo = window > 0 ? max(0, g0 + off - window + 1) : 0;
+  const int ghi = causal ? min(Sk - 1, g0 + grows - 1 + off) : Sk - 1;
+  const int rows[2] = {g0 + warp * 16 + g, g0 + warp * 16 + g + 8};
+
+  float o[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const uint64_t dq = desc_sw128(base + wgi * 64 * kD * 2);
+
+  mbar_wait(qbar, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kRing;
+    mbar_wait(&full[s], (it / kRing) & 1);
+    const int k0 = kbeg + it * kBN;
+    if (grows > 0 && k0 <= ghi && k0 + kBN - 1 >= glo) {
+      const uint64_t dk = desc_sw128(base + kOffK + s * kTileBytes);
+      const uint64_t dv = desc_sw128(base + kOffV + s * kTileBytes);
+      // S = Q K^T, four k-steps of 16 along D (32 bytes of the swizzled row)
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n128_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait0();
+
+      const bool edge = k0 + kBN > Sk || (causal && k0 + kBN - 1 > g0 + off) ||
+                        (window > 0 && k0 <= g0 + 63 + off - window);
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          const int kp = k0 + (e / 4) * 8 + 2 * t + (e & 1);
+          if (!visible(kp, rows[(e >> 1) & 1] + off, Sk, causal, window)) sc[e] = -INFINITY;
+        }
+      }
+      // online softmax in the log2 domain, as in flash_fwd_bf16
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * nt], sc[4 * nt + 1]) * scale_log2);
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]) * scale_log2);
+      }
+      float msafe[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        msafe[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+        const float alpha = exp2f(m[r] - msafe[r]);
+        m[r] = mx[r];
+        l[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < kD / 8; ++dt) {
+          o[4 * dt + 2 * r] *= alpha;
+          o[4 * dt + 2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const float p = exp2f(fmaf(sc[e], scale_log2, -msafe[(e >> 1) & 1]));
+        sc[e] = p;
+        l[(e >> 1) & 1] += p;
+      }
+      // P as wgmma A fragments (bf16 hi + lo), all written before the fence
+      uint32_t phi[kBN / 16][4], plo[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
+          split_bf16(sc[i], sc[i + 1], phi[kk][e], plo[kk][e]);
+        }
+      }
+      // O += P V, eight k-steps of 16 keys (16 rows, 2048 bytes, of the V tile)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        wgmma_m64n64_rs(o, phi[kk], dv + 128 * kk);
+        wgmma_m64n64_rs(o, plo[kk], dv + 128 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* ob = out + (int64_t)b * Sq * H * kD + (int64_t)h * kD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    if (rows[r] >= Sq) continue;
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)rows[r] * H * kD + dt * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[4 * dt + 2 * r] * inv, o[4 * dt + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;             // query rows per CTA
-constexpr int kBK = 64;             // keys per shared tile
 constexpr int kT = 4;               // threads per query row
 constexpr int kThreads = kBQ * kT;  // 256
 constexpr int kSStride = kBK + 4;   // padded score row: conflict-free for 8 rows x 4 threads
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T narrow(float v);
-template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -76,16 +648,16 @@ __device__ __forceinline__ float group_max(float v) {
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_f32() {
   return (2 * kBK * D + kBQ * kSStride) * sizeof(float);
 }
 
-// grid (ceil(Sq / kBQ), H, B), block kThreads, dynamic smem smem_bytes<D>()
-template <typename T, int D>
+// grid (ceil(Sq / kBQ), H, B), block kThreads, dynamic smem smem_bytes_f32<D>()
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int Sq, int Sk, int H, int KV, int causal, int window,
-                 float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              float* __restrict__ out, int Sq, int Sk, int H, int KV, int causal, int window,
+              float scale) {
   constexpr int kC = D / 4 / kT;  // float4 chunks per thread
   static_assert(kC >= 1 && D % (4 * kT) == 0, "head_dim must be a multiple of 16");
   extern __shared__ float4 smem4[];
@@ -111,20 +683,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
     const int d0 = 4 * (t + kT * c);
-    qr[c] = row_ok ? make_float4(widen(q[qrow + d0]), widen(q[qrow + d0 + 1]),
-                                 widen(q[qrow + d0 + 2]), widen(q[qrow + d0 + 3]))
+    qr[c] = row_ok ? make_float4(q[qrow + d0], q[qrow + d0 + 1], q[qrow + d0 + 2], q[qrow + d0 + 3])
                    : make_float4(0.f, 0.f, 0.f, 0.f);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = -INFINITY;
   float l = 0.f;
 
-  // keys any row of this tile can see
-  const int rows = min(kBQ, Sq - q0);
-  const int qlo = q0 + off;
-  const int qhi = q0 + rows - 1 + off;
-  const int kend = causal ? min(Sk, qhi + 1) : Sk;
-  const int kbeg = window > 0 ? max(0, qlo - window + 1) / kBK * kBK : 0;
+  int kbeg, kend;
+  band(q0, min(kBQ, Sq - q0), off, Sk, causal, window, kbeg, kend);
 
   const int64_t kvbase = (int64_t)b * Sk * KV * D + (int64_t)kvh * D;
   const int64_t kvstride = (int64_t)KV * D;
@@ -139,8 +706,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float kk = 0.f, vv = 0.f;
       if (kp < Sk) {
         const int64_t idx = kvbase + kp * kvstride + d;
-        kk = widen(k[idx]);
-        vv = widen(v[idx]);
+        kk = k[idx];
+        vv = v[idx];
       }
       Ks[e] = kk;
       Vs[e] = vv;
@@ -154,8 +721,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < kC; ++c) s = dot4(qr[c], kr[t + kT * c], s);
       s = group_sum(s);
-      const int kp = k0 + j;
-      const bool vis = kp < Sk && (!causal || kp <= qpos) && (window <= 0 || kp > qpos - window);
+      const bool vis = visible(k0 + j, qpos, Sk, causal, window);
       if ((j % kT) == t) srow[j] = vis ? s * scale : -INFINITY;
     }
     __syncwarp();
@@ -204,55 +770,142 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       const int d0 = 4 * (t + kT * c);
-      out[qrow + d0] = narrow<T>(acc[c].x / den);
-      out[qrow + d0 + 1] = narrow<T>(acc[c].y / den);
-      out[qrow + d0 + 2] = narrow<T>(acc[c].z / den);
-      out[qrow + d0 + 3] = narrow<T>(acc[c].w / den);
+      out[qrow + d0] = acc[c].x / den;
+      out[qrow + d0 + 1] = acc[c].y / den;
+      out[qrow + d0 + 2] = acc[c].z / den;
+      out[qrow + d0 + 3] = acc[c].w / den;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
-           int KV, int causal, int window, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                int H, int KV, int causal, int window, float scale, cudaStream_t s) {
+  const size_t smem = smem_bytes_tc<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, KV, causal, window, scale);
+  const dim3 grid((Sq + kBQTC - 1) / kBQTC, H, B);
+  flash_fwd_bf16<D><<<grid, kThreadsTC, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
+      causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* out, int B, int Sq,
-               int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// cuTensorMapEncodeTiled of the CUDA driver API, reached through the runtime's
+// cudaGetDriverEntryPoint (no -lcuda at link time)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+// [B, rows, heads, 64] bf16 as a 4-d tensor map, boxes of 128 rows of one
+// head, 128-byte swizzle; rows past the end read as zeros
+bool head_rows_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)wg::kD, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)wg::kD * 2, (cuuint64_t)heads * wg::kD * 2,
+                                 (cuuint64_t)rows * heads * wg::kD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)wg::kD, 1, (cuuint32_t)wg::kBN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                      int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
+  static_assert(wg::kBM == wg::kBN, "q and K/V share the box of 128 rows");
+  CUtensorMap tq, tk, tv;
+  if (!head_rows_map(&tq, q, B, Sq, H) || !head_rows_map(&tk, k, B, Sk, KV) ||
+      !head_rows_map(&tv, v, B, Sk, KV)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_wgmma,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)wg::kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + wg::kBM - 1) / wg::kBM, H, B);
+  flash_fwd_bf16_wgmma<<<grid, wg::kThreads, wg::kSmemBytes, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal, window,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+               int H, int KV, int causal, int window, float scale, cudaStream_t s) {
+  const size_t smem = smem_bytes_f32<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_fwd_f32<D><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Sq, Sk, H, KV, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int Sq,
+           int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if constexpr (D == wg::kD) {
+    return launch_bf16_wgmma(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  } else {
+    return launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q/out [B, Sq, H, D], k/v [B, Sk, KV, D],
-// all contiguous.  window <= 0 means none.  Returns a cudaError_t.
+// all contiguous and 16-byte aligned; D a multiple of 16 up to 128.  window
+// <= 0 means none.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                      void* out, int B, int Sq, int Sk, int H, int KV, int D,
                                      int causal, int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dispatch_d<float>(D, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+#define REPRO_CASE(d) \
+  case d:               \
+    return launch<d>(dtype, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    REPRO_HEAD_DIMS(REPRO_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+#undef REPRO_CASE
+}
+
+// The mma.sync bf16 kernel at D = 64, where repro_flash_attention runs the
+// wgmma kernel: for timing the two side by side (no wrapper calls it).
+// Arguments as above, bfloat16 only.
+extern "C" int repro_flash_attention_bf16_mma64(const void* q, const void* k, const void* v,
+                                                void* out, int B, int Sq, int Sk, int H, int KV,
+                                                int causal, int window, float scale,
+                                                void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale,
+                         static_cast<cudaStream_t>(stream));
 }

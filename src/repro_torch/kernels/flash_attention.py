@@ -7,7 +7,11 @@ from absolute positions (query ``i`` sits at key position ``i + Sk - Sq``),
 a float32 online softmax and the output in ``q``'s dtype.  It replaces the
 Pallas kernel ``flash_attention_kernel`` of
 ``src/repro/kernels/flash_attention.py``; the CUDA source is
-``csrc/flash_attention.cu``, which also says what bounds it on an H100.
+``csrc/flash_attention.cu``, which also says what bounds it on an H100:
+bfloat16 runs on the tensor cores, float32 exactly on the CUDA cores.  The
+kernel takes every head width in :data:`HEAD_DIMS` (the multiples of 16 up
+to 128); :func:`head_dim_supported` is the predicate, pure Python, that the
+wrapper checks on a CUDA tensor.
 
 A tensor on the CPU goes to the plain PyTorch version
 (:func:`attention_ref`, the batched form of ``repro.kernels.ref.attention``);
@@ -29,11 +33,16 @@ import torch
 
 from repro_torch.kernels import build as kbuild
 
-#: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is compiled for: the multiples of 16 up to 128
+HEAD_DIMS = tuple(range(16, 129, 16))
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def head_dim_supported(head_dim: int) -> bool:
+    """Whether the CUDA kernel takes heads of width ``head_dim``."""
+    return head_dim in HEAD_DIMS
 
 
 def attention_ref(
@@ -123,8 +132,10 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     B, Sq, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
+    if not head_dim_supported(D):
+        raise ValueError(f"flash_attention: head_dim {D} is not one the kernel takes: {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary")
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if B == 0 or Sq == 0 or H == 0:

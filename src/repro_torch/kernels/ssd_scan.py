@@ -6,18 +6,24 @@ chunks of ``chunk`` steps, for ``xdt [B, S, H, P]``, ``loga [B, S, H]`` and
 ``b``/``c [B, S, N]`` (shared by every head), all float32.  It replaces the
 Pallas kernel ``ssd_scan_kernel`` of ``src/repro/kernels/ssd_scan.py``; the
 CUDA source is ``csrc/ssd_scan.cu``, which also says what bounds it on an
-H100.
+H100.  One call makes four CUDA launches, the chunk-parallel decomposition
+of the Mamba-2 paper: the shared ``c . b`` scores per chunk, each chunk's own
+end state, the sequential state passing over chunks, and each chunk's
+output.
 
 A tensor on the CPU goes to the plain chunked version
 (:func:`repro_torch.models.ssd.ssd_chunked`, the port of
 ``repro.models.ssd.ssd_chunked``); a CUDA tensor goes to the kernel, or the
 call raises.  :func:`ssd_scan_ref` is the sequential oracle (the batched form
 of ``repro.kernels.ref.ssd_scan``) both are held against.  The wrapper counts
-its kernel launches in ``ssd_chunked.launches``.
+its calls that launched the kernels in ``ssd_chunked.launches``.
 
 The output does not depend on the chunk size, so where a chunk's tiles would
-not fit in a CTA's shared memory the kernel runs a halved chunk
-(:func:`kernel_chunk`; the layout is the CUDA source's alone).
+not fit in a CTA's shared memory the kernels run a halved chunk
+(:func:`kernel_chunk`; the layout is the CUDA source's alone).  The scratch
+of one call (the scores ``[B, nc, Q, Q]``, the chunk states
+``[B, nc, H, N, P]`` and their decays ``[B, nc, H]``, float32, ``nc`` the
+number of chunks) comes from ``torch.empty`` here.
 """
 
 from __future__ import annotations
@@ -75,7 +81,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = kbuild.load("ssd_scan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_ssd_chunked.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.repro_ssd_chunked.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.repro_ssd_chunked.restype = i
         lib.repro_ssd_kernel_chunk.argtypes = [i, i, i, i, i]
         lib.repro_ssd_kernel_chunk.restype = i
@@ -84,8 +90,8 @@ def _library() -> ctypes.CDLL:
 
 
 def kernel_chunk(chunk: int, S: int, P: int, N: int, device: torch.device) -> int:
-    """The chunk the kernel runs on the CUDA ``device``: ``min(chunk, S)``,
-    halved until one CTA's tiles fit its shared memory."""
+    """The chunk the kernels run on the CUDA ``device``: ``min(chunk, S)``,
+    halved until each kernel's tiles fit a CTA's shared memory."""
     device = torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
     Q = _library().repro_ssd_kernel_chunk(index, chunk, S, P, N)
@@ -113,10 +119,14 @@ def ssd_chunked(
     if y.numel() == 0:
         return y
     Q = kernel_chunk(chunk, S, P, N, xdt.device)
+    nc = -(-S // Q)
+    scores = torch.empty((B, nc, Q, Q), dtype=torch.float32, device=xdt.device)
+    states = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=xdt.device)
+    decay = torch.empty((B, nc, H), dtype=torch.float32, device=xdt.device)
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     err = _library().repro_ssd_chunked(
         xdt.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-        B, S, H, P, N, Q, stream,
+        scores.data_ptr(), states.data_ptr(), decay.data_ptr(), B, S, H, P, N, Q, stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd_chunked: kernel launch failed with cudaError_t {err}")

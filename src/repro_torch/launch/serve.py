@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention import HEAD_DIMS, head_dim_supported
 from repro_torch.launch.presets import PRESETS
 from repro_torch.models.lm import LMModel
 from repro_torch.models.sharding import tree_items
@@ -83,6 +84,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def check_kernel_heads(model: LMModel) -> None:
+    """Raise, naming the config, where the attention kernel B3 cannot take
+    the model's head width on a CUDA device."""
+    D = model.attention_head_dim
+    if D is not None and not head_dim_supported(D):
+        raise ValueError(
+            f"{model.cfg.name}: head_dim {D} is not one the flash_attention kernel takes {HEAD_DIMS}"
+        )
+
+
 @torch.inference_mode()
 def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl: str = "kernel") -> dict:
     """Prefill ``prompts [B, S]`` with ``impl``, then ``gen`` greedy tokens.
@@ -93,6 +104,8 @@ def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl
     of the decode loop.
     """
     device = prompts.device
+    if impl == "kernel" and device.type == "cuda":
+        check_kernel_heads(model)
     B, S = prompts.shape
     _sync(device)
     t0 = time.perf_counter()

@@ -54,6 +54,11 @@ class LMModel:
         name = {"dense": "dec", "ssm": "ssm", "hybrid": "hyb"}[cfg.family]
         return [Segment(name, Block.make(cfg, cfg.family, tp), cfg.n_layers)]
 
+    @property
+    def attention_head_dim(self):
+        """Head width of the attention layers, ``None`` where there are none."""
+        return None if self.cfg.family == "ssm" else self.cfg.resolved_head_dim
+
     # ------------------------------------------------------------------
     def param_specs(self) -> dict:
         cfg = self.cfg

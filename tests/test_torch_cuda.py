@@ -109,7 +109,12 @@ def test_spmv_and_cg_on_card(dev):
 
 
 #: (B, Sq, Sk, H, KV, D, causal, window): tests/test_kernels.py's cases, hymba's
-#: head ratio with a window shorter than S, and a ragged Sq < Sk
+#: head ratio with a window shorter than S, and a ragged Sq < Sk; then every
+#: head width the served configs resolve to (stablelm-3b's 80 over 32/32
+#: heads, qwen3-32b's 128 over 64/8), S not a multiple of the 128-row query
+#: tile, Sq < Sk, windows smaller than a 64-key tile and edges inside one
+#: (rows that see nothing in the first key tile their CTA visits), and the
+#: other multiples of 16
 ATTN_CASES = [
     (2, 64, 64, 4, 2, 32, True, None),
     (1, 48, 48, 4, 4, 16, True, 16),
@@ -118,6 +123,15 @@ ATTN_CASES = [
     (1, 100, 100, 2, 2, 32, True, 32),
     (2, 300, 300, 25, 5, 64, True, 128),
     (1, 70, 200, 4, 2, 128, True, 100),
+    (1, 300, 300, 32, 32, 80, True, None),
+    (1, 200, 200, 8, 8, 80, True, 70),
+    (2, 130, 520, 4, 2, 80, True, 200),
+    (1, 300, 300, 64, 8, 128, True, 100),
+    (1, 300, 300, 4, 2, 64, True, 20),
+    (1, 90, 400, 4, 4, 32, True, 10),
+    (1, 257, 257, 4, 1, 96, False, 50),
+    (1, 129, 129, 2, 2, 48, True, None),
+    (1, 65, 65, 2, 1, 112, True, 33),
 ]
 
 
@@ -151,16 +165,21 @@ def test_flash_attention_matches_plain(dev, case, dtype):
 @pytest.mark.parametrize(
     "B,S,H,P,N,Q",
     [(2, 32, 3, 4, 8, 8), (1, 50, 2, 16, 8, 16), (2, 128, 4, 8, 16, 32), (1, 7, 1, 2, 3, 4),
-     (2, 300, 5, 64, 16, 128)],
+     (2, 300, 5, 64, 16, 128),
+     # one, two and 33 chunks; S not a multiple of Q at N = 128 (mamba2-780m's state)
+     (1, 128, 3, 64, 16, 128), (2, 256, 2, 64, 16, 128), (1, 33 * 16, 2, 8, 8, 16),
+     (1, 300, 2, 64, 128, 128)],
 )
 def test_ssd_matches_plain(dev, B, S, H, P, N, Q):
     """B4 against the plain chunked SSD (2e-4) and the sequential oracle
-    (5e-4), and its output does not depend on the chunk size."""
+    (5e-4), and its output does not depend on the chunk size.  For N > 16,
+    b and c are scaled so that c . b keeps the size it has at N = 16."""
     rng = np.random.default_rng(8)
     x = torch.as_tensor(rng.normal(size=(B, S, H, P)).astype(np.float32), device=dev)
     loga = torch.as_tensor((-np.abs(rng.normal(size=(B, S, H))) * 0.2).astype(np.float32), device=dev)
-    b = torch.as_tensor(rng.normal(size=(B, S, N)).astype(np.float32), device=dev)
-    c = torch.as_tensor(rng.normal(size=(B, S, N)).astype(np.float32), device=dev)
+    bc_scale = min(1.0, (16 / N) ** 0.5)
+    b = torch.as_tensor((rng.normal(size=(B, S, N)) * bc_scale).astype(np.float32), device=dev)
+    c = torch.as_tensor((rng.normal(size=(B, S, N)) * bc_scale).astype(np.float32), device=dev)
     n0 = SSD.ssd_chunked.launches
     got = SSD.ssd_chunked(x, loga, b, c, chunk=Q)
     assert SSD.ssd_chunked.launches == n0 + 1
@@ -170,11 +189,13 @@ def test_ssd_matches_plain(dev, B, S, H, P, N, Q):
 
 
 def test_ssd_kernel_chunk_fits_shared_memory(dev):
-    """hymba-1.5b's shapes keep their chunk; a state too large for a chunk of
-    128 halves it, and the halved chunk gives the plain version's output."""
+    """hymba-1.5b's and mamba2-780m's shapes (N = 128) keep their chunk of
+    128; a chunk whose tiles would not fit (256) is halved; and mamba2-780m's
+    state gives the plain version's output."""
     assert SSD.kernel_chunk(128, 4096, 64, 16, dev) == 128
     assert SSD.kernel_chunk(128, 50, 64, 16, dev) == 50
-    assert SSD.kernel_chunk(128, 4096, 64, 128, dev) == 64
+    assert SSD.kernel_chunk(128, 4096, 64, 128, dev) == 128
+    assert SSD.kernel_chunk(256, 4096, 64, 16, dev) == 128
     rng = np.random.default_rng(10)
     B, S, H, P, N = 1, 300, 2, 64, 128
     x = torch.as_tensor(rng.normal(size=(B, S, H, P)).astype(np.float32), device=dev)
@@ -185,6 +206,26 @@ def test_ssd_kernel_chunk_fits_shared_memory(dev):
     torch.testing.assert_close(
         SSD.ssd_chunked(x, loga, b, c, chunk=128), ssd_plain(x, loga, b, c, chunk=128), rtol=2e-4, atol=2e-4
     )
+
+
+def test_ssd_rejects_head_width_above_1024(dev):
+    """No fallback: a head width P > 1024 (four columns per thread of a CTA)
+    raises on the card, and nothing is counted."""
+    x = torch.zeros((1, 8, 1, 1028), device=dev)
+    loga = torch.zeros((1, 8, 1), device=dev)
+    b = torch.zeros((1, 8, 16), device=dev)
+    n0 = SSD.ssd_chunked.launches
+    with pytest.raises(RuntimeError, match=r"cudaError_t 1$"):
+        SSD.ssd_chunked(x, loga, b, b.clone())
+    assert SSD.ssd_chunked.launches == n0
+
+
+@pytest.mark.parametrize("D", [8, 72, 144])
+def test_flash_attention_rejects_head_dims_it_does_not_take(dev, D):
+    """No fallback: a head width outside ``HEAD_DIMS`` raises on the card."""
+    q = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, q, q)
 
 
 def test_tiny_hymba_prefill_kernel_vs_plain(dev):

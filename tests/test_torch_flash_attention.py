@@ -5,10 +5,15 @@ runs its plain version; it and :func:`attention_ref` are held to the Pallas
 kernel ``flash_attention_kernel`` (interpret mode) and to ``ref.attention``
 at the shapes of ``tests/test_kernels.py`` plus one at hymba-1.5b's head
 ratio (25 query heads over 5 KV heads, head_dim 64, a window shorter than
-the sequence), with the reference's tolerances: 2e-4 in float32, 3e-2 in
-bfloat16.  The CUDA kernel itself is held to the plain version on a GPU by
+the sequence) and at the head widths of stablelm-3b (80) and qwen3-32b
+(128), with the reference's tolerances: 2e-4 in float32, 3e-2 in bfloat16.
+Every head width a served config resolves to is one the kernel takes.  The
+CUDA kernel itself is held to the plain version on a GPU by
 ``tests/test_torch_cuda.py``.
 """
+
+import dataclasses
+
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +23,11 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_kernel
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.launch.presets import PRESETS
+from repro_torch.launch.serve import check_kernel_heads
+from repro_torch.models.lm import FAMILIES, LMModel
 
 CASES = [
     (2, 64, 64, 4, 2, 32, True, None),
@@ -27,6 +36,8 @@ CASES = [
     (1, 64, 64, 2, 1, 64, False, None),  # bidirectional (encoder)
     (1, 100, 100, 2, 2, 32, True, 32),  # non-multiple of block
     (1, 80, 80, 25, 5, 64, True, 24),  # hymba's head ratio, window < S
+    (1, 40, 40, 4, 4, 80, True, 12),  # stablelm-3b's head width
+    (1, 33, 33, 8, 2, 128, True, None),  # qwen3-32b's head width and ratio
 ]
 #: one compiled program per case instead of one per eager op
 ref_attention = jax.jit(ref.attention, static_argnames=("causal", "window"))
@@ -77,3 +88,24 @@ def test_flash_attention_matches_pallas_and_ref(case, dtype):
 def test_flash_attention_rejects_bad_inputs(make, err):
     with pytest.raises(err):
         FA.flash_attention(*make())
+
+
+SERVED = [a for a in ARCH_IDS if get_config(a).family in FAMILIES]
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("arch", SERVED)
+def test_every_served_head_width_is_taken(arch, preset):
+    """The head width of every served config, at every preset, is one the
+    CUDA kernel takes (the predicate its wrapper checks on a CUDA tensor)."""
+    model = LMModel(PRESETS[preset](get_config(arch)))
+    D = model.attention_head_dim
+    assert D is None or FA.head_dim_supported(D), (arch, preset, D)
+    check_kernel_heads(model)
+
+
+def test_check_kernel_heads_names_the_config():
+    cfg = dataclasses.replace(get_config("stablelm-3b"), head_dim=72)
+    with pytest.raises(ValueError, match="stablelm-3b: head_dim 72"):
+        check_kernel_heads(LMModel(cfg))
+    assert not FA.head_dim_supported(72) and FA.head_dim_supported(80)

@@ -4,7 +4,9 @@ On the CPU the wrapper :func:`repro_torch.kernels.ssd_scan.ssd_chunked` runs
 its plain version, the port's ``models/ssd.py::ssd_chunked``.  Both are held
 to the Pallas kernel ``ssd_scan_kernel`` (interpret mode) and to
 ``repro.models.ssd.ssd_chunked`` within 2e-4, and to the sequential oracle
-``ref.ssd_scan`` within 5e-4 (the tolerances of ``tests/test_kernels.py``).
+``ref.ssd_scan`` within 5e-4 (the tolerances of ``tests/test_kernels.py``);
+so is :func:`_chunk_parallel`, the CUDA kernels' decomposition in plain
+PyTorch.
 The port's ``Mamba2Mixer(impl="kernel")`` is held to the reference's
 ``Mamba2Mixer(impl="pallas")`` on the same carried-over parameters.  The CUDA
 kernel itself is held to the plain version on a GPU by
@@ -61,6 +63,54 @@ def test_ssd_matches_pallas_chunked_and_oracle(B, S, H, P, N, Q):
         seq = np.asarray(ref.ssd_scan(j[0][bi], jnp.exp(j[1][bi]), j[2][bi], j[3][bi]))
         np.testing.assert_allclose(got[bi], seq, rtol=5e-4, atol=5e-4)
         np.testing.assert_allclose(oracle[bi], seq, rtol=5e-4, atol=5e-4)
+
+
+def _chunk_parallel(
+    xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor, c: torch.Tensor, chunk: int = 128
+) -> torch.Tensor:
+    """The CUDA kernels' decomposition in plain PyTorch, every chunk at once
+    but the state passing: scores ``G = c b^T`` per chunk, each chunk's own
+    end state, ``h_c = h_{c-1} exp(la_end_c) + S_c`` over chunks, then
+    ``y = (G o decay) x + exp(la) (c . h_{c-1})``.  float32, ``la`` summed
+    in float64 inside a chunk, the exponent masked and never the product."""
+    B, S, H, P = xdt.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    x = torch.nn.functional.pad(xdt.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nc, Q, H, P)
+    la = torch.nn.functional.pad(loga.double(), (0, 0, 0, pad)).reshape(B, nc, Q, H).cumsum(2)
+    bq = torch.nn.functional.pad(b.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    cq = torch.nn.functional.pad(c.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
+    scores = torch.einsum("bcin,bcjn->bcij", cq, bq)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = (la[:, :, :, None] - la[:, :, None, :]).float()  # [B, nc, Q, Q, H]
+    decay = torch.exp(diff.masked_fill(~causal[None, None, :, :, None], float("-inf")))
+    la_end = la[:, :, -1]  # [B, nc, H]
+    w = torch.exp((la_end[:, :, None] - la).float())  # [B, nc, Q, H]
+    own = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bq, w, x)
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    entering = []
+    for i in range(nc):
+        entering.append(h)
+        h = h * torch.exp(la_end[:, i].float())[:, :, None, None] + own[:, i]
+    hin = torch.stack(entering, dim=1)  # [B, nc, H, N, P]
+    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores, decay, x)
+    y = y + torch.einsum("bcin,bchnp->bcihp", cq, hin) * torch.exp(la.float())[..., None]
+    return y.reshape(B, nc * Q, H, P)[:, :S]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SHAPES + [(1, 70, 2, 6, 5, 16)])
+def test_ssd_chunk_parallel_matches_reference(B, S, H, P, N, Q):
+    """The CUDA kernels' decomposition in plain PyTorch against the
+    reference's chunked SSD (2e-4) and sequential oracle (5e-4)."""
+    x, loga, b, c = _inputs(B, S, H, P, N, seed=1)
+    j = [jnp.asarray(a) for a in (x, loga, b, c)]
+    got = _chunk_parallel(*(torch.as_tensor(a) for a in (x, loga, b, c)), chunk=Q).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref_chunked(*j, chunk=Q)), rtol=2e-4, atol=2e-4)
+    for bi in range(B):
+        seq = np.asarray(ref.ssd_scan(j[0][bi], jnp.exp(j[1][bi]), j[2][bi], j[3][bi]))
+        np.testing.assert_allclose(got[bi], seq, rtol=5e-4, atol=5e-4)
 
 
 @pytest.mark.parametrize("seed,q", [(0, 4), (1, 8), (2, 16)])
