@@ -78,6 +78,9 @@ SIDE = 1024  # grid side: SIDE * SIDE = 1 << 20 rows
 NPODS, PPN = 4, 4
 STRATEGIES = ("standard", "two_step", "three_step", "split")
 MM_COLS = 8
+#: B2's column counts held against its plain version: the one-column and
+#: main-path widths, the generic kernel (3) and the two-thread rows (16)
+MM_CHECK_COLS = (1, 3, MM_COLS, 16)
 
 #: the LLM serving path: hymba-1.5b at full width and depth, a batch of
 #: prompts longer than its 2048-token window, greedy decode
@@ -101,6 +104,11 @@ TOL_F32 = 2e-5
 TOL_BF16 = 5e-2
 TOL_SPMV = 1e-5
 TOL_SOLVE = 1e-6
+#: CG's true residual with the int8 wire.  The int8 codec rounds each
+#: inter-pod halo value by up to 0.5/127 of its block's largest magnitude,
+#: so the solve converges on an operator some 1e-4 away from A: 1e-5
+#: cannot be reached, and the gate is a quarter of the per-element bound
+TOL_TRUE_INT8 = 1e-3
 #: B3 / B4 against their plain versions: f32 at the reference's own kernel
 #: tolerances (tests/test_kernels.py); B3 on bf16 inputs against the plain
 #: version in float32 on the same (bf16-rounded) inputs, where only the
@@ -124,7 +132,16 @@ def log(*args) -> None:
 
 
 class Timer:
-    """CUDA-event timing of one callable, with the L2 flushed before each run."""
+    """CUDA-event timing of one callable, with the L2 flushed before each run.
+
+    Before each timed run the device also spins for about a millisecond
+    (``torch.cuda._sleep``), so the start event and the run are both queued
+    before the start event executes: a short kernel is timed by what the
+    device spends on it, not by how long the host takes to launch it.
+    """
+
+    #: ~1 ms at the H100's 1.98 GHz boost clock
+    SETTLE_CYCLES = 2_000_000
 
     def __init__(self, torch, reps: int = 20):
         self.torch = torch
@@ -139,6 +156,7 @@ class Timer:
         total = 0.0
         for _ in range(self.reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.SETTLE_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -147,6 +165,23 @@ class Timer:
             torch.cuda.synchronize()
             total += start.elapsed_time(end)
         return total / self.reps
+
+    def per_call(self, fn) -> float:
+        """ms per call of ``reps`` calls back to back between two CUDA events,
+        L2 warm: the stream's span, host-bound gaps included (for paths of
+        many small launches, where the host sets the pace)."""
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(self.reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / self.reps
 
 
 def bound(nbytes: int, flops: int, peak_flops: float = FP32_FLOPS) -> tuple:
@@ -294,8 +329,8 @@ def phase_kernels(ctx) -> None:
     halo_dep = part.off_row_nnz.reshape(g, L) > 0
     bnd = t(split_rows(halo_dep, K.TILE_R).boundary_tiles.astype(np.int32))
     bnd_mm = t(split_rows(halo_dep, K.TILE_R_MM).boundary_tiles.astype(np.int32))
-    V = {c: t(rng.normal(size=(g, L, c)).astype(np.float32)) for c in (1, MM_COLS)}
-    H = {c: IrregularExchange(part.pattern, "two_step")(V[c]) for c in (1, MM_COLS)}
+    V = {c: t(rng.normal(size=(g, L, c)).astype(np.float32)) for c in MM_CHECK_COLS}
+    H = {c: IrregularExchange(part.pattern, "two_step")(V[c]) for c in MM_CHECK_COLS}
     errs = ctx["details"].setdefault("kernel_checks", [])
 
     def check(name, got, want, tol):
@@ -321,12 +356,16 @@ def phase_kernels(ctx) -> None:
             ("spmv_ell", f"diag masked {tag}", K.spmv_ell(d_, dc, x_, bnd),
              K.spmv_ell_masked_ref(d_, dc, x_, rows(bnd, K.TILE_R, L))),
         ]
-        for c in (1, MM_COLS):
+        for c in MM_CHECK_COLS:
             X, Hc = V[c].to(dtype), H[c].to(dtype)
+            mask_rows = rows(bnd_mm, K.TILE_R_MM, L)
             cases += [
                 ("spmm_ell", f"diag C={c} {tag}", K.spmm_ell(d_, dc, X), K.spmm_ell_ref(d_, dc, X)),
+                ("spmm_ell", f"diag masked C={c} {tag}", K.spmm_ell(d_, dc, X, bnd_mm),
+                 K.spmm_ell_masked_ref(d_, dc, X, mask_rows)),
+                ("spmm_ell", f"off C={c} {tag}", K.spmm_ell(o_, oc, Hc), K.spmm_ell_ref(o_, oc, Hc)),
                 ("spmm_ell", f"off masked C={c} {tag}", K.spmm_ell(o_, oc, Hc, bnd_mm),
-                 K.spmm_ell_masked_ref(o_, oc, Hc, rows(bnd_mm, K.TILE_R_MM, L))),
+                 K.spmm_ell_masked_ref(o_, oc, Hc, mask_rows)),
             ]
         for kname, name, got, want in cases:
             err = check(f"{kname} {name}", got, want, tol)
@@ -337,6 +376,20 @@ def phase_kernels(ctx) -> None:
         log(f"[kernels] spmm(C=1) == spmv bitwise ({tag}): {same}")
         if not same:
             raise AssertionError("spmm_ell at C=1 differs from spmv_ell")
+        # every column of an 8-column product is B1 on that column, bitwise,
+        # and a masked launch's active tiles are the unmasked launch's
+        X8, H8 = V[MM_COLS].to(dtype), H[MM_COLS].to(dtype)
+        full = K.spmm_ell(d_, dc, X8)
+        cols_same = all(
+            torch.equal(full[..., c], K.spmv_ell(d_, dc, X8[..., c].contiguous())) for c in range(MM_COLS)
+        )
+        off_full, off_masked = K.spmm_ell(o_, oc, H8), K.spmm_ell(o_, oc, H8, bnd_mm)
+        mrows = rows(bnd_mm, K.TILE_R_MM, L)
+        mask_same = torch.equal(off_masked[mrows], off_full[mrows]) and not off_masked[~mrows].any()
+        log(f"[kernels] spmm(X)[..., c] == spmv(X[..., c]) bitwise for c < {MM_COLS} ({tag}): {cols_same}; "
+            f"masked active tiles == unmasked bitwise: {mask_same}")
+        if not (cols_same and mask_same):
+            raise AssertionError("spmm_ell breaks its bitwise invariants against spmv_ell / its masked launch")
 
     timer = Timer(torch)
     csr = ell_as_csr(torch, dd, dc, L)
@@ -373,6 +426,25 @@ def phase_kernels(ctx) -> None:
             "max_abs_err": max_err[kname],
         }
         log(f"[kernels] {kname} {shape} f32: " + json.dumps(timings[kname]))
+    # B2 in bf16 at the main path's shape: bf16 data and X, int32 cols
+    db, Xb = dd.to(torch.bfloat16), V[MM_COLS].to(torch.bfloat16)
+    csr_b = ell_as_csr(torch, db, dc, L)
+    try:
+        lib_b = timer(lambda: csr_b @ Xb.reshape(rows_all, MM_COLS))
+    except RuntimeError as e:  # a library without a bf16 CSR product: no yardstick
+        lib_b = None
+        log(f"[kernels] torch.sparse CSR @ dense in bf16 unavailable: {str(e).splitlines()[0]}")
+    b_ms, b_by = bound(db.nbytes + dc.nbytes + 2 * Xb.nbytes, 2 * db.numel() * MM_COLS)
+    bf = {
+        "shape": [g, L, dd.shape[2], MM_COLS],
+        "ms": timer(lambda: K.spmm_ell(db, dc, Xb)),
+        "plain_ms": timer(lambda: K.spmm_ell_ref(db, dc, Xb)),
+        "library_ms": lib_b,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    log("[kernels] spmm_ell bf16: " + json.dumps(bf))
+    ctx["details"].setdefault("extra_timings", {})["spmm_ell bf16"] = bf
     # the off block and the masked off pass, for the record
     for name, fn in (
         ("spmv_ell off f32", lambda: K.spmv_ell(od, oc, halo)),
@@ -577,6 +649,178 @@ def phase_profile(ctx) -> None:
     }
     ctx["details"]["profile"] = summary
     log("[profile] " + json.dumps(summary))
+
+
+def wire_payload(shape, seed: int) -> np.ndarray:
+    """A halo payload for the codecs: values over many binades, and in each
+    rank's first and last grid rows (the rows its neighbours receive) an
+    inf, a nan, a -inf and a value beyond float16's range."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * 10.0 ** rng.integers(-3, 4, size=shape)).astype(np.float32)
+    x[:, 5], x[:, 17], x[:, 29], x[:, -7] = np.inf, np.nan, 7e4, -np.inf
+    return x
+
+
+def phase_faults(ctx) -> None:
+    """The exchange's wire codecs, integrity checks, fault injection and
+    recovery ladder on the card at the case study's size (1,048,576 rows,
+    16 ranks), held against the host oracle ``execute_numpy``; CG with the
+    int8 wire, with checks, and through injected faults."""
+    import torch
+    from repro_torch.comm import (
+        WIRE_CODECS,
+        ExchangeIntegrityError,
+        FaultPlan,
+        FaultSpec,
+        IrregularExchange,
+        execute_numpy,
+        merge_split_phase,
+        split_phase,
+    )
+    from repro_torch.solve import cg
+    from repro_torch.sparse import DistributedSpMV
+
+    A, part, topo = ctx["A"], ctx["part"], ctx["topo"]
+    g, L = topo.nranks, part.rows_per_rank
+    local = wire_payload((g, L), SEED + 8)
+    dev_local = torch.as_tensor(local, device="cuda")
+    sp = split_phase(part.pattern)
+    timer = Timer(torch)
+    summary = {"exchange": [], "detection": [], "cg": {}}
+    failures = []
+
+    # 1-2. every strategy x codec, barrier and split-phase, bitwise the
+    # oracle (on a payload with non-finite and out-of-range values); checked
+    # on a normal payload, clean: no violation, codec none included
+    normal = np.random.default_rng(SEED + 12).normal(size=(g, L)).astype(np.float32)
+    dev_normal = torch.as_tensor(normal, device="cuda")
+
+    def oracle(ex, x, codec):
+        remote, local_ex, _ = ex._two_phase
+        split = merge_split_phase(
+            sp, execute_numpy(local_ex.plan, x), execute_numpy(remote.plan, x, codec)
+        )
+        return execute_numpy(ex.plan, x, codec), split
+
+    for strat in STRATEGIES:
+        for codec in WIRE_CODECS:
+            ex = IrregularExchange(part.pattern, strat, wire=codec)
+            checked = IrregularExchange(part.pattern, strat, wire=codec, verify=True)
+            got = ex(dev_local).cpu().numpy()
+            split = ex.start(dev_local).finish().cpu().numpy()
+            want, want_split = oracle(ex, local, codec)
+            got_v = checked(dev_normal).cpu().numpy()
+            split_v = checked.start(dev_normal).finish().cpu().numpy()
+            want_v, want_split_v = oracle(ex, normal, codec)
+            _, viols = checked._program.run(dev_normal, codec, verify=True)
+            max_viol = float(viols.max()) if viols.numel() else float("-inf")
+            ok = (
+                np.array_equal(got, want, equal_nan=True)
+                and np.array_equal(split, want_split, equal_nan=True)
+                and np.array_equal(got_v, want_v)
+                and np.array_equal(split_v, want_split_v)
+                and not checked.health.failures
+                and max_viol <= 0.0
+            )
+            row = {
+                "strategy": strat, "codec": codec, "bitwise": ok, "max_violation": max_viol,
+                "checked_hops": len(checked._program.hops),
+                "wire_bytes_inter": ex.wire_bytes[1],
+                "ms": timer.per_call(lambda: ex(dev_normal)),
+                "verify_ms": timer.per_call(lambda: checked(dev_normal)),
+                "split_ms": timer.per_call(lambda: ex.start(dev_normal).finish()),
+            }
+            summary["exchange"].append(row)
+            log("[faults] exchange " + json.dumps(row))
+            if not ok:
+                failures.append(f"{strat}/{codec} exchange")
+
+    # 3. seeded faults: the oracle's diagnostics, barrier and split-phase
+    for strat in STRATEGIES:
+        for kind, codec in (("corrupt", "none"), ("perturb", "bf16"), ("zero", "int8")):
+            fp = FaultPlan(seed=SEED + 9, specs=(FaultSpec(kind=kind, prob=0.5),))
+            ex = IrregularExchange(part.pattern, strat, wire=codec, verify=True, faults=fp,
+                                   max_retries=0, fallback=False)
+            seen = {}
+            for mode, run, plan_ in (
+                ("barrier", lambda: ex(dev_normal), ex.plan),
+                ("split", lambda: ex.start(dev_normal).finish(), None),
+            ):
+                try:
+                    run()
+                    got = None
+                except ExchangeIntegrityError as e:
+                    got = e.diagnostics()
+                plan_ = plan_ if plan_ is not None else ex._two_phase[0].plan
+                try:
+                    execute_numpy(plan_, normal, codec, faults=fp, verify=True)
+                    want = None
+                except ExchangeIntegrityError as e:
+                    want = e.diagnostics()
+                seen[mode] = got is not None and got == want
+            row = {"strategy": strat, "kind": kind, "codec": codec, **seen}
+            summary["detection"].append(row)
+            log("[faults] detection " + json.dumps(row))
+            if not all(seen.values()):
+                failures.append(f"{strat}/{kind}/{codec} detection")
+
+    # 4-5. CG at 1M rows: int8 wire, verified, a transient fault recovered
+    # by a retry, and a persistent lossy-codec fault cured by demotion
+    strat = ctx["op"].strategy
+    rng = np.random.default_rng(SEED + 10)
+    b = torch.as_tensor(rng.normal(size=(g, L)).astype(np.float32), device="cuda")
+    b64 = b.double().cpu().numpy().reshape(-1)
+    runs = {
+        "none": dict(),
+        "int8": dict(wire="int8"),
+        "verify": dict(verify=True),
+        "retry": dict(verify=True, faults=FaultPlan(
+            seed=SEED + 11, specs=(FaultSpec(kind="corrupt"),), active_calls=(0,))),
+        "demote": dict(wire="int8", verify=True, faults=FaultPlan(
+            seed=SEED + 11, specs=(FaultSpec(kind="corrupt", codecs=("lossy",)),))),
+    }
+    want_status = {
+        "none": "converged", "int8": "converged", "verify": "converged",
+        "retry": f"converged+exchange:retry:{strat}/none",
+        "demote": f"converged+exchange:demote:{strat}/none",
+    }
+    results = {}
+    for name, kw in runs.items():
+        op = DistributedSpMV(part, strategy=strat, **kw)
+        if "faults" not in kw:  # a warm-up would spend the faulted call
+            cg(op, b, tol=0.0, maxiter=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cg(op, b, tol=TOL_SOLVE, maxiter=1000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        x64 = res.x.double().cpu().numpy().reshape(-1)
+        true_rel = float(np.linalg.norm(b64 - csr_product64(A, x64)) / np.linalg.norm(b64))
+        results[name] = res
+        # the int8 halo moves the operator itself: its solution sits the
+        # codec's error away from the exact one (see TOL_TRUE_INT8)
+        true_tol = TOL_TRUE_INT8 if name == "int8" else 1e-5
+        row = {
+            "status": res.status, "iterations": res.iterations, "final_residual": res.final_residual,
+            "true_residual": true_rel, "true_tol": true_tol,
+            "ms_per_iteration": wall / max(res.iterations, 1) * 1e3,
+            "recoveries": op.health.recovery_count if op.health is not None else 0,
+        }
+        summary["cg"][name] = row
+        log(f"[faults] cg {name}: " + json.dumps(row))
+        if not (res.converged and res.status == want_status[name] and true_rel <= true_tol):
+            failures.append(f"cg {name}")
+    # a recovered solve is the clean one: after the retry (or with every
+    # halo demoted to "none") each halo is exact
+    same = (results["retry"].residuals == results["none"].residuals
+            and results["demote"].residuals == results["none"].residuals
+            and results["verify"].residuals == results["none"].residuals)
+    log(f"[faults] recovered / verified CG residual histories == clean: {same}")
+    if not same:
+        failures.append("recovered histories")
+    ctx["details"]["faults"] = summary
+    if failures:
+        raise AssertionError("faults phase failed: " + ", ".join(failures))
 
 
 def phase_lm_kernels(ctx) -> None:
@@ -982,6 +1226,7 @@ def main() -> int:
         ("spmv", phase_spmv),
         ("solve", phase_solve),
         ("profile", phase_profile),
+        ("faults", phase_faults),
         ("lm_kernels", phase_lm_kernels),
         ("serve", phase_serve),
         ("serve_stablelm", phase_serve_stablelm),

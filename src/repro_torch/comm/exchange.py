@@ -359,6 +359,85 @@ def lower_program(sp: StagePlan) -> LoweredProgram:
 
 
 # ---------------------------------------------------------------------------
+# Symbolic simulator, token-list flavor (the legacy planner's state)
+# ---------------------------------------------------------------------------
+
+PAD: Optional[Token] = None
+
+
+def _token_gather(stage_idx, buf, local):
+    new = []
+    for r in range(len(buf)):
+        ext = buf[r] + list(local[r])
+        row = []
+        for i in stage_idx[r]:
+            row.append(PAD if i >= len(ext) else ext[int(i)])
+        new.append(row)
+    return new
+
+
+def simulate_stage(
+    topo: PodTopology,
+    stage: Stage,
+    buf: List[List[Optional[Token]]],
+    local: List[List[Token]],
+) -> List[List[Optional[Token]]]:
+    nranks, ppn, npods = topo.nranks, topo.ppn, topo.npods
+    if isinstance(stage, Gather):
+        return _token_gather(stage.idx, buf, local)
+    if isinstance(stage, A2ALocal):
+        if stage.idx is not None:
+            buf = _token_gather(stage.idx, buf, local)
+        blk = stage.buflen // ppn
+        new = [[PAD] * stage.buflen for _ in range(nranks)]
+        for p in range(npods):
+            for l in range(ppn):
+                r = topo.rank_of(p, l)
+                for j in range(ppn):
+                    src = topo.rank_of(p, j)
+                    new[r][j * blk : (j + 1) * blk] = buf[src][l * blk : (l + 1) * blk]
+        return new
+    if isinstance(stage, A2APod):
+        if stage.idx is not None:
+            buf = _token_gather(stage.idx, buf, local)
+        blk = stage.buflen // npods
+        new = [[PAD] * stage.buflen for _ in range(nranks)]
+        for p in range(npods):
+            for l in range(ppn):
+                r = topo.rank_of(p, l)
+                for q in range(npods):
+                    src = topo.rank_of(q, l)
+                    new[r][q * blk : (q + 1) * blk] = buf[src][p * blk : (p + 1) * blk]
+        return new
+    if isinstance(stage, PermuteWorld):
+        new = [[] for _ in range(nranks)]
+        for rnd, (perm, blk, sel) in enumerate(zip(stage.rounds, stage.blks, stage.sels)):
+            send = []
+            for r in range(nranks):
+                ext = buf[r] + list(local[r])
+                send.append(
+                    [PAD if i >= len(ext) else ext[int(i)] for i in sel[r]]
+                )
+            got = {d: send[s] for s, d in perm}
+            for r in range(nranks):
+                new[r].extend(got.get(r, [PAD] * blk))
+        return new
+    raise TypeError(f"unknown stage {stage!r}")
+
+
+def simulate(plan: StagePlan) -> List[List[Optional[Token]]]:
+    topo = plan.pattern.topo
+    local = [
+        [(r, e) for e in range(plan.pattern.local_size)]
+        for r in range(topo.nranks)
+    ]
+    buf: List[List[Optional[Token]]] = [[] for _ in range(topo.nranks)]
+    for stage in plan.stages:
+        buf = simulate_stage(topo, stage, buf, local)
+    return buf
+
+
+# ---------------------------------------------------------------------------
 # Symbolic simulator, vectorized token-code flavor (used by the planner)
 # ---------------------------------------------------------------------------
 
@@ -460,29 +539,36 @@ def execute_numpy(
     executor (:class:`repro_torch.comm.strategies.IrregularExchange`).  Used
     to verify that fused and unfused programs deliver identical values.
 
-    ``wire`` selects the inter-pod codec (:mod:`repro_torch.comm.wire`):
-    payloads crossing pods -- every non-diagonal ``A2APod`` block and every
-    inter-pod ``PermuteWorld`` round -- are encode/decode round-tripped,
-    while on-pod hops stay full precision.  ``wire="none"`` (the default) is
-    the unchanged bit-exact movement.
+    ``wire`` selects the inter-pod codec (:mod:`repro_torch.comm.wire`): payloads
+    crossing pods -- every non-diagonal ``A2APod`` block and every inter-pod
+    ``PermuteWorld`` round -- are encode/decode round-tripped exactly the
+    way the torch executor does, while on-pod hops stay full precision.
+    ``wire="none"`` (the default) is the unchanged bit-exact movement.
 
-    ``faults`` and ``verify`` belong to the fault-injection slice of the
-    port (ROADMAP A.6) and raise ``NotImplementedError`` until it lands;
-    ``fault_call`` is kept for signature parity.
+    ``faults`` (a :class:`repro_torch.comm.faults.FaultPlan`) injects seeded
+    deterministic corruption into the decoded DCI-crossing wire blocks --
+    bitwise identical to the torch executor under the same plan --
+    gated by ``faults.active(fault_call)``.  ``verify=True`` computes the
+    per-wire-block check values of :mod:`repro_torch.comm.faults` before the
+    codec round-trip and validates them after decode+injection, raising a
+    structured :class:`repro_torch.comm.faults.ExchangeIntegrityError` at the
+    first violating hop; fault-free verified runs return the same values
+    as unverified ones.
     """
     wire_codec.check_codec(wire)
-    if faults is not None or verify:
-        raise NotImplementedError(
-            "execute_numpy(faults=..., verify=True) arrives with the "
-            "faults/verify slice of the port (ROADMAP A.6)"
-        )
-    del fault_call
+    # local import: repro_torch.comm.faults imports this module's stage types
+    from repro_torch.comm import faults as faults_mod
+
+    cf = None
+    if faults is not None and faults.active(fault_call):
+        cf = faults_mod.compile_faults(plan, wire, faults)
     topo = plan.pattern.topo
     nranks, ppn, npods = topo.nranks, topo.ppn, topo.npods
     local = np.asarray(local)
     feat = local.shape[2:]
+    encoded = wire_codec.applies(wire, local.dtype)
     buf = np.zeros((nranks, 0) + feat, dtype=local.dtype)
-    for stage in plan.stages:
+    for op_i, stage in enumerate(plan.stages):
         if isinstance(stage, Gather):
             buf = _take_fill(np.concatenate([buf, local], axis=1), np.asarray(stage.idx))
         elif isinstance(stage, (A2ALocal, A2APod)):
@@ -499,9 +585,26 @@ def execute_numpy(
             else:
                 blk = stage.buflen // npods
                 b = buf.reshape((npods, ppn, npods, blk) + feat)
+                axes = tuple(range(3, b.ndim))
+                pre = faults_mod.block_check_np(b, axes) if verify else None
                 # the inter-pod hop: round-trip off-diagonal blocks through
                 # the wire codec (diagonal blocks never cross pods)
                 b = wire_codec.roundtrip_pod_blocks_np(b, wire)
+                if cf is not None:
+                    for inj in cf.for_hop(op_i, None):
+                        b = faults_mod.apply_injection_np(
+                            b, inj.np_mask, inj.kind, inj.value
+                        )
+                if verify:
+                    post = faults_mod.block_check_np(b, axes)
+                    nelem = blk * int(np.prod(feat, dtype=np.int64))
+                    faults_mod.raise_if_violated(
+                        faults_mod.check_violation(pre, post, nelem, wire, encoded),
+                        strategy=plan.strategy,
+                        codec=wire,
+                        stage_kind="a2a_pod",
+                        op_index=op_i,
+                    )
                 buf = b.transpose((2, 1, 0, 3) + tuple(range(4, 4 + len(feat)))).reshape(
                     (nranks, stage.buflen) + feat
                 )
@@ -511,13 +614,32 @@ def execute_numpy(
                 stage.inter if stage.inter is not None else (False,) * len(stage.blks)
             )
             parts = []
-            for perm, blk, sel, inter in zip(
-                stage.rounds, stage.blks, stage.sels, inters
+            for ri, (perm, blk, sel, inter) in enumerate(
+                zip(stage.rounds, stage.blks, stage.sels, inters)
             ):
                 send = _take_fill(ext, np.asarray(sel))
                 if inter:
+                    check = verify and bool(perm)
+                    axes = tuple(range(1, send.ndim))
+                    pre = faults_mod.block_check_np(send, axes) if check else None
                     # one wire block per sending rank
                     send = wire_codec.roundtrip_np(send, wire, block_ndim=send.ndim - 1)
+                    if cf is not None:
+                        for inj in cf.for_hop(op_i, ri):
+                            send = faults_mod.apply_injection_np(
+                                send, inj.np_mask, inj.kind, inj.value
+                            )
+                    if check:
+                        post = faults_mod.block_check_np(send, axes)
+                        nelem = blk * int(np.prod(feat, dtype=np.int64))
+                        faults_mod.raise_if_violated(
+                            faults_mod.check_violation(pre, post, nelem, wire, encoded),
+                            strategy=plan.strategy,
+                            codec=wire,
+                            stage_kind="permute",
+                            op_index=op_i,
+                            round_index=ri,
+                        )
                 out = np.zeros((nranks, blk) + feat, dtype=local.dtype)
                 if perm:
                     srcs = [s for s, _ in perm]
@@ -531,6 +653,10 @@ def execute_numpy(
             )
         else:
             raise TypeError(f"unknown stage {stage!r}")
+    if cf is not None and cf.delay_s > 0.0:
+        import time
+
+        time.sleep(cf.delay_s)  # the injected slow-hop latency
     return buf[:, : plan.out_size]
 
 

@@ -24,25 +24,45 @@ programs live in module-level LRU caches keyed by
 the device for programs); inspect with :func:`cache_stats`, reset with
 :func:`clear_caches`.
 
-Split-phase execution (:meth:`IrregularExchange.start`) runs the inter-pod
-sub-exchange on a side CUDA stream while the on-pod one runs on the current
-stream; :meth:`ExchangeHandle.finish` makes the current stream wait and
-merges the two, bitwise equal to the barrier call.
+The inter-pod hops -- the ``A2APod`` blocks and the inter-pod
+``PermuteWorld`` rounds -- are where the wire lives.  There, and only there:
 
-This slice runs ``wire="none"`` only: lossy wire codecs, ``verify``,
-``faults`` and ``health`` raise ``NotImplementedError`` until the
-faults/verify/codecs slice of the port (ROADMAP A.1).
+* a lossy codec (``wire="bf16" | "f16" | "int8"``) encodes the sender's wire
+  blocks, the index move carries the encoded payload (and the int8 scales),
+  and the receiver decodes it; the own-pod ``A2APod`` block never crossed
+  pods and stays at full precision;
+* ``verify=True`` takes the check triple of each sender block before
+  encoding, moves it with the payload, and compares it with the triple of
+  the received block after decoding (one device-to-host read per call);
+* a :class:`~repro_torch.comm.faults.FaultPlan` corrupts received blocks
+  with masks compiled once per (plan, codec, fault plan) and kept on the
+  device.
+
+All of it is bitwise the numpy oracle ``execute_numpy(wire=, faults=,
+verify=)``.  A failed check raises
+:class:`~repro_torch.comm.faults.ExchangeIntegrityError` through the
+retry -> codec demotion -> strategy re-advise ladder
+(:func:`repro_torch.comm.faults.run_ladder`).
+
+Split-phase execution (:meth:`IrregularExchange.start`) runs the inter-pod
+sub-exchange (with its codec, checks and faults) on a side CUDA stream
+while the on-pod one runs on the current stream;
+:meth:`ExchangeHandle.finish` makes the current stream wait, settles the
+checks and merges the two, bitwise equal to the barrier call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.comm import compression
+from repro_torch.comm import faults as faults_mod
 from repro_torch.comm import wire as wire_mod
 from repro_torch.comm.exchange import (
     ExchangePattern,
@@ -55,12 +75,131 @@ from repro_torch.comm.exchange import (
 from repro_torch.comm.fusion import fuse
 from repro_torch.core.device import DeviceLike, as_device_tensor, resolve_device
 
-#: the ROADMAP item that brings what this slice leaves out
-LATER = "the faults/verify/codecs slice of the port (ROADMAP A.1)"
+_EPS32 = float(np.finfo(np.float32).eps)
+
+_WIRE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
 
 
-def not_yet(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it arrives with {LATER}")
+# ---------------------------------------------------------------------------
+# Wire codecs, checks and injections on the device
+# ---------------------------------------------------------------------------
+
+
+def _codec_applies(codec: str, dtype: torch.dtype) -> bool:
+    """:func:`repro_torch.comm.wire.applies` for a torch dtype: floating
+    payloads strictly wider than the wire type are encoded."""
+    w = wire_mod.WIRE_ITEMSIZE[wire_mod.check_codec(codec)]
+    return w is not None and dtype.is_floating_point and dtype.itemsize > w
+
+
+def _encode_blocks(blocks: torch.Tensor, codec: str):
+    """Encode ``[nblocks, nelem]`` wire blocks; returns ``(payload, scale)``.
+
+    bf16/f16 saturate *finite* overflow to the wire type's max and let
+    ``+/-inf`` and ``nan`` through the cast (round to nearest even, as
+    :func:`repro_torch.comm.wire.roundtrip_np`).  int8 takes one float32
+    scale per block over its finite magnitudes and ships non-finite
+    elements as :data:`~repro_torch.comm.wire.INT8_NONFINITE`.
+    """
+    if codec in _WIRE_DTYPES:
+        fmax = wire_mod.WIRE_FMAX[codec]
+        sat = torch.where(torch.isfinite(blocks), blocks.clamp(-fmax, fmax), blocks)
+        return sat.to(_WIRE_DTYPES[codec]), None
+    f = blocks.float()
+    scale = compression.int8_scale(compression.finite_amax(f, dim=1), wire_mod.QMAX)
+    q = compression.int8_quantize(
+        f, scale[:, None], wire_mod.QMAX, nonfinite_code=wire_mod.INT8_NONFINITE
+    )
+    return q, scale
+
+
+def _decode_blocks(payload: torch.Tensor, scale: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """Inverse of :func:`_encode_blocks` after the move."""
+    if scale is None:
+        return payload.to(dtype)
+    return compression.int8_dequantize(
+        payload, scale[:, None], nonfinite_code=wire_mod.INT8_NONFINITE
+    ).to(dtype)
+
+
+def _wire_check(blocks: torch.Tensor) -> torch.Tensor:
+    """Torch twin of :func:`repro_torch.comm.faults.block_check_np`: the
+    ``(sum |finite x|, nonfinite count, finite amax)`` triple of each row of
+    ``[nblocks, nelem]``, as ``[nblocks, 3]`` float32.
+
+    The magnitudes are laid out as a fresh contiguous ``[nblocks, nelem]``
+    tensor padded with zeros to a 16-byte row, so every row of the sender's
+    and the receiver's tensor is summed by the same reduction in the same
+    order: a block that only moved gives a bitwise equal sum.
+    """
+    f = blocks.float()
+    finite = torch.isfinite(f)
+    mag = torch.where(finite, f.abs(), torch.zeros((), device=f.device))
+    pad = (-mag.shape[1]) % 4
+    if pad:
+        mag = torch.nn.functional.pad(mag, (0, pad))
+    s = mag.sum(dim=1)
+    c = (~finite).sum(dim=1).float()
+    a = mag.amax(dim=1) if mag.shape[1] else torch.zeros_like(s)
+    return torch.stack([s, c, a], dim=-1)
+
+
+def _check_violation(pre: torch.Tensor, post: torch.Tensor, nelem: int, codec: str,
+                     encoded: bool) -> torch.Tensor:
+    """Torch twin of :func:`repro_torch.comm.faults.check_violation`, reduced
+    to the hop's worst block (``> 0`` means the check failed)."""
+    s0, c0, a0 = pre.unbind(-1)
+    s1, c1 = post[:, 0], post[:, 1]
+    if encoded:
+        rel = wire_mod.REL_ERROR_BOUND[codec]
+        floor = wire_mod.ABS_ERROR_FLOOR[codec]
+        tol = nelem * (rel * a0 + floor) * 1.0625 + 64.0 * _EPS32 * (s0 + 1.0)
+    else:
+        tol = torch.zeros_like(s0)
+    drift = (s1.double() - s0.double()).abs() - tol.double()
+    viol = torch.where(c1 != c0, torch.full_like(drift, float("inf")), drift)
+    return viol.max()
+
+
+def _apply_injection(x: torch.Tensor, mask: torch.Tensor, kind: str, value: float) -> torch.Tensor:
+    """Torch twin of :func:`repro_torch.comm.faults.apply_injection_np`."""
+    m = mask.view(mask.shape + (1,) * (x.ndim - mask.ndim))
+    if kind == "zero":
+        return torch.where(m, torch.zeros((), dtype=x.dtype, device=x.device), x)
+    v = torch.full((), value, dtype=x.dtype, device=x.device)
+    if kind == "corrupt":
+        return torch.where(m, v, x)
+    if kind == "perturb":
+        return torch.where(m, x * v, x)
+    raise ValueError(f"unknown injection kind {kind!r}")
+
+
+def _wire_hop(send: torch.Tensor, move: Callable, codec: str, encoded: bool, verify: bool,
+              injections, recv_shape: tuple, own_pod: Optional[int] = None):
+    """One inter-pod hop of ``[nblocks, nelem]`` sender blocks.
+
+    ``move`` is the hop's index move (it carries any ``[nblocks, ...]``
+    tensor from the sender's block order to the receiver's).  Returns the
+    received blocks (same shape) and the hop's violation (``None`` unless
+    ``verify``).  ``own_pod`` (the pod count of an ``A2APod`` hop) restores
+    each rank's own-pod block at full precision; ``recv_shape`` is the
+    receiver layout the fault masks address.
+    """
+    pre = _wire_check(send) if verify else None
+    if encoded and send.numel():
+        payload, scale = _encode_blocks(send, codec)
+        got = _decode_blocks(move(payload), None if scale is None else move(scale), send.dtype)
+        if own_pod is not None:
+            i = torch.arange(own_pod, device=send.device)
+            gv = got.view((own_pod, -1, own_pod) + tuple(got.shape[1:]))
+            gv[i, :, i] = send.view(gv.shape)[i, :, i]
+    else:
+        got = move(send)
+    for kind, mask, value in injections:
+        got = _apply_injection(got.view(recv_shape), mask, kind, value).view(got.shape)
+    if not verify:
+        return got, None
+    return got, _check_violation(move(pre), _wire_check(got), send.shape[1], codec, encoded)
 
 
 # ---------------------------------------------------------------------------
@@ -74,11 +213,17 @@ class _Program:
     The scratch is ``[nranks, E, *feat]`` with ``E = L + w_max + 1``: the
     rank's ``local`` block, the buffer region, and one all-zero slot at the
     PAD sentinel.  Index ``i`` of rank ``r`` becomes ``r * E + i``.
+
+    ``hops`` lists the inter-pod hops a verified run checks, in program
+    order: ``(op_index, stage_kind, round_index)``, the columns of
+    :meth:`run`'s violation vector.
     """
 
     def __init__(self, sp: StagePlan, device: torch.device):
         lp = lower_program(sp)
         topo = sp.pattern.topo
+        self.sp = sp
+        self.device = device
         self.topo = topo
         self.L = lp.local_size
         self.out_size = lp.out_size
@@ -104,23 +249,55 @@ class _Program:
                     ai += 1
                 self.steps.append((kind, buflen, idx))
             elif kind == "permute":
-                _, rounds, blks, _inter = op
+                _, rounds, blks, inters = op
                 rnds = []
-                for perm, blk in zip(rounds, blks):
+                for perm, blk, inter in zip(rounds, blks, inters):
                     sel = flat(lp.arrays[ai])
                     ai += 1
                     srcs = torch.as_tensor([s for s, _ in perm], dtype=torch.int64, device=device)
                     dsts = torch.as_tensor([d for _, d in perm], dtype=torch.int64, device=device)
-                    rnds.append((blk, sel, srcs, dsts))
+                    rnds.append((blk, sel, srcs, dsts, bool(inter)))
                 self.steps.append(("permute", sum(blks), rnds))
             else:
                 raise TypeError(f"unknown op {op!r}")
+        self.hops: Tuple[tuple, ...] = tuple(
+            (op_index, stage_kind, round_index)
+            for _, op_index, stage_kind, round_index, _, _ in faults_mod.iter_inter_hops(sp)
+        )
+        self._faults: Dict[tuple, tuple] = {}
 
-    def run(self, local: torch.Tensor) -> torch.Tensor:
-        """``local [n, L, *feat] -> [n, out_size, *feat]`` (contiguous)."""
+    def faults_on_device(self, codec: str, faults) -> tuple:
+        """``(injections, delay_s)`` of ``faults`` compiled against this plan
+        and ``codec``: injections map ``(op_index, round_index)`` to
+        ``((kind, receiver mask on the device, value), ...)``.  Compiled in
+        numpy and moved to the device once per (codec, fault plan)."""
+        key = (codec, faults.fingerprint())
+        got = self._faults.get(key)
+        if got is None:
+            cf = faults_mod.compile_faults(self.sp, codec, faults)
+            grouped: Dict[tuple, list] = {}
+            for inj in cf.injections:
+                grouped.setdefault((inj.op_index, inj.round_index), []).append(
+                    (inj.kind, torch.as_tensor(inj.dev_mask, device=self.device), inj.value)
+                )
+            got = self._faults[key] = ({k: tuple(v) for k, v in grouped.items()}, cf.delay_s)
+        return got
+
+    def run(self, local: torch.Tensor, codec: str = "none", verify: bool = False,
+            injections: Optional[Dict[tuple, tuple]] = None):
+        """``local [n, L, *feat] -> ([n, out_size, *feat], viols)``.
+
+        ``viols`` is ``None`` unless ``verify``; then it is a ``[len(hops)]``
+        float64 tensor of each checked hop's worst violation (``> 0`` failed).
+        """
         topo, L, E = self.topo, self.L, self.E
         n, ppn, npods = topo.nranks, topo.ppn, topo.npods
         feat = tuple(local.shape[2:])
+        nfeat = int(np.prod(feat, dtype=np.int64))
+        encoded = _codec_applies(codec, local.dtype)
+        wired = encoded or verify or bool(injections)
+        injections = injections or {}
+        viols: List[torch.Tensor] = []
         ext = local.new_zeros((n, E) + feat)
         ext[:, :L] = local
         flat = ext.view((n * E,) + feat)
@@ -128,27 +305,63 @@ class _Program:
         def take(idx: torch.Tensor, width: int) -> torch.Tensor:
             return flat.index_select(0, idx).view((n, width) + feat)
 
-        for kind, width, arg in self.steps:
+        for op_i, (kind, width, arg) in enumerate(self.steps):
             if kind == "gather":
                 ext[:, L : L + width] = take(arg, width)
             elif kind in ("a2a_local", "a2a_pod"):
                 seg = take(arg, width) if arg is not None else ext[:, L : L + width].clone()
                 if kind == "a2a_local":
                     blocks = seg.view((npods, ppn, ppn, width // ppn) + feat).transpose(1, 2)
-                else:
-                    blocks = seg.view((npods, ppn, npods, width // npods) + feat).transpose(0, 2)
-                ext[:, L : L + width] = blocks.reshape((n, width) + feat)
+                    ext[:, L : L + width] = blocks.reshape((n, width) + feat)
+                    continue
+                blk = width // npods
+                if not wired:
+                    blocks = seg.view((npods, ppn, npods, blk) + feat).transpose(0, 2)
+                    ext[:, L : L + width] = blocks.reshape((n, width) + feat)
+                    continue
+
+                def pod_move(t: torch.Tensor) -> torch.Tensor:
+                    rest = tuple(t.shape[1:])
+                    return t.view((npods, ppn, npods) + rest).transpose(0, 2).reshape(t.shape)
+
+                got, viol = _wire_hop(
+                    seg.reshape(n * npods, blk * nfeat), pod_move, codec, encoded, verify,
+                    injections.get((op_i, None), ()), (n, npods, blk) + feat, own_pod=npods,
+                )
+                if viol is not None:
+                    viols.append(viol)
+                ext[:, L : L + width] = got.view((n, width) + feat)
             else:  # permute
                 parts = []
-                for blk, sel, srcs, dsts in arg:
+                for ri, (blk, sel, srcs, dsts, inter) in enumerate(arg):
                     send = take(sel, blk)
-                    out = send.new_zeros(send.shape)
-                    if len(srcs):
-                        out.index_copy_(0, dsts, send.index_select(0, srcs))
-                    parts.append(out)
+                    if not len(srcs):
+                        parts.append(torch.zeros_like(send))
+                        continue
+
+                    def perm_move(t: torch.Tensor, srcs=srcs, dsts=dsts) -> torch.Tensor:
+                        out = t.new_zeros(t.shape)
+                        out.index_copy_(0, dsts, t.index_select(0, srcs))
+                        return out
+
+                    if not (inter and wired):
+                        parts.append(perm_move(send))
+                        continue
+                    got, viol = _wire_hop(
+                        send.reshape(n, blk * nfeat), perm_move, codec, encoded, verify,
+                        injections.get((op_i, ri), ()), (n, blk) + feat,
+                    )
+                    if viol is not None:
+                        viols.append(viol)
+                    parts.append(got.view((n, blk) + feat))
                 if parts:
                     ext[:, L : L + width] = torch.cat(parts, dim=1)
-        return ext[:, L : L + self.out_size].contiguous()
+        out = ext[:, L : L + self.out_size].contiguous()
+        if not verify:
+            return out, None
+        if not viols:
+            return out, torch.zeros(0, dtype=torch.float64, device=local.device)
+        return out, torch.stack(viols)
 
 
 # ---------------------------------------------------------------------------
@@ -340,14 +553,18 @@ class ExchangeHandle:
 
     ``local_halo`` is the on-pod phase result, queued on the current stream;
     the inter-pod phase runs on ``stream`` (a side CUDA stream, or ``None``
-    on the CPU, where it already ran).  :meth:`finish` merges both phases
-    into the full canonical recv buffer -- bitwise the barrier result.
+    on the CPU, where it already ran).  :meth:`finish` settles the inter-pod
+    phase's checks (through the recovery ladder, when it has any) and merges
+    both phases into the full canonical recv buffer -- bitwise the barrier
+    result.
     """
 
     local_halo: torch.Tensor
     remote_halo: torch.Tensor
     _merge: object
     stream: Optional["torch.cuda.Stream"] = None
+    _settle: Optional[Callable[[], torch.Tensor]] = None
+    _pending: Tuple[torch.Tensor, ...] = ()
     _done: Optional[torch.Tensor] = None
 
     def finish(self) -> torch.Tensor:
@@ -357,7 +574,10 @@ class ExchangeHandle:
                 current = torch.cuda.current_stream(self.remote_halo.device)
                 current.wait_stream(self.stream)
                 # made on the side stream, read on this one from here on
-                self.remote_halo.record_stream(current)
+                for t in (self.remote_halo, *self._pending):
+                    t.record_stream(current)
+            if self._settle is not None:
+                self.remote_halo = self._settle()
             self._done = self._merge(self.local_halo, self.remote_halo)
         return self._done
 
@@ -379,8 +599,18 @@ class IrregularExchange:
       message_cap_bytes: Split's user cap (Algorithm 1 input).
       elem_bytes: element width used for cap arithmetic / byte accounting.
       fuse_program: run the :mod:`repro_torch.comm.fusion` rewrites.
-      wire, verify, faults, health: kept for signature parity; anything
-        but the defaults raises ``NotImplementedError`` in this slice.
+      wire: inter-pod wire codec, one of
+        :data:`repro_torch.comm.wire.WIRE_CODECS`; lossy codecs touch only
+        the blocks that cross pods, ``"none"`` is the exact movement.
+      verify: check every inter-pod wire block after it arrives; a failed
+        check raises :class:`~repro_torch.comm.faults.ExchangeIntegrityError`
+        through the recovery ladder.
+      faults: a seeded :class:`~repro_torch.comm.faults.FaultPlan` injected
+        into the inter-pod blocks.
+      health: the :class:`~repro_torch.comm.faults.HealthTracker` the ladder
+        records into (created when ``verify`` or ``faults`` is set).
+      max_retries, fallback: the ladder's retries of the configured pair, and
+        whether it may then demote the codec and re-advise the strategy.
 
     Example::
 
@@ -389,11 +619,12 @@ class IrregularExchange:
 
         topo = PodTopology(npods=2, ppn=4)
         pat = random_pattern(np.random.default_rng(0), topo, local_size=6)
-        ex = IrregularExchange(pat, "two_step", device="cpu")
+        ex = IrregularExchange(pat, "two_step", device="cpu", verify=True)
         local = np.ones((topo.nranks, 6), np.float32)
-        halo = ex(local)                       # barrier: [nranks, H]
+        halo = ex(local)                       # barrier: [nranks, H], checked
         handle = ex.start(local)               # split-phase
         assert (handle.finish() == halo).all()
+        lossy = IrregularExchange(pat, "two_step", device="cpu", wire="int8")(local)
     """
 
     pattern: ExchangePattern
@@ -404,19 +635,13 @@ class IrregularExchange:
     fuse_program: bool = True
     wire: str = "none"
     verify: bool = False
-    faults: Optional[object] = None
-    health: Optional[object] = None
+    faults: Optional[faults_mod.FaultPlan] = None
+    health: Optional[faults_mod.HealthTracker] = None
+    max_retries: int = 1
+    fallback: bool = True
 
     def __post_init__(self) -> None:
         wire_mod.check_codec(self.wire)
-        if self.wire != "none":
-            raise not_yet(f"wire codec {self.wire!r}")
-        if self.verify:
-            raise not_yet("verify=True")
-        if self.faults is not None:
-            raise not_yet("faults=")
-        if self.health is not None:
-            raise not_yet("health=")
         self.device = resolve_device(self.device)
         key = _plan_key(
             self.pattern, self.strategy, self.message_cap_bytes,
@@ -427,21 +652,118 @@ class IrregularExchange:
             self.elem_bytes, self.fuse_program,
         )
         self._program = _program(self.plan, key, self.device)
+        if self.health is None and (self.verify or self.faults is not None):
+            self.health = faults_mod.HealthTracker()
         self._two_phase: Optional[tuple] = None
         self._side_stream = None
+        self._variants: Dict[tuple, "IrregularExchange"] = {}
+        self._calls = 0
+        #: RecoveryPath.key of the most recent recovered call, or None
+        self.last_recovery: Optional[str] = None
+
+    @property
+    def guarded(self) -> bool:
+        """Whether calls run through the recovery ladder (verify or faults)."""
+        return self.verify or self.faults is not None
 
     # ------------------------------------------------------------------
     def __call__(self, local) -> torch.Tensor:
         """``local [nranks, L, *feat] -> canonical recv [nranks, H, *feat]``.
 
         Trailing feature dims (multi-vector SpMM ``k``, per-token features)
-        ride along under the same plan.
+        ride along under the same plan.  With ``verify`` or ``faults`` the
+        call runs through the recovery ladder; otherwise it is one pass of
+        the program, with no host synchronisation.
         """
+        local = self._checked(local)
+        if not self.guarded:
+            return self._program.run(local, self.wire)[0]
+        return self._guarded_call(local)
+
+    def _checked(self, local) -> torch.Tensor:
         local = as_device_tensor(local, self.device)
         n, L = self.pattern.topo.nranks, self.pattern.local_size
         if local.ndim < 2 or tuple(local.shape[:2]) != (n, L):
             raise ValueError(f"expected [{n}, {L}, *feat], got {tuple(local.shape)}")
-        return self._program.run(local)
+        return local
+
+    # -- verification + recovery ---------------------------------------
+    def _launch(self, local: torch.Tensor, call_index: int) -> tuple:
+        """Queue one physical attempt: the faulted program when the
+        FaultPlan's call gating says so.  Returns ``(out, viols, delay_s)``
+        without waiting for the device."""
+        injections, delay = None, 0.0
+        if self.faults is not None and self.faults.active(call_index):
+            injections, delay = self._program.faults_on_device(self.wire, self.faults)
+        out, viols = self._program.run(local, self.wire, self.verify, injections)
+        return out, viols, delay
+
+    def _settle(self, out: torch.Tensor, viols: Optional[torch.Tensor], delay: float) -> torch.Tensor:
+        """Finish an attempt: the injected slow-hop latency, then the one
+        device-to-host read of its violations."""
+        if delay > 0.0:
+            time.sleep(delay)
+        if viols is not None and viols.numel():
+            self._raise_from_viols(viols.cpu().numpy())
+        return out
+
+    def _raw_call(self, local: torch.Tensor, call_index: int) -> torch.Tensor:
+        return self._settle(*self._launch(local, call_index))
+
+    def _raise_from_viols(self, viols: np.ndarray) -> None:
+        bad = viols > 0.0
+        if not bad.any():
+            return
+        j = int(np.argmax(bad))
+        op_index, stage_kind, round_index = self._program.hops[j]
+        raise faults_mod.ExchangeIntegrityError(
+            strategy=self.plan.strategy,
+            codec=self.wire,
+            stage_kind=stage_kind,
+            op_index=op_index,
+            round_index=round_index,
+            violation=float(viols[j]),
+        )
+
+    def _variant(self, strategy: str, wire: str) -> "IrregularExchange":
+        if strategy == self.strategy and wire == self.wire:
+            return self
+        key = (strategy, wire)
+        v = self._variants.get(key)
+        if v is None:
+            v = self._variants[key] = IrregularExchange(
+                self.pattern, strategy, device=self.device,
+                message_cap_bytes=self.message_cap_bytes, elem_bytes=self.elem_bytes,
+                fuse_program=self.fuse_program, wire=wire, verify=self.verify,
+                faults=self.faults, health=self.health, max_retries=0, fallback=False,
+            )
+        return v
+
+    def _guarded_call(self, local: torch.Tensor, pending: Optional[tuple] = None) -> torch.Tensor:
+        """Run the ladder; ``pending`` is a first attempt already queued by
+        :meth:`start`, settled here as the ladder's first try."""
+
+        def attempt(strategy: str, wire: str):
+            nonlocal pending
+            if pending is not None:
+                first, pending = pending, None
+                return self._settle(*first)
+            idx = self._calls
+            self._calls += 1
+            return self._variant(strategy, wire)._raw_call(local, idx)
+
+        out, path = faults_mod.run_ladder(
+            attempt,
+            strategy=self.strategy,
+            wire=self.wire,
+            health=self.health,
+            max_retries=self.max_retries,
+            fallback=self.fallback,
+            choose_alternative=faults_mod.advise_alternative(self.pattern, self.elem_bytes),
+        )
+        if path is not None:
+            self.last_recovery = path.key
+        return out
 
     # ------------------------------------------------------------------
     def start(self, local) -> ExchangeHandle:
@@ -449,37 +771,61 @@ class IrregularExchange:
 
         The pattern is factored (:func:`repro_torch.comm.exchange.split_phase`)
         into an inter-pod sub-pattern, planned with this exchange's strategy,
-        and an on-pod one.  On CUDA the inter-pod phase is queued first, on a
-        side stream that waits for the work that made ``local``; the on-pod
-        phase follows on the current stream, so work queued after ``start()``
-        (the diag-block product) overlaps the inter-pod phase.  On the CPU the
-        two phases run one after the other.  Both sub-exchanges and the merge
-        come from the module caches and are memoized on the instance.
+        codec, checks and faults, and an on-pod one at full precision.  On
+        CUDA the inter-pod phase is queued first, on a side stream that waits
+        for the work that made ``local``; the on-pod phase follows on the
+        current stream, so work queued after ``start()`` (the diag-block
+        product) overlaps the inter-pod phase.  Its checks are read, and the
+        recovery ladder run if they failed, in :meth:`ExchangeHandle.finish`.
+        On the CPU the two phases run one after the other.  Both
+        sub-exchanges and the merge come from the module caches and are
+        memoized on the instance.
         """
         if self._two_phase is None:
             sp, merge = _split_phase_cached(self.pattern)
             common = dict(device=self.device, elem_bytes=self.elem_bytes,
                           fuse_program=self.fuse_program)
             self._two_phase = (
+                # faults only ever hit inter-pod segments, so the guard
+                # rails ride on the inter-pod phase alone
                 IrregularExchange(sp.remote, self.strategy,
-                                  message_cap_bytes=self.message_cap_bytes, **common),
+                                  message_cap_bytes=self.message_cap_bytes,
+                                  wire=self.wire, verify=self.verify, faults=self.faults,
+                                  health=self.health, max_retries=self.max_retries,
+                                  fallback=self.fallback, **common),
                 IrregularExchange(sp.local, "local", **common),
                 merge,
             )
         remote_ex, local_ex, merge = self._two_phase
-        local = as_device_tensor(local, self.device)
-        if self.device.type != "cuda":
-            remote = remote_ex(local)
-            return ExchangeHandle(local_ex(local), remote, merge)
-        if self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(self.device)
-        side = self._side_stream
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            remote = remote_ex(local)
-        # read on the side stream: keep its memory until that work is done
-        local.record_stream(side)
-        return ExchangeHandle(local_ex(local), remote, merge, stream=side)
+        local = self._checked(local)
+
+        def launch_remote() -> tuple:
+            if not remote_ex.guarded:
+                return remote_ex(local), None
+            idx = remote_ex._calls
+            remote_ex._calls += 1
+            pending = remote_ex._launch(local, idx)
+            return pending[0], pending
+
+        side = None
+        if self.device.type == "cuda":
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            side = self._side_stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                remote, pending = launch_remote()
+            # read on the side stream: keep its memory until that work is done
+            local.record_stream(side)
+        else:
+            remote, pending = launch_remote()
+        if pending is None:
+            return ExchangeHandle(local_ex(local), remote, merge, stream=side)
+        return ExchangeHandle(
+            local_ex(local), remote, merge, stream=side,
+            _settle=lambda: remote_ex._guarded_call(local, pending),
+            _pending=tuple(t for t in pending[:2] if t is not None),
+        )
 
     # ------------------------------------------------------------------
     def reference(self, local: np.ndarray) -> np.ndarray:
@@ -487,7 +833,8 @@ class IrregularExchange:
 
     @property
     def wire_bytes(self) -> Tuple[int, int]:
-        """(intra-pod, inter-pod) bytes on the wire incl. padding."""
+        """(intra-pod, inter-pod) bytes on the wire incl. padding, the
+        inter-pod bytes at the codec's width (plus int8 scales)."""
         return wire_mod.scaled_wire_bytes(self.plan, self.wire, self.elem_bytes)
 
     @property

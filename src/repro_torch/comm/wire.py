@@ -46,9 +46,11 @@ integer payloads are never encoded.
 
 This module is numpy-only on purpose: the numpy executor
 (:func:`repro_torch.comm.exchange.execute_numpy`) and the plan-level byte
-accounting (:func:`scaled_wire_bytes`) must run without devices.  The torch
-executor (:mod:`repro_torch.comm.strategies`) runs ``wire="none"`` only so
-far; its device codecs are still to be ported.
+accounting (:func:`scaled_wire_bytes`) must run without devices.  It needs
+no ``ml_dtypes`` either: the bfloat16 cast is done on the float32 bits
+(:func:`round_to_bf16`), the same round-to-nearest-even cast torch makes.  The
+torch executor (:mod:`repro_torch.comm.strategies`) encodes and decodes on the
+device, bitwise equal to these round-trips.
 """
 
 from __future__ import annotations
@@ -138,23 +140,26 @@ def applies(codec: str, dtype) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _cast_dtype(codec: str):
-    if codec == "f16":
-        return np.float16
-    # numpy has no native bfloat16; ml_dtypes ships with jax
-    import ml_dtypes
-
-    return ml_dtypes.bfloat16
+#: largest finite value of each narrow wire type
+WIRE_FMAX = {"bf16": float.fromhex("0x1.fep127"), "f16": 65504.0}
 
 
-def ml_finfo_max(dtype) -> float:
-    """Largest finite value of ``dtype`` (np.finfo handles ml_dtypes too)."""
-    try:
-        return float(np.finfo(dtype).max)
-    except (TypeError, ValueError):
-        import ml_dtypes
+def round_to_bf16(x: np.ndarray) -> np.ndarray:
+    """``x`` rounded to the nearest bfloat16 (ties to even), as float32.
 
-        return float(ml_dtypes.finfo(dtype).max)
+    The cast torch's ``.to(torch.bfloat16)`` and ``ml_dtypes`` make, done on
+    the float32 bits so the oracle needs numpy alone (wider inputs are
+    rounded to float32 first, as torch converts them).  ``+/-inf`` stay
+    infinite and ``nan`` stays ``nan``.
+
+    >>> round_to_bf16(np.float32([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8])).tolist()
+    [1.0, 1.015625]
+    """
+    f = np.ascontiguousarray(x, dtype=np.float32)
+    u = f.view(np.uint32)
+    up = np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    r = ((u + up) & np.uint32(0xFFFF0000)).view(np.float32)
+    return np.where(np.isnan(f), f, r)
 
 
 def roundtrip_np(x: np.ndarray, codec: str, block_ndim: int) -> np.ndarray:
@@ -185,10 +190,11 @@ def roundtrip_np(x: np.ndarray, codec: str, block_ndim: int) -> np.ndarray:
         # saturate finite overflow only: a finite f32 above the wire max
         # must not become inf, but a true inf/nan must stay non-finite
         # (both wire types represent them) so divergence remains visible
-        wdt = _cast_dtype(codec)
-        fmax = float(ml_finfo_max(wdt))
+        fmax = WIRE_FMAX[codec]
         sat = np.where(np.isfinite(x), np.clip(x, -fmax, fmax), x)
-        return sat.astype(wdt).astype(x.dtype)
+        if codec == "f16":
+            return sat.astype(np.float16).astype(x.dtype)
+        return round_to_bf16(sat).astype(x.dtype)
     # int8: one float32 scale per block, taken over finite magnitudes so a
     # single inf/nan cannot poison the block; non-finite elements ship as
     # the reserved INT8_NONFINITE code and decode to nan

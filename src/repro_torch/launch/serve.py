@@ -17,8 +17,9 @@ switched on:
 5. decode ``--gen`` tokens greedily with plain torch ops.
 
 Without ``--device`` it runs on the CUDA device and raises where there is
-none.  The MoE routing advice, the serving simulator and the chaos storm of
-the reference's launcher wait for ROADMAP A.4, A.3 and A.1.
+none.  The MoE routing advice waits for ROADMAP A.4; the serving simulator
+and the chaos storm, which drives it, wait for A.3 (the storm's fault
+injection and recovery ladder are ported: ``repro_torch.comm.faults``).
 """
 
 from __future__ import annotations
@@ -139,7 +140,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--advise-dispatch", action="store_true", help="not ported yet (ROADMAP A.4)")
     ap.add_argument("--simulate-serving", type=int, default=0, metavar="N", help="not ported yet (ROADMAP A.3)")
-    ap.add_argument("--chaos", type=int, default=None, metavar="SEED", help="not ported yet (ROADMAP A.1)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED", help="not ported yet (ROADMAP A.3)")
     return ap.parse_args(argv)
 
 
@@ -150,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.simulate_serving:
         raise NotImplementedError("--simulate-serving needs the serving simulator, not ported yet (ROADMAP A.3)")
     if args.chaos is not None:
-        raise NotImplementedError("--chaos needs fault injection, not ported yet (ROADMAP A.1)")
+        raise NotImplementedError("--chaos drives the serving simulator, not ported yet (ROADMAP A.3)")
     model, params = build(args.arch, args.preset, args.seed, args.device)
     device = params["embed"].device
     prompts = make_prompts(model.cfg.vocab_size, args.batch, args.prompt_len, args.seed)

@@ -19,6 +19,7 @@ from repro_torch.solve.reductions import (
     NumpyReductions,
     TorchReductions,
     default_reductions,
+    traceable_dot,
 )
 
 __all__ = [
@@ -33,4 +34,5 @@ __all__ = [
     "NumpyReductions",
     "TorchReductions",
     "default_reductions",
+    "traceable_dot",
 ]

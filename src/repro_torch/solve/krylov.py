@@ -60,9 +60,10 @@ class SolveResult:
     a breakdown reason (``"breakdown:indefinite"``, ``"breakdown:rho"``,
     ``"breakdown:omega"``, ``"breakdown:denom"``, ``"breakdown:tt"``,
     ``"breakdown:nonfinite"``, ``"stagnation"``), with a ``"+restart"``
-    suffix when the solver restarted from its best iterate.  (The
-    reference's ``"+exchange:..."`` suffix of a fault-ladder recovery
-    arrives with the fault ladder, ROADMAP A.1.)
+    suffix when the solver restarted from its best iterate and a
+    ``"+exchange:<action>:<strategy>/<codec>"`` suffix when the operator's
+    exchange recovered through the fault ladder
+    (:func:`repro_torch.comm.faults.run_ladder`) during the solve.
     """
 
     x: torch.Tensor
@@ -78,8 +79,18 @@ class SolveResult:
         return self.residuals[-1]
 
 
-def _finish_status(status: str, restarts: int) -> str:
-    return status + "+restart" if restarts else status
+def _recovery_baseline(op) -> int:
+    health = getattr(op, "health", None)
+    return health.recovery_count if health is not None else 0
+
+
+def _finish_status(status: str, restarts: int, op, rc0: int) -> str:
+    if restarts:
+        status += "+restart"
+    health = getattr(op, "health", None)
+    if health is not None and health.recovery_count > rc0 and health.last_recovery:
+        status += "+exchange:" + health.last_recovery
+    return status
 
 
 def _prepare(op, b, x0, reductions):
@@ -118,10 +129,11 @@ def cg(
     trip ends the solve with the reason in ``SolveResult.status``.
     """
     red, b, x, bnorm = _prepare(op, b, x0, reductions)
+    rc0 = _recovery_baseline(op)
     if bnorm == 0.0:
         return SolveResult(x=torch.zeros_like(b), converged=True, iterations=0,
                            residuals=(0.0,), matvecs=0,
-                           status="converged")
+                           status=_finish_status("converged", 0, op, rc0))
     matvecs = 0
     if x0 is None:
         r = b.clone()
@@ -134,7 +146,7 @@ def cg(
     if hist[-1] <= tol:
         return SolveResult(x=x, converged=True, iterations=0,
                            residuals=tuple(hist), matvecs=matvecs,
-                           status="converged")
+                           status=_finish_status("converged", 0, op, rc0))
     it = 0
     converged = False
     restarts = 0
@@ -189,7 +201,7 @@ def cg(
         status = "converged"
     return SolveResult(x=x, converged=converged, iterations=it,
                        residuals=tuple(hist), matvecs=matvecs,
-                       status=_finish_status(status, restarts),
+                       status=_finish_status(status, restarts, op, rc0),
                        restarts=restarts)
 
 
@@ -214,10 +226,11 @@ def bicgstab(
     solve with the reason in ``SolveResult.status``.
     """
     red, b, x, bnorm = _prepare(op, b, x0, reductions)
+    rc0 = _recovery_baseline(op)
     if bnorm == 0.0:
         return SolveResult(x=torch.zeros_like(b), converged=True, iterations=0,
                            residuals=(0.0,), matvecs=0,
-                           status="converged")
+                           status=_finish_status("converged", 0, op, rc0))
     eps = float(torch.finfo(b.dtype).eps)
     matvecs = 0
     if x0 is None:
@@ -233,7 +246,7 @@ def bicgstab(
     if hist[-1] <= tol:
         return SolveResult(x=x, converged=True, iterations=0,
                            residuals=tuple(hist), matvecs=matvecs,
-                           status="converged")
+                           status=_finish_status("converged", 0, op, rc0))
     rhat_nrm = hist[0] * bnorm  # ||rhat|| is fixed at ||r_0||
     it = 0
     converged = False
@@ -316,5 +329,5 @@ def bicgstab(
         status = "converged"
     return SolveResult(x=x, converged=converged, iterations=it,
                        residuals=tuple(hist), matvecs=matvecs,
-                       status=_finish_status(status, restarts),
+                       status=_finish_status(status, restarts, op, rc0),
                        restarts=restarts)

@@ -6,7 +6,12 @@ hierarchy: reduce on the cheap on-pod fabric first, cross the expensive
 inter-pod hop once per pod.
 
 * :class:`TorchReductions` -- the tree (rank partials -> per-pod sums ->
-  world sum) in float64 on the operator's device; one ``.item()`` per dot.
+  world sum) in float64 on the operator's device
+  (:func:`repro_torch.comm.hierarchical.dot_hierarchical`), optionally with
+  the per-pod partials int8-compressed on the inter-pod hop
+  (:class:`repro_torch.comm.compression.Compressor`); one ``.item()`` per
+  dot.  :func:`traceable_dot` is the same tree with no host read, for
+  solvers that keep their scalars on the device.
 * :class:`NumpyReductions` -- the same tree in numpy on the host.
 
 Both are deterministic, so residual histories are bitwise reproducible
@@ -16,10 +21,13 @@ across strategies and barrier-vs-overlap execution.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.comm.compression import Compressor
+from repro_torch.comm.hierarchical import dot_hierarchical
 from repro_torch.comm.topology import PodTopology
 
 
@@ -44,21 +52,41 @@ class NumpyReductions:
         return float(np.sqrt(max(self.dot(x, x), 0.0)))
 
 
+def traceable_dot(
+    topo: PodTopology, compressor: Optional[Compressor] = None
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """The hierarchical dot product as a device callable:
+    ``dot(x, y) -> 0-d float64 tensor`` for ``[nranks, L]`` operands, with no
+    host read (the reference's ``traceable_dot`` for fused solvers).
+    ``compressor`` int8-quantizes the per-pod partials on the inter-pod hop."""
+
+    def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return dot_hierarchical(x.double(), y.double(), topo, compressor)
+
+    return dot
+
+
 @dataclasses.dataclass(frozen=True)
 class TorchReductions:
     """The :class:`NumpyReductions` tree in float64 on the operands' device.
 
     Each :meth:`dot` brings one scalar back to the host (one ``.item()``),
-    as the reference's device reductions do.
+    as the reference's device reductions do.  ``compressor`` quantizes the
+    inter-pod hop int8 (about 0.4% error per reduction: it perturbs Krylov
+    convergence, so it is off unless the surrounding system already runs
+    compressed reductions).
     """
 
     topo: PodTopology
+    compressor: Optional[Compressor] = None
 
     def dot(self, x: torch.Tensor, y: torch.Tensor) -> float:
         """``<x, y>`` for ``[nranks, L]`` operands, hierarchical order."""
-        part = (x.double() * y.double()).reshape(self.topo.nranks, -1).sum(dim=1)
-        pods = part.reshape(self.topo.npods, self.topo.ppn).sum(dim=1)
-        return float(pods.sum().item())
+        return float(self.traceable()(x, y).item())
+
+    def traceable(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """This backend's tree as a device callable (:func:`traceable_dot`)."""
+        return traceable_dot(self.topo, self.compressor)
 
     def norm(self, x: torch.Tensor) -> float:
         return float(np.sqrt(max(self.dot(x, x), 0.0)))

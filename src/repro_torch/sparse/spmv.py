@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm import strategies as comm_strategies
-from repro_torch.comm.strategies import IrregularExchange, not_yet
+from repro_torch.comm.strategies import IrregularExchange
 from repro_torch.comm.topology import PodTopology
 from repro_torch.core.advisor import EXECUTABLE_STRATEGY, advise
 from repro_torch.core.device import DeviceLike, as_device_tensor, resolve_device
@@ -109,9 +109,17 @@ class DistributedSpMV:
     split-phase pipeline (see the module docstring); the result equals the
     barrier path's bitwise.
 
-    ``wire``, ``verify``, ``faults`` and ``health`` are kept for signature
-    parity with the reference; anything but their defaults raises
-    ``NotImplementedError`` in this slice.
+    ``wire`` selects the exchange's inter-pod codec
+    (:data:`repro_torch.comm.wire.WIRE_CODECS`): halo values arriving from
+    other pods carry the codec's pinned error bound while on-pod halo values
+    stay full precision; ``"none"`` is the exact movement.  ``wire="auto"``
+    lets the advisor rank ``+wire:<codec>`` variants and picks the codec
+    jointly with the strategy (``strategy="auto"``) or the fastest codec for
+    a fixed strategy.  ``verify``, ``faults`` and ``health`` go to the
+    exchange (:class:`repro_torch.comm.strategies.IrregularExchange`): wire
+    checks, seeded fault injection, and the recovery ladder's health
+    tracker, which the operator shares as ``self.health`` (the solvers read
+    its recoveries into their status).
 
     Example::
 
@@ -139,16 +147,35 @@ class DistributedSpMV:
     health: Optional[object] = None
 
     def __post_init__(self) -> None:
-        if self.wire != "none":
-            raise not_yet(f"wire={self.wire!r}")
         self.device = resolve_device(self.device)
-        if self.strategy == "auto":
+        if self.strategy == "auto" or self.wire == "auto":
             self.advice = advise(
                 self.partition.pattern.to_comm_pattern(),
                 machine=ADVISOR_MACHINE,
                 payload_width=self.payload_width,
+                # "auto" ranks every codec; a fixed codec constrains the
+                # candidate set; "none" keeps the paper's ranking
+                wire="auto" if self.wire == "auto" else (
+                    None if self.wire == "none" else self.wire
+                ),
             )
-            self.strategy = EXECUTABLE_STRATEGY[self.advice.best.strategy]
+            best = self.advice.best
+            if self.strategy != "auto":
+                # wire="auto" with a pinned strategy: the fastest codec among
+                # this strategy's own variants
+                best = next(
+                    (r for r in self.advice.ranked
+                     if EXECUTABLE_STRATEGY[r.strategy] == self.strategy),
+                    None,
+                )
+                if best is None:
+                    raise ValueError(
+                        f"unknown strategy {self.strategy!r}; known: "
+                        f"{sorted(set(EXECUTABLE_STRATEGY.values()))}"
+                    )
+            self.strategy = EXECUTABLE_STRATEGY[best.strategy]
+            if self.wire == "auto":
+                self.wire = best.wire
         else:
             self.advice = None
         self.exchange = IrregularExchange(
@@ -157,10 +184,13 @@ class DistributedSpMV:
             device=self.device,
             message_cap_bytes=self.message_cap_bytes,
             fuse_program=self.fuse_program,
+            wire=self.wire,
             verify=self.verify,
             faults=self.faults,
             health=self.health,
         )
+        # the exchange owns (and may have created) the shared tracker
+        self.health = self.exchange.health
         g, L = self.topo.nranks, self.rows_per_rank
 
         def dev(a: np.ndarray) -> torch.Tensor:

@@ -13,7 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.comm import STRATEGY_NAMES, IrregularExchange, PodTopology, execute_numpy, random_pattern
+from repro_torch.comm import (
+    STRATEGY_NAMES,
+    WIRE_CODECS,
+    ExchangeIntegrityError,
+    FaultPlan,
+    FaultSpec,
+    IrregularExchange,
+    PodTopology,
+    execute_numpy,
+    merge_split_phase,
+    random_pattern,
+    split_phase,
+)
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import spmv_ell as K
 from repro_torch.kernels import ssd_scan as SSD
@@ -69,6 +81,67 @@ def test_kernels_match_plain(dev, dtype):
         )
         one = X[..., :1].contiguous()
         assert torch.equal(K.spmm_ell(data, cols, one)[..., 0], K.spmv_ell(data, cols, one[..., 0].contiguous()))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 8, 16, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_every_column_count(dev, dtype, C):
+    """B2 at its specialised column counts (1, 2, 4, 8, 16) and at the
+    generic instantiation's (3, 5, 24): against the plain version, masked
+    and not; a masked launch's active tiles equal the unmasked launch; and
+    column c equals B1 on column c, bitwise.  An X one element off 16-byte
+    alignment takes the generic kernel and gives the same bits."""
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    rng = np.random.default_rng(C)
+    for g, R, K_, N in [(3, 200, 5, 300), (2, 129, 140, 64)]:  # K 140: no staging
+        data = torch.as_tensor(rng.normal(size=(g, R, K_)).astype(np.float32), device=dev).to(dtype)
+        cols = torch.as_tensor(rng.integers(0, N, size=(g, R, K_)).astype(np.int32), device=dev)
+        buf = torch.as_tensor(rng.normal(size=g * N * C + 1).astype(np.float32), device=dev).to(dtype)
+        X = buf[: g * N * C].view(g, N, C)
+        mask = torch.as_tensor(
+            rng.integers(0, 2, size=(g, K.num_row_tiles(R, K.TILE_R_MM))).astype(np.int32), device=dev
+        )
+        got = K.spmm_ell(data, cols, X)
+        torch.testing.assert_close(got, K.spmm_ell_ref(data, cols, X), rtol=tol, atol=tol)
+        masked = K.spmm_ell(data, cols, X, mask)
+        rows = K.rows_of_tiles(mask, K.TILE_R_MM, R)
+        torch.testing.assert_close(
+            masked, K.spmm_ell_masked_ref(data, cols, X, rows), rtol=tol, atol=tol
+        )
+        assert torch.equal(masked[rows], got[rows]) and not masked[~rows].any()
+        for c in range(C):
+            assert torch.equal(got[..., c], K.spmv_ell(data, cols, X[..., c].contiguous())), c
+        shifted = buf[1:].view(g, N, C)
+        assert torch.equal(K.spmm_ell(data, cols, shifted), K.spmm_ell(data, cols, shifted.clone()))
+
+
+@pytest.mark.parametrize("wire", WIRE_CODECS)
+def test_codecs_and_verify_on_card_equal_execute_numpy(dev, wire):
+    """The device codecs, barrier and split-phase, bitwise the numpy oracle;
+    clean verified runs see no violation (codec none included); an injected
+    fault raises the oracle's diagnostics."""
+    pat = random_pattern(np.random.default_rng(1), TOPO, local_size=12)
+    local = np.random.default_rng(2).normal(size=(TOPO.nranks, 12, 3)).astype(np.float32) * 100
+    sp = split_phase(pat)
+    faults = FaultPlan(seed=7, specs=(FaultSpec(kind="perturb"),))
+    for strategy in STRATEGY_NAMES:
+        ex = IrregularExchange(pat, strategy, device=dev, wire=wire, verify=True)
+        want = execute_numpy(ex.plan, local, wire, verify=True)
+        np.testing.assert_array_equal(ex(local).cpu().numpy(), want)
+        got_split = ex.start(local).finish().cpu().numpy()
+        remote, local_ex, _ = ex._two_phase
+        want_split = merge_split_phase(
+            sp, execute_numpy(local_ex.plan, local), execute_numpy(remote.plan, local, wire)
+        )
+        np.testing.assert_array_equal(got_split, want_split)
+        assert ex.health.failures == {}
+        bad = IrregularExchange(pat, strategy, device=dev, wire=wire, verify=True, faults=faults,
+                                max_retries=0, fallback=False)
+        with pytest.raises(ExchangeIntegrityError) as got_err:
+            bad(local)
+        with pytest.raises(ExchangeIntegrityError) as want_err:
+            execute_numpy(bad.plan, local, wire, faults=faults, verify=True)
+        assert got_err.value.diagnostics() == want_err.value.diagnostics()
 
 
 @pytest.mark.parametrize("feat", [(), (3,)], ids=["vector", "batched"])

@@ -87,6 +87,33 @@ def test_plans_match_reference(seed, strategy, fused):
             assert len(ps.sels) == len(rs.sels)
 
 
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_vectorized_planner_matches_legacy_planner(seed, strategy):
+    """The port's copy of the token-list planner (its plan oracle, as in
+    ``tests/test_fusion.py``) builds the vectorized planner's program, and
+    the token simulator delivers every rank its canonical receive layout."""
+    from repro_torch.comm import _legacy_planner as legacy
+    from repro_torch.comm.exchange import simulate
+
+    port, _ = _patterns(seed)
+    p = plan(strategy, port, message_cap_bytes=CAP)
+    q = legacy.plan(strategy, port, message_cap_bytes=CAP)
+    for field in ("out_size", "intra_pod_bytes", "inter_pod_bytes", "wire_intra_pod_bytes",
+                  "wire_inter_pod_bytes"):
+        assert getattr(p, field) == getattr(q, field), field
+    assert [type(s).__name__ for s in p.stages] == [type(s).__name__ for s in q.stages]
+    for ps, qs in zip(p.stages, q.stages):
+        for name in ("idx", "buflen", "rounds", "blks"):
+            if hasattr(ps, name):
+                assert _same(getattr(ps, name), getattr(qs, name)) if name == "idx" else (
+                    getattr(ps, name) == getattr(qs, name)
+                ), name
+    got = simulate(p)
+    for r in range(TOPO.nranks):
+        assert got[r][: len(port.canonical_tokens(r))] == port.canonical_tokens(r)
+
+
 @pytest.mark.parametrize("feat", [(), (3,)], ids=["vector", "batched"])
 @pytest.mark.parametrize("strategy", STRATEGY_NAMES)
 @pytest.mark.parametrize("seed", SEEDS)
@@ -162,13 +189,33 @@ def test_cache_limits_evict_oldest():
 
 
 @pytest.mark.parametrize(
-    "kw", [{"wire": "bf16"}, {"verify": True}, {"faults": object()}, {"health": object()}],
+    "kw", [{"wire": "bf16"}, {"verify": True}, {"faults": "plan"}, {"health": "tracker"}],
     ids=["wire", "verify", "faults", "health"],
 )
 def test_later_slices_raise(kw):
-    port, _ = _patterns(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        IrregularExchange(port, "two_step", device="cpu", **kw)
+    """What raised until the faults/verify/codecs slice (ROADMAP A.1) now
+    runs, and delivers what the reference's ``execute_numpy`` delivers
+    with the same codec, checks and (perturbing) faults, bitwise."""
+    from repro.comm import faults as ref_faults
+    from repro_torch.comm import FaultPlan, FaultSpec, HealthTracker
+
+    port, ref = _patterns(0)
+    ref_kw = dict(kw)
+    if "faults" in kw:
+        kw = {"faults": FaultPlan(seed=2, specs=(FaultSpec(kind="perturb", prob=0.7),))}
+        ref_kw = {"faults": ref_faults.FaultPlan(seed=2, specs=(ref_faults.FaultSpec(kind="perturb", prob=0.7),))}
+    if "health" in kw:
+        kw = {"health": HealthTracker()}
+        ref_kw = {}
+    ex = IrregularExchange(port, "two_step", device="cpu", message_cap_bytes=CAP, **kw)
+    local = np.random.default_rng(4).normal(size=(TOPO.nranks, 7)).astype(np.float32)
+    want = ref_exchange.execute_numpy(
+        ref_fuse(ref_exchange.plan("two_step", ref, message_cap_bytes=CAP)), local, **ref_kw
+    )
+    np.testing.assert_array_equal(ex(local).numpy(), want)
+    np.testing.assert_array_equal(execute_numpy(ex.plan, local, **kw if "health" not in kw else {}), want)
+    if "health" in kw:
+        assert ex.health is kw["health"]
 
 
 def test_bad_payload_shape_raises():

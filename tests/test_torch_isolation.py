@@ -39,7 +39,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for name in ("repro_torch.comm.strategies", "repro_torch.kernels.spmv_ell",
-                 "repro_torch.models.lm", "repro_torch.kernels.flash_attention"):
+                 "repro_torch.models.lm", "repro_torch.kernels.flash_attention",
+                 "repro_torch.comm.faults", "repro_torch.comm.compression",
+                 "repro_torch.comm.hierarchical", "repro_torch.comm._legacy_planner"):
         assert name in mods, name
     proc = _run(
         f"""
@@ -77,7 +79,9 @@ def test_entry_points_without_device_raise_when_no_cuda():
         pat = random_pattern(np.random.default_rng(0), topo, local_size=4)
         A = thermal_like(64, np.random.default_rng(0))
         for make in (lambda: IrregularExchange(pat, "two_step"),
-                     lambda: build(A, topo, strategy="two_step")):
+                     lambda: IrregularExchange(pat, "two_step", wire="int8", verify=True),
+                     lambda: build(A, topo, strategy="two_step"),
+                     lambda: build(A, topo, strategy="auto", wire="auto", verify=True)):
             try:
                 make()
             except RuntimeError as e:
@@ -86,6 +90,7 @@ def test_entry_points_without_device_raise_when_no_cuda():
                 raise AssertionError("ran on the CPU without being asked to")
         # asking for the CPU works
         IrregularExchange(pat, "two_step", device="cpu")(np.ones((4, 4), np.float32))
+        IrregularExchange(pat, "two_step", device="cpu", wire="int8", verify=True)(np.ones((4, 4), np.float32))
         print("OK")
         """,
         CUDA_VISIBLE_DEVICES="",

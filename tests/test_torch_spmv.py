@@ -148,9 +148,24 @@ def test_auto_strategy_uses_lassen_and_plans_once():
 
 
 def test_wire_codecs_are_a_later_slice():
-    A, _ = _matrices("thermal_like", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1"):
-        build(A, TOPO, strategy="two_step", wire="int8", device="cpu")
+    """``wire=`` raised until the codecs slice (ROADMAP A.1); now the
+    operator's halo is the reference's ``execute_numpy(wire="int8")``
+    bitwise, and its product, barrier and overlapped, agrees with
+    ``NumpySpMV(wire="int8")``'s within float32 rounding."""
+    from repro.comm import execute_numpy as ref_execute_numpy
+
+    A, R = _matrices("thermal_like", 0)
+    sp = build(A, TOPO, strategy="two_step", wire="int8", device="cpu")
+    ov = build(A, TOPO, strategy="two_step", wire="int8", device="cpu", overlap=True)
+    ref_part = ref_partition_csr(R, REF_TOPO)
+    ref = NumpySpMV(ref_part, strategy="two_step", wire="int8")
+    ref_ov = NumpySpMV(ref_part, strategy="two_step", wire="int8", overlap=True)
+    v = np.random.default_rng(1).normal(size=(TOPO.nranks, sp.rows_per_rank)).astype(np.float32)
+    np.testing.assert_array_equal(sp.halo(v).numpy(), ref_execute_numpy(ref._plan, v, wire="int8"))
+    w = sp(v)
+    np.testing.assert_allclose(w.numpy(), np.asarray(ref(v)), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(ov(v).numpy(), np.asarray(ref_ov(v)), rtol=TOL, atol=TOL)
+    assert sp.wire_bytes[1] < build(A, TOPO, strategy="two_step", device="cpu").wire_bytes[1]
 
 
 def test_port_matches_jax_distributed_spmv(subproc):
