@@ -388,6 +388,13 @@ class CacheStats:
     exec_evictions: int = 0
     split_evictions: int = 0
     compute_evictions: int = 0
+    #: fused whole-solve entries (``_FUSED_CACHE``, filled by
+    #: :mod:`repro_torch.solve.fused`: one operator's captured CUDA graphs and
+    #: their static buffers per (pattern, solver, strategy, codec, dtype,
+    #: maxiter, ...)); a miss is a warm-up and a capture
+    fused_hits: int = 0
+    fused_misses: int = 0
+    fused_evictions: int = 0
 
 
 _stats = CacheStats()
@@ -395,10 +402,13 @@ _PLAN_CACHE: "OrderedDict[tuple, StagePlan]" = OrderedDict()
 _EXEC_CACHE: "OrderedDict[tuple, _Program]" = OrderedDict()
 #: split-phase decompositions + merges, keyed by pattern fingerprint
 _SPLIT_CACHE: "OrderedDict[str, tuple]" = OrderedDict()
+#: fused whole-solve entries (:mod:`repro_torch.solve.fused`)
+_FUSED_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
 #: external LRUs (the SpMV compute cache) reset by clear_caches()
 _EXTERNAL_CACHES: List[OrderedDict] = []
 PLAN_CACHE_MAX = 256
 EXEC_CACHE_MAX = 64
+FUSED_CACHE_MAX = 32
 
 
 def cache_stats() -> CacheStats:
@@ -412,18 +422,20 @@ def cache_sizes() -> Dict[str, int]:
         "plan": len(_PLAN_CACHE),
         "exec": len(_EXEC_CACHE),
         "split": len(_SPLIT_CACHE),
+        "fused": len(_FUSED_CACHE),
         "external": sum(len(c) for c in _EXTERNAL_CACHES),
     }
 
 
-def set_cache_limits(plan: Optional[int] = None, exec_: Optional[int] = None) -> Dict[str, int]:
+def set_cache_limits(plan: Optional[int] = None, exec_: Optional[int] = None,
+                     fused: Optional[int] = None) -> Dict[str, int]:
     """Resize the module LRU capacities, trimming oldest-first immediately.
 
     ``None`` leaves a cap unchanged; the split-phase cache shares ``plan``'s
     cap (one decomposition per resident pattern).  Returns the caps in force.
     """
-    global PLAN_CACHE_MAX, EXEC_CACHE_MAX
-    for name, value in (("plan", plan), ("exec_", exec_)):
+    global PLAN_CACHE_MAX, EXEC_CACHE_MAX, FUSED_CACHE_MAX
+    for name, value in (("plan", plan), ("exec_", exec_), ("fused", fused)):
         if value is not None and value < 1:
             raise ValueError(f"{name} cache limit must be >= 1, got {value}")
     if plan is not None:
@@ -433,7 +445,10 @@ def set_cache_limits(plan: Optional[int] = None, exec_: Optional[int] = None) ->
     if exec_ is not None:
         EXEC_CACHE_MAX = exec_
         _trim(_EXEC_CACHE, exec_, "exec_evictions")
-    return {"plan": PLAN_CACHE_MAX, "exec": EXEC_CACHE_MAX}
+    if fused is not None:
+        FUSED_CACHE_MAX = fused
+        _trim(_FUSED_CACHE, fused, "fused_evictions")
+    return {"plan": PLAN_CACHE_MAX, "exec": EXEC_CACHE_MAX, "fused": FUSED_CACHE_MAX}
 
 
 def register_cache(cache: OrderedDict) -> None:
@@ -444,7 +459,7 @@ def register_cache(cache: OrderedDict) -> None:
 
 def clear_caches() -> None:
     global _stats
-    for cache in (_PLAN_CACHE, _EXEC_CACHE, _SPLIT_CACHE, *_EXTERNAL_CACHES):
+    for cache in (_PLAN_CACHE, _EXEC_CACHE, _SPLIT_CACHE, _FUSED_CACHE, *_EXTERNAL_CACHES):
         cache.clear()
     _stats = CacheStats()
 
@@ -470,6 +485,12 @@ def _lru_get(cache: OrderedDict, key, max_size: int, build, stat: str):
 def compute_cached(cache: OrderedDict, key, max_size: int, build):
     """LRU get for a registered local-compute cache (``compute_*`` stats)."""
     return _lru_get(cache, key, max_size, build, "compute")
+
+
+def fused_cached(key, build):
+    """LRU get for the fused whole-solve cache (``fused_*`` stats); the
+    entries are :mod:`repro_torch.solve.fused`'s captured solves."""
+    return _lru_get(_FUSED_CACHE, key, FUSED_CACHE_MAX, build, "fused")
 
 
 def _plan_key(pattern, strategy, message_cap_bytes, elem_bytes, fuse_program) -> tuple:

@@ -24,7 +24,10 @@ barrier one bitwise and a one-column SpMM equals the SpMV bitwise.
 A tensor on the CPU goes to the plain PyTorch version (:func:`spmv_ell_ref`
 and friends); a CUDA tensor goes to the kernel, or the call raises.  Column
 ids are trusted to lie in ``[0, N)``, as :func:`partition_csr` builds them.
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+Each wrapper counts its kernel launches in its ``launches`` attribute.  A
+call made while its stream is being captured into a CUDA graph launches
+nothing: it counts in ``captured`` instead, and the graph's owner counts the
+launches of its replays (:mod:`repro_torch.solve.fused`).
 """
 
 from __future__ import annotations
@@ -167,6 +170,13 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
 
 
+def _count(wrapper) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def spmv_ell(
     data: torch.Tensor,
     cols: torch.Tensor,
@@ -187,7 +197,7 @@ def spmv_ell(
         _ptr(out), g, R, K, x.shape[1], stream,
     )
     _raise_on(err, "spmv_ell")
-    spmv_ell.launches += 1
+    _count(spmv_ell)
     return out
 
 
@@ -211,9 +221,9 @@ def spmm_ell(
         _ptr(out), g, R, K, x.shape[1], x.shape[2], stream,
     )
     _raise_on(err, "spmm_ell")
-    spmm_ell.launches += 1
+    _count(spmm_ell)
     return out
 
 
-spmv_ell.launches = 0
-spmm_ell.launches = 0
+spmv_ell.launches = spmv_ell.captured = 0
+spmm_ell.launches = spmm_ell.captured = 0

@@ -17,9 +17,10 @@ switched on:
 5. decode ``--gen`` tokens greedily with plain torch ops.
 
 Without ``--device`` it runs on the CUDA device and raises where there is
-none.  The MoE routing advice waits for ROADMAP A.4; the serving simulator
-and the chaos storm, which drives it, wait for A.3 (the storm's fault
-injection and recovery ladder are ported: ``repro_torch.comm.faults``).
+none.  The MoE routing advice waits for ROADMAP A.4, and so do
+``--simulate-serving`` and ``--chaos``: the reference drives the serving
+simulator from the MoE routing counts of ``--advise-dispatch``.  The
+simulator itself is ported (``repro_torch.serving``).
 """
 
 from __future__ import annotations
@@ -139,8 +140,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--impl", choices=("kernel", "chunked", "dot"), default="kernel")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--advise-dispatch", action="store_true", help="not ported yet (ROADMAP A.4)")
-    ap.add_argument("--simulate-serving", type=int, default=0, metavar="N", help="not ported yet (ROADMAP A.3)")
-    ap.add_argument("--chaos", type=int, default=None, metavar="SEED", help="not ported yet (ROADMAP A.3)")
+    ap.add_argument("--simulate-serving", type=int, default=0, metavar="N",
+                    help="needs --advise-dispatch (MoE), not ported yet (ROADMAP A.4)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="needs --advise-dispatch (MoE), not ported yet (ROADMAP A.4)")
     return ap.parse_args(argv)
 
 
@@ -149,9 +152,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.advise_dispatch:
         raise NotImplementedError("--advise-dispatch needs the MoE layers, not ported yet (ROADMAP A.4)")
     if args.simulate_serving:
-        raise NotImplementedError("--simulate-serving needs the serving simulator, not ported yet (ROADMAP A.3)")
+        raise NotImplementedError(
+            "--simulate-serving simulates the MoE routing of --advise-dispatch, not ported yet (ROADMAP A.4)")
     if args.chaos is not None:
-        raise NotImplementedError("--chaos drives the serving simulator, not ported yet (ROADMAP A.3)")
+        raise NotImplementedError(
+            "--chaos storms the MoE serving simulation of --advise-dispatch, not ported yet (ROADMAP A.4)")
     model, params = build(args.arch, args.preset, args.seed, args.device)
     device = params["embed"].device
     prompts = make_prompts(model.cfg.vocab_size, args.batch, args.prompt_len, args.seed)

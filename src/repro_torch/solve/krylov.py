@@ -19,6 +19,11 @@ exchange and reduction latency multiply.  Both solvers here:
 
 The iteration loops run on the host: host-level scalars keep the control
 flow (convergence tests, breakdown guards) exact and executor-independent.
+:mod:`repro_torch.solve.fused` runs the same iterations, op for op, as
+replayed CUDA graphs with no host read per iteration; its residual
+histories equal these loops' bitwise.  Either operator flavor works here:
+:class:`~repro_torch.sparse.spmv.DistributedSpMV` or the numpy
+:class:`~repro_torch.solve.operator.NumpySpMV`.
 Strategy selection for a whole solve (setup amortization, reduction latency)
 lives in :func:`repro_torch.core.advisor.advise_solver`.
 """
@@ -93,6 +98,12 @@ def _finish_status(status: str, restarts: int, op, rc0: int) -> str:
     return status
 
 
+def _apply(op, v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``op(v)`` as a tensor of ``dtype`` (a
+    :class:`~repro_torch.solve.operator.NumpySpMV` returns an array)."""
+    return torch.as_tensor(op(v)).to(dtype)
+
+
 def _prepare(op, b, x0, reductions):
     red = default_reductions(op) if reductions is None else reductions
     device = getattr(op, "device", torch.device("cpu"))
@@ -138,7 +149,7 @@ def cg(
     if x0 is None:
         r = b.clone()
     else:
-        r = b - op(x).to(b.dtype)
+        r = b - _apply(op, x, b.dtype)
         matvecs += 1
     p = r.clone()
     rs = red.dot(r, r)
@@ -153,7 +164,7 @@ def cg(
     status = "maxiter"
     best, best_x, best_it = hist[-1], x.clone(), 0
     while it < maxiter:
-        Ap = op(p).to(b.dtype)
+        Ap = _apply(op, p, b.dtype)
         matvecs += 1
         pAp = red.dot(p, Ap)
         if pAp <= 0.0:  # breakdown / loss of positive definiteness
@@ -182,7 +193,7 @@ def cg(
             # one restart from the best iterate: true-residual recompute
             restarts += 1
             x = best_x.clone()
-            r = b - op(x).to(b.dtype)
+            r = b - _apply(op, x, b.dtype)
             matvecs += 1
             p = r.clone()
             rs = red.dot(r, r)
@@ -236,7 +247,7 @@ def bicgstab(
     if x0 is None:
         r = b.clone()
     else:
-        r = b - op(x).to(b.dtype)
+        r = b - _apply(op, x, b.dtype)
         matvecs += 1
     rhat = r.clone()
     rho = alpha = omega = 1.0
@@ -265,7 +276,7 @@ def bicgstab(
         if bad is None:
             beta = (rho_new / rho) * (alpha / omega)
             p = r + beta * (p - omega * v)
-            v = op(p).to(b.dtype)
+            v = _apply(op, p, b.dtype)
             matvecs += 1
             denom = red.dot(rhat, v)
             # alpha = rho_new / denom would exceed 1/eps
@@ -281,7 +292,7 @@ def bicgstab(
                 hist.append(snorm / bnorm)
                 converged = True
                 break
-            t = op(s).to(b.dtype)
+            t = _apply(op, s, b.dtype)
             matvecs += 1
             tt = red.dot(t, t)
             # omega = <t, s> / tt would exceed ~1/eps relative to ||s||
@@ -310,7 +321,7 @@ def bicgstab(
         # one restart from the best iterate: true-residual recompute
         restarts += 1
         x = best_x.clone()
-        r = b - op(x).to(b.dtype)
+        r = b - _apply(op, x, b.dtype)
         matvecs += 1
         rhat = r.clone()
         rho = alpha = omega = 1.0

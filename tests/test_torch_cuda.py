@@ -31,7 +31,9 @@ from repro_torch.kernels import spmv_ell as K
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.launch.serve import build
 from repro_torch.models.ssd import ssd_chunked as ssd_plain
-from repro_torch.solve import cg, spd_system
+from repro_torch.serving import measure_spmv_replay
+from repro_torch.solve import NumpySpMV, bicgstab, cg, fused_cg, shifted_system, spd_system
+from repro_torch.solve import fused as FUSED
 from repro_torch.sparse import DistributedSpMV, partition_csr, thermal_like
 
 pytestmark = pytest.mark.cuda
@@ -179,6 +181,84 @@ def test_spmv_and_cg_on_card(dev):
     assert abs(got.iterations - want.iterations) <= 1
     assert K.spmv_ell.launches - n0 >= 2 * got.matvecs
     torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+def test_fused_graphs_equal_eager_body_and_host_loop(dev, solver):
+    """The captured graphs' replay against the same program run eagerly on
+    the card and against the host loop: bitwise, for every strategy,
+    barrier and split phase; B1's launches come from the replays."""
+    make, host = (spd_system, cg) if solver == "cg" else (shifted_system, bicgstab)
+    A = make(thermal_like(1024, np.random.default_rng(6)))
+    part = partition_csr(A, TOPO)
+    b = np.random.default_rng(7).normal(size=(TOPO.nranks, part.rows_per_rank)).astype(np.float32)
+    for strategy in STRATEGY_NAMES:
+        for overlap in (False, True):
+            op = DistributedSpMV(part, strategy=strategy, overlap=overlap, device=dev)
+            FUSED.graph_launches["spmv_ell"] = 0
+            n0 = K.spmv_ell.launches
+            got = FUSED._fused_solve(op, b, None, 1e-6, 300, None, solver)
+            assert FUSED.graph_launches["spmv_ell"] >= 2 * got.matvecs
+            # eager launches: the warm-up's init and one iteration only
+            assert K.spmv_ell.launches - n0 == (4 if solver == "cg" else 6)
+            eager = FUSED._fused_solve(op, b, None, 1e-6, 300, None, solver, capture=False)
+            want = host(op, b, tol=1e-6, maxiter=300)
+            assert got.converged
+            for other in (eager, want):
+                assert (got.status, got.iterations, got.matvecs) == (
+                    other.status, other.iterations, other.matvecs)
+                assert got.residuals == other.residuals
+                assert torch.equal(got.x, other.x)
+
+
+def test_fused_faults_and_resume_on_card(dev):
+    A = spd_system(thermal_like(1024, np.random.default_rng(8)))
+    part = partition_csr(A, TOPO)
+    b = np.random.default_rng(9).normal(size=(TOPO.nranks, part.rows_per_rank)).astype(np.float32)
+    clean = fused_cg(DistributedSpMV(part, strategy="two_step", verify=True, device=dev), b)
+    # the fault hits two_step only: the retry resumes into call 7 again, the
+    # re-advised strategy resumes past it
+    fp = FaultPlan(seed=5, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0, strategies=("two_step",)),),
+                   active_calls=(7,))
+    res = fused_cg(DistributedSpMV(part, strategy="two_step", verify=True, faults=fp, device=dev), b,
+                   checkpoint_every=5)
+    assert res.status.startswith("converged+resume:1"), res.status
+    assert res.residuals == clean.residuals and torch.equal(res.x, clean.x)
+    always = FaultPlan(seed=5, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0),))
+    for overlap in (False, True):
+        op = DistributedSpMV(part, strategy="two_step", verify=True, faults=always, overlap=overlap,
+                             device=dev)
+        with pytest.raises(ExchangeIntegrityError) as e:
+            fused_cg(op, b, maxiter=20)
+        assert (e.value.strategy, e.value.stage_kind) == ("two_step", "a2a_pod")
+
+
+def test_fused_exhausted_ladder_on_lowered_numpy_operator_stays_on_card(dev):
+    """Every rung resumes into the faulted call; the host continuation of a
+    ``NumpySpMV`` lowered onto the card runs on the card, as the same solve
+    on a ``DistributedSpMV`` does, bitwise."""
+    A = spd_system(thermal_like(1024, np.random.default_rng(8)))
+    part = partition_csr(A, TOPO)
+    b = np.random.default_rng(9).normal(size=(TOPO.nranks, part.rows_per_rank)).astype(np.float32)
+    fp = FaultPlan(seed=5, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0),), active_calls=(6,))
+    n0 = K.spmv_ell.launches
+    lowered = fused_cg(NumpySpMV(part, strategy="two_step", verify=True, faults=fp), b,
+                       checkpoint_every=4, device=dev)
+    assert K.spmv_ell.launches - n0 >= 2 * (lowered.iterations - 4)  # the continuation's matvecs
+    own = fused_cg(DistributedSpMV(part, strategy="two_step", verify=True, faults=fp, device=dev), b,
+                   checkpoint_every=4)
+    assert lowered.status.startswith("converged+resume:1"), lowered.status
+    assert lowered.x.device.type == "cuda"
+    assert (lowered.status, lowered.iterations, lowered.matvecs) == (own.status, own.iterations, own.matvecs)
+    assert lowered.residuals == own.residuals and torch.equal(lowered.x, own.x)
+
+
+def test_measure_spmv_replay_parity_on_card(dev):
+    A = spd_system(thermal_like(1024, np.random.default_rng(10)))
+    op = DistributedSpMV(partition_csr(A, TOPO), strategy="split", device=dev)
+    got = measure_spmv_replay(op, 12, 4, np.random.default_rng(0))
+    assert got["parity"] == 0.0  # B2 is bitwise per column
+    assert got["coalesced_s"] > 0 and got["sequential_s"] > 0
 
 
 #: (B, Sq, Sk, H, KV, D, causal, window): tests/test_kernels.py's cases, hymba's

@@ -41,7 +41,12 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("repro_torch.comm.strategies", "repro_torch.kernels.spmv_ell",
                  "repro_torch.models.lm", "repro_torch.kernels.flash_attention",
                  "repro_torch.comm.faults", "repro_torch.comm.compression",
-                 "repro_torch.comm.hierarchical", "repro_torch.comm._legacy_planner"):
+                 "repro_torch.comm.hierarchical", "repro_torch.comm._legacy_planner",
+                 "repro_torch.solve.operator", "repro_torch.solve.fused",
+                 "repro_torch.serving.request", "repro_torch.serving.queue",
+                 "repro_torch.serving.batcher", "repro_torch.serving.sim",
+                 "repro_torch.serving.executor", "repro_torch.runtime.watchdog",
+                 "repro_torch.testing.traces"):
         assert name in mods, name
     proc = _run(
         f"""
@@ -88,6 +93,21 @@ def test_entry_points_without_device_raise_when_no_cuda():
                 assert "device='cpu'" in str(e), e
             else:
                 raise AssertionError("ran on the CPU without being asked to")
+        # the fused solvers: a numpy operator is lowered onto the CUDA device
+        # unless told otherwise; a CPU operator is solved where it lives
+        from repro_torch.solve import build_numpy, fused_cg, spd_system, traceable_operator
+        S = spd_system(A)
+        op = build_numpy(S, topo)
+        b = np.ones((topo.nranks, op.rows_per_rank), np.float32)
+        for make in (lambda: fused_cg(op, b), lambda: traceable_operator(op)):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+            else:
+                raise AssertionError("ran on the CPU without being asked to")
+        assert fused_cg(op, b, device="cpu").converged
+        assert fused_cg(build(S, topo, strategy="two_step", device="cpu"), b).converged
         # asking for the CPU works
         IrregularExchange(pat, "two_step", device="cpu")(np.ones((4, 4), np.float32))
         IrregularExchange(pat, "two_step", device="cpu", wire="int8", verify=True)(np.ones((4, 4), np.float32))
