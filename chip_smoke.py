@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
-Five paths, each driven with the kernels' launch counts set to 0 just
+Seven paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * the paper's case study at a real size: the 5-point stencil
@@ -19,7 +19,12 @@ before it and read just after:
   d_model 1600, 1,640,812,800 parameters, random weights from a seed),
   batch 4, prompts of 4096 tokens (longer than its 2048-token window), 32
   greedy tokens, through ``repro_torch.launch.serve``; kernels B3/B4; and
-  a short serve of stablelm-3b (B3 at head width 80).
+  a short serve of stablelm-3b (B3 at head width 80);
+* MoE serving: llama4-scout-17b-a16e at full width (d_model 5120, 40/8
+  heads of 128, 16 experts top-1 of d_ff 8192 and a shared expert), 8 of
+  its 48 layers (19,685,790,720 parameters, bf16), batch 4 x 4096, 32
+  greedy tokens; kernel B3 at head width 128 (the MoE layers are GEMMs and
+  index moves, as in the reference).
 
 Phases, each of which fails the run on any error:
 
@@ -46,9 +51,9 @@ Phases, each of which fails the run on any error:
 9. B3 (``flash_attention``, f32 and bf16) and B4 (``ssd_chunked``, f32) at the
    serving path's shapes and at ragged / ``Sq < Sk`` / non-causal / no-window
    / other-chunk cases, and B3 at stablelm-3b's and qwen3-32b's head widths
-   (80, 128), stablelm-3b's at its serve phase's shapes too, against their
-   plain versions (B3 against the plain version in float32 on the same
-   inputs); kernel, plain and library (``scaled_dot_product_attention``;
+   (80, 128), stablelm-3b's and llama4-scout's at their serve phases'
+   shapes too, against their plain versions (B3 against the plain version
+   in float32 on the same inputs); kernel, plain and library (``scaled_dot_product_attention``;
    none for the SSD) times and the bound, B3's at both serve phases' shapes;
    B3 beside SDPA at D = 128, S = 4096, causal; at hymba's shapes (D = 64)
    the wgmma kernel beside the mma.sync kernel of the other widths;
@@ -59,7 +64,21 @@ Phases, each of which fails the run on any error:
 11. a short bfloat16 serve of stablelm-3b at full width and depth (batch 2,
    prompts of 2048, 8 tokens; counts reset just before, read just after):
    B3 at head width 80, 32 launches, finite logits;
-12. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
+12. one llama4-scout MoE layer at full width on 16 stacked ranks (one
+   expert each; batch 16 x 1024, uniform and skewed routing): the exchange
+   dispatch bitwise the all-to-all for every strategy and ``auto``, the
+   int8 wire's dispatch hop within its envelope, the exchange cache under a
+   jittered skewed count stream of 50 batches (hit rate >= 0.9), a
+   simulated MoE schedule drained through ``BatchExecutor.register_moe``
+   bitwise the all-to-all; ms per layer call, slots routed / dropped /
+   shipped, and one call's device time by class;
+13. llama4-scout serving: in float32 at 2 layers (2 x 1024, 8 tokens) the
+   kernel route against the plain route; then the bfloat16 main path at 8
+   layers, B3 launched once per layer in the prefill and never in decode,
+   its times, memory, capacity drops, decode busy share and prefill device
+   time by class, and the dispatch advice, serving simulation and chaos
+   storm on the served tokens;
+14. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
    on the case study): against the host loops (iterations, status, matvecs,
    histories within 1e-10, true residual), one fused-cache miss then a hit,
    graph replay bitwise the eager body, histories bitwise across strategies
@@ -71,8 +90,9 @@ Phases, each of which fails the run on any error:
    times the replays, held to the profiler's count of B1 kernels in a
    profiled solve); last, because after it ``torch.profiler`` records no
    device activity in this process;
-13. one JSON line of the kernels, the card's name and power limit, and the
-    device line last.
+15. one JSON line of the kernels (B3 twice: at hymba's shapes and at
+    llama4-scout's), the card's name and power limit, and the device line
+    last.
 
 Without a CUDA device, or without the rest of the checkout beside it, it
 exits non-zero and prints no result.  Details go to
@@ -114,6 +134,25 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
 #: multiple of 16: stablelm-3b at full width and depth, a short serve
 SLM_ARCH = "stablelm-3b"
 SLM_BATCH, SLM_PROMPT, SLM_GEN = 2, 2048, 8
+#: the MoE serving path: llama4-scout-17b-a16e at full width (d_model 5120,
+#: 40/8 heads of 128, 16 experts top-1 of d_ff 8192, one shared expert),
+#: 8 of its 48 layers (107.8B parameters do not fit the card; 8 layers are
+#: 19.7B, 39.4 GB in bf16); a 2-layer float32 check first
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 8
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 4096, 32
+MOE_CHECK_LAYERS, MOE_CHECK_BATCH, MOE_CHECK_PROMPT, MOE_CHECK_GEN = 2, 2, 1024, 8
+#: the MoE dispatch phase: one llama4-scout MoE layer on 16 stacked ranks
+#: (one expert each), a batch of 16 x 1024 tokens; a count stream of 50
+#: batches through MoEDispatcher; a simulated schedule of 24 requests of
+#: 16 x 64 tokens drained through BatchExecutor.register_moe
+MOE_NPODS, MOE_PPN = 4, 4
+MOE_DISPATCH_BATCH, MOE_DISPATCH_SEQ = 16, 1024
+MOE_STREAM_BATCHES = 50
+MOE_SIM_REQUESTS, MOE_SIM_SEQ = 24, 64
+#: the reference's acceptance number for the exchange cache under a
+#: jittered skewed stream (tests/test_moe_dispatch.py)
+MOE_HIT_RATE = 0.9
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 #: and dense bf16 tensor-core FLOP/s
@@ -290,6 +329,68 @@ def device_profile(fn, steps: int, top_n: int = 8) -> tuple:
         for e in sorted(events, key=device_us, reverse=True)[:top_n]
     ]
     return device_ms, top
+
+
+#: aten ops by the device work they launch: a kernel counts for the
+#: innermost op that launched it (that op's self device time), so the
+#: classes do not overlap; kernels launched outside any op (the port's own,
+#: through ctypes) are classed by kernel name
+OP_CLASSES = {
+    "expert_gemms": ("aten::bmm",),
+    "other_gemms": ("aten::mm", "aten::addmm"),
+    "routing_moves": ("aten::index", "aten::scatter_", "aten::gather", "aten::sort", "aten::cummax",
+                      "aten::bincount", "aten::topk"),
+    "exchange_gathers": ("aten::index_select", "aten::index_copy_"),
+}
+
+
+def device_split(fn, op_classes: dict, kernel_classes: dict = None) -> dict:
+    """Device ms of ``fn()`` under one ``torch.profiler`` session, split by
+    class: ``kernel_classes`` maps a class to a kernel-name substring,
+    ``op_classes`` to aten op names; ``other`` is the rest (elementwise
+    work and copies).  A profiler that records no device time fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type != DeviceType.CPU and self_us(e) > 0]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device time")
+    total = sum(self_us(e) for e in kernels)
+    split = {name: sum(self_us(e) for e in kernels if pat in e.key) for name, pat in (kernel_classes or {}).items()}
+    for name, ops in op_classes.items():
+        split[name] = sum(self_us(e) for e in events if e.device_type == DeviceType.CPU and e.key in ops)
+    split["other"] = total - sum(split.values())
+    out = {"device_ms": total / 1e3, **{k: v / 1e3 for k, v in split.items()}}
+    out["top_kernels"] = [{"name": e.key[:80], "calls": e.count, "us": self_us(e)}
+                          for e in sorted(kernels, key=self_us, reverse=True)[:8]]
+    ops = [e for e in events if e.device_type == DeviceType.CPU and self_us(e) > 0]
+    out["top_ops"] = [{"name": e.key, "calls": e.count, "us": self_us(e)}
+                      for e in sorted(ops, key=self_us, reverse=True)[:12]]
+    return out
+
+
+def median_ms(torch, fn, reps: int = 7) -> float:
+    """Median ms of ``reps`` calls of ``fn`` between CUDA events, after one
+    warm call (each call may read the device from the host)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 # ---------------------------------------------------------------------------
@@ -1305,9 +1406,12 @@ def phase_lm_kernels(ctx) -> None:
     # 128 over 64/8 each with a ragged S and a window edge inside a 64-key tile
     slm = get_config(SLM_ARCH)
     slm_heads = (slm.n_heads, slm.n_kv_heads, slm.resolved_head_dim)
+    moe = get_config(MOE_ARCH)
+    moe_heads = (moe.n_heads, moe.n_kv_heads, moe.resolved_head_dim)
     paths = {  # tag: (batch, S, heads, kv heads, D, window), timed below
         "path": (B, S, H, KV, D, W),
         "stablelm-3b path": (SLM_BATCH, SLM_PROMPT, *slm_heads, slm.window),
+        "llama4-scout path": (MOE_BATCH, MOE_PROMPT, *moe_heads, moe.window),
     }
     attn_cases = [
         ("path", B, S, S, H, KV, D, True, W),
@@ -1317,6 +1421,7 @@ def phase_lm_kernels(ctx) -> None:
         ("causal no window S=1000", 2, 1000, 1000, H, KV, D, True, None),
         ("stablelm-3b path", SLM_BATCH, SLM_PROMPT, SLM_PROMPT, *slm_heads, True, slm.window),
         ("stablelm-3b heads ragged S=1000 window=300", 2, 1000, 1000, *slm_heads, True, 300),
+        ("llama4-scout path", MOE_BATCH, MOE_PROMPT, MOE_PROMPT, *moe_heads, True, moe.window),
         ("qwen3-32b heads ragged S=1000 window=300", 2, 1000, 1000, 64, 8, 128, True, 300),
     ]
     path_err = {}
@@ -1381,8 +1486,11 @@ def phase_lm_kernels(ctx) -> None:
             }
             log(f"[lm_kernels] flash_attention {tag} {t['dtype']}: " + json.dumps(t))
             ctx["details"].setdefault("lm_kernel_timings", []).append(t)
-            if tag == "path" and dtype == torch.bfloat16:  # the dtype the serving path runs
-                timings["flash_attention"] = t
+            if dtype == torch.bfloat16:  # the dtype the serving paths run
+                if tag == "path":
+                    timings["flash_attention"] = t
+                elif tag == "llama4-scout path":
+                    timings["flash_attention_d128"] = t
             del q, k, v, qt, kt, vt
         del q32, k32, v32, mask
         torch.cuda.empty_cache()
@@ -1631,12 +1739,306 @@ def phase_serve_stablelm(ctx) -> None:
         raise AssertionError("stablelm-3b serving failed: " + ", ".join(k for k, ok in checks.items() if not ok))
 
 
+def phase_moe_dispatch(ctx) -> None:
+    """One llama4-scout MoE layer at full width on 16 stacked ranks (one
+    expert each): the exchange dispatch bitwise the all-to-all for every
+    strategy on uniform and skewed routing, the int8 wire within its
+    envelope, the exchange cache under a jittered skewed count stream, and a
+    simulated MoE serving schedule drained through ``register_moe``; times,
+    slot counts and the device-time split."""
+    import torch
+
+    from repro_torch.comm import STRATEGY_NAMES, PodTopology, cache_stats, clear_caches, exchange_for
+    from repro_torch.comm import wire as W
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoELayer
+    from repro_torch.models.moe_dispatch import MoEDispatcher
+    from repro_torch.models.sharding import init_params
+    from repro_torch.serving import Batch, BatchExecutor, SimConfig, WorkloadClass, simulate
+    from repro_torch.testing import make_trace
+
+    cfg = get_config(MOE_ARCH)
+    M, E = cfg.d_model, cfg.moe.n_experts
+    topo = PodTopology(npods=MOE_NPODS, ppn=MOE_PPN)
+    n = topo.nranks
+    B, S = MOE_DISPATCH_BATCH, MOE_DISPATCH_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    base = MoELayer(M, cfg.moe, cfg.act)
+    params = init_params(base.params(), gen, torch.bfloat16, "cuda")
+    # the reference benchmark's inputs: a constant bias skews the router's
+    # top-k towards a few hot experts (benchmarks/bench_moe_dispatch.py)
+    bias = torch.randn((M,), generator=gen, device="cuda")
+    inputs = {
+        "uniform": torch.randn((B, S, M), generator=gen, device="cuda").bfloat16(),
+        "skewed": (torch.randn((B, S, M), generator=gen, device="cuda") * 0.3 + bias).bfloat16(),
+    }
+    del bias
+    _, e_local, t, cap = base._shard_shapes(B, S, topo)
+    summary = {"arch": MOE_ARCH, "d_model": M, "experts": E, "d_ff_expert": cfg.moe.d_ff_expert,
+               "top_k": cfg.moe.top_k, "shared": cfg.moe.n_shared, "ranks": n, "batch": [B, S],
+               "capacity_per_pair": cap, "capacity_per_expert": max(int(n * cap / e_local), 1)}
+    log(f"[moe_dispatch] {MOE_ARCH} layer: M {M}, {E} experts of {cfg.moe.d_ff_expert}, top-{cfg.moe.top_k}, "
+        f"{n} ranks ({MOE_NPODS}x{MOE_PPN}), batch {B} x {S}, capacity {cap} per pair")
+    failures = []
+
+    # ---- (a) exchange == all_to_all bitwise, every strategy, both inputs
+    results = {}
+    for name, x in inputs.items():
+        a2a = MoELayer(M, cfg.moe, cfg.act)
+        y0 = a2a(params, x, topo)
+        row = {"finite": bool(torch.isfinite(y0).all()), "all_to_all_ms": median_ms(torch, lambda: a2a(params, x, topo))}
+        tally0 = a2a.tally.read()
+        row["slots"] = {"routed": t * n, "dropped": tally0["dropped"] // tally0["calls"]}
+        for strategy in STRATEGY_NAMES + ("auto",):
+            layer = MoELayer(M, cfg.moe, cfg.act, dispatch="exchange", strategy=strategy)
+            equal = torch.equal(layer(params, x, topo), y0)
+            row[strategy] = {"bitwise": equal, "ms": median_ms(torch, lambda: layer(params, x, topo))}
+            tally = layer.tally.read()
+            row[strategy]["shipped_slots"] = tally["shipped"] // tally["calls"]
+            if strategy == "auto":
+                row[strategy]["picked"] = next(iter(layer.dispatcher._strategies.values()))
+            if not equal:
+                failures.append(f"exchange {strategy} != all_to_all on {name}")
+        if not row["finite"]:
+            failures.append(f"non-finite output on {name}")
+        results[name] = row
+        log(f"[moe_dispatch] {name}: " + json.dumps(row))
+    summary["dispatch"] = results
+
+    # ---- (b) the int8 wire: the dispatch hop within the codec's
+    # per-element envelope -- half an int8 step of the block's largest
+    # magnitude (bounded by the whole buffer's), with the reference wire
+    # tests' 1e-6 slack for float32 rounding, plus the bf16 rounding of the
+    # decoded value -- and the layer beside full precision
+    lossy = {}
+    for name, x in inputs.items():
+        layer = MoELayer(M, cfg.moe, cfg.act, dispatch="exchange", strategy="two_step", wire="int8")
+        y = layer(params, x, topo)
+        y0 = MoELayer(M, cfg.moe, cfg.act)(params, x, topo)
+        top_p, top_e = base.route(params, x)
+        send = base._stage_send(x, top_p, top_e, n, e_local, t, cap)[0]
+        bundle = layer.dispatcher.bucketer(cap).bundle
+        exact = exchange_for(bundle.pattern_dispatch, "two_step", device="cuda")(send).float()
+        wired = exchange_for(bundle.pattern_dispatch, "two_step", device="cuda", wire="int8")(send).float()
+        step = W.REL_ERROR_BOUND["int8"] * send.float().abs().max() * (1 + 1e-6)
+        envelope = step * (1 + 2.0 ** -8) + (2.0 ** -8 + 2.0 ** -22) * exact.abs()
+        used = float(((wired - exact).abs() / envelope.clamp_min(1e-30)).max())
+        lossy[name] = {"hop_envelope_used": used, "hop_max_abs_err": float((wired - exact).abs().max()),
+                       "layer_max_abs_err": float((y.float() - y0.float()).abs().max()),
+                       "layer_max_abs": float(y0.float().abs().max()), "finite": bool(torch.isfinite(y).all())}
+        if used > 1.0 or not lossy[name]["finite"]:
+            failures.append(f"int8 wire outside its envelope on {name}")
+        del send, exact, wired, envelope
+    summary["int8"] = lossy
+    log("[moe_dispatch] int8 wire: " + json.dumps(lossy))
+
+    # ---- (c) a jittered skewed count stream through MoEDispatcher: the
+    # reference benchmark's stream (three hot destination ranks at 20
+    # slots, +-3 jitter), at 16 ranks and this layer's capacity
+    clear_caches()
+    disp = MoEDispatcher(topo, strategy="auto", quantum=8, device="cuda")
+    rng = np.random.default_rng(SEED + 31)
+    hot = np.zeros((n, n), np.int64)
+    hot[:, :3] = 20
+    np.fill_diagonal(hot, 0)
+    for _ in range(MOE_STREAM_BATCHES):
+        disp.step(hot + rng.integers(-3, 4, size=(n, n)) * (hot > 0), cap, payload_width=M)
+    st = cache_stats()
+    hit_rate = st.exchange_hits / max(st.exchange_hits + st.exchange_misses, 1)
+    summary["stream"] = {"batches": MOE_STREAM_BATCHES, "replans": disp.bucketer(cap).replans,
+                         "bucket_hit_rate": disp.bucketer(cap).hit_rate, "exchange_hit_rate": hit_rate,
+                         "exchange_hits": st.exchange_hits, "exchange_misses": st.exchange_misses,
+                         "plan_misses": st.plan_misses, "strategy": next(iter(disp._strategies.values()))}
+    log("[moe_dispatch] stream: " + json.dumps(summary["stream"]))
+    if hit_rate < MOE_HIT_RATE:
+        failures.append(f"exchange-cache hit rate {hit_rate:.3f} < {MOE_HIT_RATE}")
+
+    # ---- (d) a simulated MoE serving schedule drained through
+    # register_moe: each request one token batch of a row per rank, each
+    # coalesced batch one exchange-dispatch layer call, bitwise the
+    # all-to-all layer on the same stacked payload
+    skew_layer = MoELayer(M, cfg.moe, cfg.act, dispatch="exchange", strategy="auto")
+    skew_layer(params, inputs["skewed"], topo)
+    counts = np.rint(skew_layer.dispatcher.histogram.counts).astype(np.int64)
+    classes = {"moe": WorkloadClass.from_routing(counts, ppn=topo.ppn, d_model=M, fp="moe")}
+    trace = make_trace(SEED + 32, MOE_SIM_REQUESTS, ["moe"], pattern="poisson", rate=2000.0, kinds={"moe": "moe"})
+    sim = simulate(classes, trace, SimConfig(max_width=8))
+    by_rid = {r.rid: r for r in trace}
+    batches, payloads = [], []
+    for ev in sim.events:
+        if ev[0] == "dispatch":
+            _, _, fp, width, key, rids = ev
+            batches.append(Batch(fp=fp, requests=tuple(by_rid[r] for r in rids), payload_width=width,
+                                 resident_bytes=classes[fp].bytes_per_request * width, strategy="auto",
+                                 wire="none", key=key, predicted_time=0.0, kind="moe"))
+            payloads.append(torch.randn((width * n, MOE_SIM_SEQ, M), generator=gen, device="cuda").bfloat16())
+    served = MoELayer(M, cfg.moe, cfg.act, dispatch="exchange", strategy="auto")
+    ex = BatchExecutor()
+    ex.register_moe("moe", served, params, topo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outcomes = ex.run_schedule(batches, payloads)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    a2a = MoELayer(M, cfg.moe, cfg.act)
+    exact = all(o.ok and torch.equal(o.value, a2a(params, V, topo)) for o, V in zip(outcomes, payloads))
+    summary["drain"] = {"requests": MOE_SIM_REQUESTS, "batches": len(outcomes),
+                        "widths": sorted({o.batch.width for o in outcomes}),
+                        "completed": sum(o.batch.width for o in outcomes if o.ok),
+                        "bitwise_all_to_all": exact, "drain_s": drain_s, "tally": served.tally.read()}
+    log("[moe_dispatch] register_moe drain: " + json.dumps(summary["drain"]))
+    if not (exact and len(outcomes) == sim.batches and summary["drain"]["completed"] == MOE_SIM_REQUESTS):
+        failures.append("register_moe drain")
+    del payloads, outcomes
+
+    # ---- where one layer call's device time goes: all-to-all and exchange
+    summary["profile"] = {}
+    for dispatch in ("all_to_all", "exchange"):
+        layer = MoELayer(M, cfg.moe, cfg.act, dispatch=dispatch, strategy="auto")
+        layer(params, inputs["uniform"], topo)
+        summary["profile"][dispatch] = device_split(lambda: layer(params, inputs["uniform"], topo), OP_CLASSES)
+        log(f"[moe_dispatch] device split of one {dispatch} call (uniform): "
+            + json.dumps(summary["profile"][dispatch]))
+    ctx["details"]["moe_dispatch"] = summary
+    if failures:
+        raise AssertionError("moe_dispatch phase failed: " + ", ".join(failures))
+
+
+def phase_serve_moe(ctx) -> None:
+    """llama4-scout-17b-a16e at full width through the port's serving entry
+    point, 8 of its 48 layers: a 2-layer float32 check of the kernel route
+    against the plain route, then the bfloat16 main path (counts reset just
+    before, read just after), its times, memory, capacity drops and prefill
+    device split, and the dispatch advice, serving simulation and chaos
+    storm on the served tokens."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build, generate, make_prompts, rehome_cache, report_dispatch
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+
+    # ---- float32, 2 layers: the kernel route against the plain route ----
+    B, S, G = MOE_CHECK_BATCH, MOE_CHECK_PROMPT, MOE_CHECK_GEN
+    model, p32 = build(MOE_ARCH, "full", seed=SEED, device=dev, dtype=torch.float32, layers=MOE_CHECK_LAYERS)
+    prompts = torch.as_tensor(make_prompts(model.cfg.vocab_size, B, S, SEED), device=dev)
+    FA.flash_attention.launches = 0
+    k_out = generate(model, p32, prompts, G, impl="kernel")
+    f32_launches = FA.flash_attention.launches
+    c_out = generate(model, p32, prompts, G, impl="chunked")
+    scale = k_out["logits"][0].abs().max().item()
+    tol_abs = TOL_LOGITS * scale
+    logit_err, compared, tokens_ok = 0.0, 0, True
+    for t in range(G):  # every step's logits up to the first top-2 gap under tol
+        gap = min(float(torch.topk(out["logits"][t], 2).values.diff().abs().min()) for out in (k_out, c_out))
+        logit_err = max(logit_err, (k_out["logits"][t] - c_out["logits"][t]).abs().max().item())
+        if not torch.equal(k_out["tokens"][:, t], c_out["tokens"][:, t]):
+            tokens_ok = gap < tol_abs  # a flip only where the top two are within tol
+            break
+        compared += 1
+        if gap < tol_abs:
+            break
+    f32 = {"layers": MOE_CHECK_LAYERS, "batch": [B, S], "gen": G, "launches": f32_launches,
+           "max_abs_logit": scale, "logits_rel_err": logit_err / scale, "steps_compared": compared,
+           "tokens_equal": tokens_ok, "finite": all(bool(torch.isfinite(lg).all())
+                                                    for out in (k_out, c_out) for lg in out["logits"])}
+    del model, p32, k_out, c_out, prompts
+    torch.cuda.empty_cache()
+
+    # ---- bfloat16, 8 layers: the main path, counts reset just before, read just after ----
+    B, S, G = MOE_BATCH, MOE_PROMPT, MOE_GEN
+    model, p16 = build(MOE_ARCH, "full", seed=SEED, device=dev, layers=MOE_LAYERS)
+    L = model.cfg.n_layers
+    moe = model.segments[0].block.moe
+    prompts = torch.as_tensor(make_prompts(model.cfg.vocab_size, B, S, SEED), device=dev)
+    summary = {"arch": MOE_ARCH, "parameters": model.param_count(), "layers": L,
+               "layers_published": 48, "batch": B, "prompt": S, "gen": G, "float32": f32}
+    log(f"[serve_moe] {MOE_ARCH}: {summary['parameters']:,} parameters in {L} of 48 layers, batch {B}, "
+        f"prompt {S}, {G} greedy tokens")
+    generate(model, p16, prompts[:, :256], 2, impl="kernel")  # warm: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0
+    moe.tally.reset()
+    out = generate(model, p16, prompts, G, impl="kernel")
+    launches = FA.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the main path ----
+    served_tally = moe.tally.read()
+    finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
+
+    # 22 more decode steps (warm, timed, profiled) need a deeper cache: the
+    # model has no window ring to wrap
+    cache = rehome_cache(model, out["cache"], B, S + G + 24)
+    token, pos = out["tokens"][:, -1:], S + G - 1
+
+    def decode(n):
+        nonlocal cache, pos
+        with torch.inference_mode():
+            for _ in range(n):
+                _, cache = model.decode_step(p16, token, cache, pos)
+                pos += 1
+
+    decode(2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(10)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    device_ms, top = device_profile(lambda: decode(10), 10)
+    moe.tally.reset()
+    with torch.inference_mode():
+        split = device_split(lambda: model.prefill(p16, prompts, impl="kernel"), OP_CLASSES,
+                             {"flash_attention": "flash_fwd"})
+    prefill_tally = moe.tally.read()
+    summary["bfloat16"] = {
+        "prefill_ms": out["prefill_s"] * 1e3,
+        "prefill_tokens_per_s": B * S / out["prefill_s"],
+        "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
+        "decode_tokens_per_s": B * (G - 1) / out["decode_s"],
+        "max_memory_allocated": peak,
+        "flash_attention_launches": launches,
+        "dropped": {"prefill": prefill_tally["dropped"], "decode": served_tally["dropped"] - prefill_tally["dropped"],
+                    "routed_prefill": prefill_tally["routed"],
+                    "routed_decode": served_tally["routed"] - prefill_tally["routed"]},
+        "decode_profile": {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                           "device_busy_share": device_ms / wall_ms, "top_kernels": top},
+        "prefill_split": split,
+        "tokens": out["tokens"][:, :8].tolist(),
+    }
+    served = np.concatenate([prompts.cpu().numpy(), out["tokens"].cpu().numpy()], axis=1)
+    del cache, out
+    report = report_dispatch(p16, model.cfg, served, 2, 4, simulate_n=64, chaos=1)
+    summary["dispatch"] = {
+        "counts_total": int(report["counts"].sum()), "best": report["advice"].best.key,
+        "speedup": report["report"]["speedup"], "trace_hash": report["storm"].trace_hash,
+        "storm": {k: getattr(report["storm"], k) for k in ("completed", "shed", "fault_events", "recoveries")},
+    }
+    ctx["details"]["serve_moe"] = summary
+    log("[serve_moe] " + json.dumps(summary))
+    checks = {
+        f"float32 kernel route launched B3 {f32_launches} = {MOE_CHECK_LAYERS} (one prefill, none in decode)":
+            f32_launches == MOE_CHECK_LAYERS,
+        f"float32 logits kernel vs chunked {f32['logits_rel_err']:.3e} <= {TOL_LOGITS} of max |logit|":
+            f32["logits_rel_err"] <= TOL_LOGITS,
+        f"float32 greedy tokens equal up to the first top-2 gap under tol ({compared} steps)": tokens_ok,
+        f"bfloat16 main path launched B3 {launches} = {L} (one prefill, none in decode)": launches == L,
+        "every logit finite (float32 and bfloat16)": finite and f32["finite"],
+    }
+    for name, ok in checks.items():
+        log(f"[serve_moe] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("MoE serving failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+    ctx.setdefault("launches", {})["flash_attention_d128"] = launches
+
+
 def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     out = []
-    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked"):
-        t = {"name": name, "route": "cuda", "launches": ctx["launches"][name], **ctx["timings"][name]}
+    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked", "flash_attention_d128"):
+        t = {**ctx["timings"][name], "name": name, "route": "cuda", "launches": ctx["launches"][name]}
         out.append({k: t[k] for k in keys})
     return {"kernels": out}
 
@@ -1669,6 +2071,8 @@ def main() -> int:
         ("lm_kernels", phase_lm_kernels),
         ("serve", phase_serve),
         ("serve_stablelm", phase_serve_stablelm),
+        ("moe_dispatch", phase_moe_dispatch),
+        ("serve_moe", phase_serve_moe),
         # last: after thousands of graph replays torch.profiler sessions in
         # this process record no device activity (PERF.md), and the phases
         # above gate on theirs

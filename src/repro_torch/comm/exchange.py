@@ -208,6 +208,72 @@ def random_pattern(
 
 
 # ---------------------------------------------------------------------------
+# All-to-all-shaped (routing) patterns and count bucketing
+# ---------------------------------------------------------------------------
+
+
+def block_pattern(
+    topo: PodTopology,
+    block: int,
+    widths: Optional[np.ndarray] = None,
+) -> ExchangePattern:
+    """The element-level pattern of a (possibly ragged) tiled all-to-all.
+
+    Every rank's local buffer is ``nranks`` destination blocks of ``block``
+    slots; rank ``s`` sends the first ``widths[s, d]`` slots of its ``d``-th
+    block to rank ``d`` (``widths=None`` means full blocks -- the flat
+    all-to-all).  This is exactly the shape of capacity-based MoE token
+    dispatch: the router fills block ``d`` with the tokens bound for shard
+    ``d``, and ``widths`` is the (quantized) per-pair token count, so skewed
+    routing ships only the occupied slot prefix per pair.
+
+    Self blocks never appear (they stay on-device); the canonical receive
+    layout is src-major, matching the tiled all-to-all's block order minus
+    the self block.
+    """
+    n = topo.nranks
+    if widths is None:
+        w = np.full((n, n), block, dtype=np.int64)
+    else:
+        w = np.asarray(widths, dtype=np.int64)
+        if w.shape != (n, n):
+            raise ValueError(f"widths must be [{n}, {n}], got {w.shape}")
+        if (w < 0).any() or (w > block).any():
+            raise ValueError(f"widths must lie in [0, {block}]")
+    needs = []
+    for d in range(n):
+        base = d * block
+        for s in range(n):
+            k = int(w[s, d])
+            if s == d or k == 0:
+                continue
+            needs.append(Need(dst=d, src=s, idx=tuple(range(base, base + k))))
+    return ExchangePattern(topo=topo, local_size=n * block, needs=tuple(needs))
+
+
+def quantize_widths(counts: np.ndarray, quantum: int, cap: int) -> np.ndarray:
+    """Bucket per-pair token counts up to ``quantum``-slot granularity.
+
+    ``counts[s, d]`` is the measured number of tokens rank ``s`` routed to
+    rank ``d`` this batch; the result is the per-pair slot width to actually
+    exchange: counts are clipped to the capacity ``cap`` (tokens beyond it
+    were dropped anyway), then rounded UP to a multiple of ``quantum`` (and
+    re-clipped to ``cap``).  Rounding up makes the width a safe upper bound
+    on the occupied slot prefix, and quantization collapses nearby counts
+    onto the same width so fingerprint-keyed plan caches hit under
+    fluctuating-but-stationary load skew.  Zero counts stay zero (the pair
+    drops out of the pattern entirely).
+    """
+    if quantum < 1:
+        raise ValueError(f"quantum must be >= 1, got {quantum}")
+    c = np.minimum(np.asarray(counts, dtype=np.int64), cap)
+    if (c < 0).any():
+        raise ValueError("counts must be non-negative")
+    q = -(-c // quantum) * quantum  # ceil to quantum
+    return np.minimum(q, cap)
+
+
+# ---------------------------------------------------------------------------
 # Stages
 # ---------------------------------------------------------------------------
 

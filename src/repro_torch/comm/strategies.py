@@ -382,11 +382,16 @@ class CacheStats:
     #: split-phase decomposition + merge cache, keyed by pattern fingerprint
     split_hits: int = 0
     split_misses: int = 0
+    #: whole-instance front door for per-batch pattern producers
+    #: (:func:`exchange_for`); a hit means zero planning work for the batch
+    exchange_hits: int = 0
+    exchange_misses: int = 0
     #: LRU evictions per cache; for a cache whose capacity never shrank,
     #: ``evictions == misses - live entries`` (see :func:`cache_sizes`)
     plan_evictions: int = 0
     exec_evictions: int = 0
     split_evictions: int = 0
+    exchange_evictions: int = 0
     compute_evictions: int = 0
     #: fused whole-solve entries (``_FUSED_CACHE``, filled by
     #: :mod:`repro_torch.solve.fused`: one operator's captured CUDA graphs and
@@ -402,12 +407,15 @@ _PLAN_CACHE: "OrderedDict[tuple, StagePlan]" = OrderedDict()
 _EXEC_CACHE: "OrderedDict[tuple, _Program]" = OrderedDict()
 #: split-phase decompositions + merges, keyed by pattern fingerprint
 _SPLIT_CACHE: "OrderedDict[str, tuple]" = OrderedDict()
+#: constructed IrregularExchange instances (per-batch dynamic-pattern callers)
+_EXCHANGE_CACHE: "OrderedDict[tuple, IrregularExchange]" = OrderedDict()
 #: fused whole-solve entries (:mod:`repro_torch.solve.fused`)
 _FUSED_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
 #: external LRUs (the SpMV compute cache) reset by clear_caches()
 _EXTERNAL_CACHES: List[OrderedDict] = []
 PLAN_CACHE_MAX = 256
 EXEC_CACHE_MAX = 64
+EXCHANGE_CACHE_MAX = 64
 FUSED_CACHE_MAX = 32
 
 
@@ -422,20 +430,21 @@ def cache_sizes() -> Dict[str, int]:
         "plan": len(_PLAN_CACHE),
         "exec": len(_EXEC_CACHE),
         "split": len(_SPLIT_CACHE),
+        "exchange": len(_EXCHANGE_CACHE),
         "fused": len(_FUSED_CACHE),
         "external": sum(len(c) for c in _EXTERNAL_CACHES),
     }
 
 
 def set_cache_limits(plan: Optional[int] = None, exec_: Optional[int] = None,
-                     fused: Optional[int] = None) -> Dict[str, int]:
+                     exchange: Optional[int] = None, fused: Optional[int] = None) -> Dict[str, int]:
     """Resize the module LRU capacities, trimming oldest-first immediately.
 
     ``None`` leaves a cap unchanged; the split-phase cache shares ``plan``'s
     cap (one decomposition per resident pattern).  Returns the caps in force.
     """
-    global PLAN_CACHE_MAX, EXEC_CACHE_MAX, FUSED_CACHE_MAX
-    for name, value in (("plan", plan), ("exec_", exec_), ("fused", fused)):
+    global PLAN_CACHE_MAX, EXEC_CACHE_MAX, EXCHANGE_CACHE_MAX, FUSED_CACHE_MAX
+    for name, value in (("plan", plan), ("exec_", exec_), ("exchange", exchange), ("fused", fused)):
         if value is not None and value < 1:
             raise ValueError(f"{name} cache limit must be >= 1, got {value}")
     if plan is not None:
@@ -445,10 +454,14 @@ def set_cache_limits(plan: Optional[int] = None, exec_: Optional[int] = None,
     if exec_ is not None:
         EXEC_CACHE_MAX = exec_
         _trim(_EXEC_CACHE, exec_, "exec_evictions")
+    if exchange is not None:
+        EXCHANGE_CACHE_MAX = exchange
+        _trim(_EXCHANGE_CACHE, exchange, "exchange_evictions")
     if fused is not None:
         FUSED_CACHE_MAX = fused
         _trim(_FUSED_CACHE, fused, "fused_evictions")
-    return {"plan": PLAN_CACHE_MAX, "exec": EXEC_CACHE_MAX, "fused": FUSED_CACHE_MAX}
+    return {"plan": PLAN_CACHE_MAX, "exec": EXEC_CACHE_MAX, "exchange": EXCHANGE_CACHE_MAX,
+            "fused": FUSED_CACHE_MAX}
 
 
 def register_cache(cache: OrderedDict) -> None:
@@ -459,7 +472,7 @@ def register_cache(cache: OrderedDict) -> None:
 
 def clear_caches() -> None:
     global _stats
-    for cache in (_PLAN_CACHE, _EXEC_CACHE, _SPLIT_CACHE, _FUSED_CACHE, *_EXTERNAL_CACHES):
+    for cache in (_PLAN_CACHE, _EXEC_CACHE, _SPLIT_CACHE, _EXCHANGE_CACHE, _FUSED_CACHE, *_EXTERNAL_CACHES):
         cache.clear()
     _stats = CacheStats()
 
@@ -865,3 +878,30 @@ class IrregularExchange:
 
 
 STRATEGY_NAMES = ("standard", "two_step", "three_step", "split")
+
+
+def exchange_for(
+    pattern: ExchangePattern,
+    strategy: str,
+    *,
+    device: DeviceLike = None,
+    message_cap_bytes: int = 16384,
+    elem_bytes: int = 4,
+    wire: str = "none",
+) -> IrregularExchange:
+    """Memoized :class:`IrregularExchange` constructor for dynamic callers.
+
+    Per-batch pattern producers (MoE routing) re-request an exchange every
+    step.  This front-door LRU returns the *same* instance for an equal
+    ``(fingerprint, strategy, caps, wire, device)`` request, so hot routing
+    buckets cost one dict lookup.  The key holds the resolved device
+    (``None`` means the CUDA device).  Cleared by :func:`clear_caches`.
+    """
+    device = resolve_device(device)
+    key = (pattern.fingerprint(), strategy, message_cap_bytes, elem_bytes, wire, str(device))
+    return _lru_get(
+        _EXCHANGE_CACHE, key, EXCHANGE_CACHE_MAX,
+        lambda: IrregularExchange(pattern, strategy, device=device, message_cap_bytes=message_cap_bytes,
+                                  elem_bytes=elem_bytes, wire=wire),
+        "exchange",
+    )

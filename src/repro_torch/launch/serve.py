@@ -7,6 +7,9 @@ switched on:
         --batch 4 --prompt-len 4096 --gen 32            # one CUDA GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --preset tiny \\
         --device cpu                                    # the plain versions, on the host
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
+        --preset full --layers 8 --batch 4 --prompt-len 4096 --gen 32 \\
+        --advise-dispatch --simulate-serving 64 --chaos 1   # MoE, 8 of 48 layers
 
 1. build ``LMModel`` for the architecture at the preset's size;
 2. draw the parameters on the device from a ``torch.Generator`` seeded by
@@ -17,10 +20,13 @@ switched on:
 5. decode ``--gen`` tokens greedily with plain torch ops.
 
 Without ``--device`` it runs on the CUDA device and raises where there is
-none.  The MoE routing advice waits for ROADMAP A.4, and so do
-``--simulate-serving`` and ``--chaos``: the reference drives the serving
-simulator from the MoE routing counts of ``--advise-dispatch``.  The
-simulator itself is ported (``repro_torch.serving``).
+none.  ``--layers`` cuts the depth (a model too large for one card).  For a
+MoE model, ``--advise-dispatch`` then ranks the exchange strategies for the
+routing histogram of the served tokens over ``--npods`` x ``--ppn`` ranks;
+``--simulate-serving N`` replays N dispatch requests of that pattern through
+the serving simulator (``repro_torch.serving``), coalesced against
+sequential, and ``--chaos SEED`` re-runs the simulation under a seeded fault
+storm -- as the reference's launcher does.
 """
 
 from __future__ import annotations
@@ -38,21 +44,25 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import HEAD_DIMS, head_dim_supported
 from repro_torch.launch.presets import PRESETS
 from repro_torch.models.lm import LMModel
+from repro_torch.models.moe_dispatch import ExpertLoadHistogram
 from repro_torch.models.sharding import tree_items
 
 
 def build(arch: str, preset: str = "tiny", seed: int = 0, device: DeviceLike = None,
-          dtype: Optional[torch.dtype] = None):
+          dtype: Optional[torch.dtype] = None, layers: Optional[int] = None):
     """``(model, params)``: the model at ``preset`` with parameters drawn on
     ``device`` from a generator seeded by ``seed``.
 
     ``dtype`` (default: the config's) sets the model's activation dtype and
     its weights' together; one seed draws the same weights in every dtype.
+    ``layers`` (default: the preset's) cuts the depth and nothing else.
     """
     device = resolve_device(device)
     cfg = PRESETS[preset](get_config(arch))
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = LMModel(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     return model, model.init(gen, device=device)
@@ -129,6 +139,79 @@ def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl
     return {"tokens": tokens, "logits": step_logits, "prefill_s": t1 - t0, "decode_s": t2 - t1, "cache": cache}
 
 
+def routing_counts(params, cfg, tokens, nranks: int) -> np.ndarray:
+    """Measured (src rank -> dst rank) routed-token counts for served tokens.
+
+    The reference's function, over the port's tensors: it replays the first
+    MoE layer's router over the embedded token ids (the layer-0
+    approximation: later layers see residual-mixed activations, but the
+    first routing decision is exact) and bins the top-k assignments by
+    source shard (batch rows block-sharded over ranks, the
+    ``np.array_split`` convention: the first ``B % nranks`` ranks carry one
+    extra row) and destination shard (experts block-sharded over ranks).
+    This is the traffic matrix the dispatch hop would carry -- the advisor's
+    measured histogram.  Computed in numpy in float32.
+    """
+    if cfg.family != "moe":
+        raise ValueError(f"--advise-dispatch needs a MoE arch, got {cfg.family!r}")
+    router = params["seg_moe"]["moe"]["router"][0].detach().float().cpu().numpy()  # [M, E]
+    toks2 = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor) else tokens)
+    toks = toks2.reshape(-1)
+    embed = params["embed"]
+    rows = embed[torch.as_tensor(toks, device=embed.device)]  # the served rows only
+    logits = rows.detach().float().cpu().numpy() @ router
+    k = cfg.moe.top_k
+    top = np.argsort(-logits, axis=-1)[:, :k]  # [N, k]
+    e_per = max(cfg.moe.n_experts // nranks, 1)
+    rows = toks2.shape[0] if toks2.ndim > 1 else toks.size
+    sizes = np.full(nranks, rows // nranks, dtype=np.int64)
+    sizes[: rows % nranks] += 1
+    owner = np.repeat(np.arange(nranks), sizes)  # [rows]
+    src = np.repeat(np.repeat(owner, toks.size // rows), k)
+    dst = np.minimum(top.reshape(-1) // e_per, nranks - 1)
+    counts = np.zeros((nranks, nranks), dtype=np.int64)
+    np.add.at(counts, (src, dst), 1)
+    return counts
+
+
+def dispatch_advice(params, cfg, tokens, npods: int, ppn: int, machine: str = "tpu_v5e_pod"):
+    """Rank exchange strategies for the traffic this serving run produced.
+
+    Returns ``(counts, advice)``: the measured ``[nranks, nranks]`` routing
+    histogram and the :class:`repro_torch.core.Advice` ranking for it, with
+    byte terms scaled by ``d_model`` (each routed token ships a d_model-wide
+    activation row).  ``machine`` defaults to the reference's, so the
+    rankings are its own (the port has no H100 constants yet, ROADMAP A.6).
+    """
+    nranks = npods * ppn
+    counts = routing_counts(params, cfg, tokens, nranks)
+    hist = ExpertLoadHistogram(nranks)
+    hist.update(counts)
+    return counts, hist.advise(ppn=ppn, payload_width=cfg.d_model, machine=machine)
+
+
+def simulate_dispatch(counts: np.ndarray, d_model: int, ppn: int, n_requests: int,
+                      chaos: Optional[int] = None) -> dict:
+    """The reference launcher's serving simulation of measured routing:
+    ``n_requests`` dispatch requests of the ``counts`` pattern, coalesced
+    against sequential (``"report"``), and with ``chaos`` the same trace under
+    a seeded fault storm (``"storm"``, a :class:`repro_torch.serving.SimResult`)."""
+    from repro_torch.comm.faults import FaultPlan, FaultSpec
+    from repro_torch.serving import SimConfig, WorkloadClass, serving_report, simulate
+    from repro_torch.testing import make_trace
+
+    cls = WorkloadClass.from_routing(counts, ppn=ppn, d_model=d_model, fp="moe")
+    trace = make_trace(0, n_requests, ["moe"], pattern="burst", rate=50 * n_requests, kinds={"moe": "moe"})
+    out = {"report": serving_report({"moe": cls}, trace, SimConfig(max_width=8))}
+    if chaos is not None:
+        plan = FaultPlan(seed=chaos, specs=(
+            FaultSpec(kind="perturb", prob=0.25, frac=0.1),
+            FaultSpec(kind="slow", prob=0.1, delay_s=2e-3),
+        ))
+        out["storm"] = simulate({"moe": cls}, trace, SimConfig(max_width=8, chaos=plan, deadline_s=0.05))
+    return out
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="hymba-1.5b", choices=ARCH_IDS)
@@ -139,25 +222,56 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--impl", choices=("kernel", "chunked", "dot"), default="kernel")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
-    ap.add_argument("--advise-dispatch", action="store_true", help="not ported yet (ROADMAP A.4)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the preset's)")
+    ap.add_argument("--advise-dispatch", action="store_true",
+                    help="after serving, rank exchange strategies for the "
+                         "measured MoE routing histogram (MoE archs only)")
+    ap.add_argument("--npods", type=int, default=2, help="pods assumed for --advise-dispatch")
+    ap.add_argument("--ppn", type=int, default=4, help="ranks per pod assumed for --advise-dispatch")
     ap.add_argument("--simulate-serving", type=int, default=0, metavar="N",
-                    help="needs --advise-dispatch (MoE), not ported yet (ROADMAP A.4)")
+                    help="with --advise-dispatch: replay N concurrent dispatch "
+                         "requests of the measured routing pattern through the "
+                         "continuous-batching simulator and report coalesced vs "
+                         "sequential p50/p99/throughput")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="needs --advise-dispatch (MoE), not ported yet (ROADMAP A.4)")
+                    help="with --simulate-serving: re-run the simulation under "
+                         "a seeded fault storm (FaultPlan(SEED)) and report the "
+                         "recovery-ladder outcome")
     return ap.parse_args(argv)
+
+
+def report_dispatch(params, cfg, served, npods: int, ppn: int, simulate_n: int = 0,
+                    chaos: Optional[int] = None) -> dict:
+    """``--advise-dispatch`` (and ``--simulate-serving``, ``--chaos``) on the
+    served tokens ``[B, S]``: prints the reports and returns ``counts``,
+    ``advice`` and, where asked, the simulation's ``report`` and ``storm``."""
+    counts, advice = dispatch_advice(params, cfg, served, npods, ppn)
+    print(f"dispatch advice ({npods} pods x {ppn}, {int(counts.sum())} routed tokens):")
+    print(advice.table())
+    out = {"counts": counts, "advice": advice}
+    if not simulate_n:
+        return out
+    out.update(simulate_dispatch(counts, cfg.d_model, ppn, simulate_n, chaos))
+    co, sq = out["report"]["coalesced"], out["report"]["sequential"]
+    print(f"serving sim ({simulate_n} requests, k<=8): "
+          f"coalesced p50={co['p50_s']*1e3:.2f}ms p99={co['p99_s']*1e3:.2f}ms "
+          f"{co['throughput_rps']:.0f} rps | sequential "
+          f"{sq['throughput_rps']:.0f} rps | speedup {out['report']['speedup']:.2f}x")
+    if chaos is not None:
+        storm = out["storm"]
+        total = storm.completed + storm.shed
+        rate = storm.completed / total if total else 1.0
+        print(f"chaos storm (seed {chaos}): {storm.fault_events} faults, "
+              f"{storm.recoveries} ladder recoveries, {storm.shed} shed, {storm.probes} probes "
+              f"({storm.probe_recoveries} closed breakers), {storm.deadline_misses} deadline misses | "
+              f"completion {rate:.1%} | trace {storm.trace_hash[:12]}")
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
-    if args.advise_dispatch:
-        raise NotImplementedError("--advise-dispatch needs the MoE layers, not ported yet (ROADMAP A.4)")
-    if args.simulate_serving:
-        raise NotImplementedError(
-            "--simulate-serving simulates the MoE routing of --advise-dispatch, not ported yet (ROADMAP A.4)")
-    if args.chaos is not None:
-        raise NotImplementedError(
-            "--chaos storms the MoE serving simulation of --advise-dispatch, not ported yet (ROADMAP A.4)")
-    model, params = build(args.arch, args.preset, args.seed, args.device)
+    model, params = build(args.arch, args.preset, args.seed, args.device, layers=args.layers)
     device = params["embed"].device
     prompts = make_prompts(model.cfg.vocab_size, args.batch, args.prompt_len, args.seed)
     out = generate(model, params, torch.as_tensor(prompts, device=device), args.gen, impl=args.impl)
@@ -165,6 +279,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"prefill {args.batch}x{args.prompt_len} in {out['prefill_s']:.3f}s; "
           f"decoded {args.gen} tokens/seq in {out['decode_s']:.3f}s")
     print("generated:", out["tokens"].cpu().numpy()[:, :10])
+    if args.advise_dispatch:
+        served = np.concatenate([prompts, out["tokens"].cpu().numpy()], axis=1)
+        out["dispatch"] = report_dispatch(params, model.cfg, served, args.npods, args.ppn,
+                                          args.simulate_serving, args.chaos)
     return out
 
 

@@ -1,6 +1,27 @@
-"""Model zoo of the port: the ``dense``, ``ssm`` and ``hybrid`` families.
+"""Model zoo of the port: the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families.
 
 Import the modules themselves (``repro_torch.models.lm`` and its
-neighbours); this package file imports nothing, so the kernel wrappers can
-use :mod:`repro_torch.models.ssd` without an import cycle.
+neighbours).  The MoE names the reference exports from its package
+(``MoELayer``, ``MoEDispatcher``, ``RoutingBucketer``,
+``ExpertLoadHistogram``, ``recv_maps``) resolve here on first access, so
+importing this package file imports nothing and the kernel wrappers can use
+:mod:`repro_torch.models.ssd` without an import cycle.
 """
+
+_EXPORTS = {
+    "MoELayer": "repro_torch.models.moe",
+    "MoEDispatcher": "repro_torch.models.moe_dispatch",
+    "RoutingBucketer": "repro_torch.models.moe_dispatch",
+    "ExpertLoadHistogram": "repro_torch.models.moe_dispatch",
+    "recv_maps": "repro_torch.models.moe_dispatch",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(_EXPORTS[name]), name)

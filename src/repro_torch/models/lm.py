@@ -1,14 +1,16 @@
 """LMModel: the serving interface over the ported architectures.
 
-The port of ``repro.models.lm`` for the ``dense``, ``ssm`` and ``hybrid``
-families: token embedding, the segments, final norm + LM head, full-sequence
-``apply``, ``prefill`` returning a cache of stacked per-layer leaves, and a
-single-token ``decode_step``.  Parameters are a nested dict of tensors with
+The port of ``repro.models.lm`` for the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` families: token embedding, the segments, final norm + LM head,
+full-sequence ``apply``, ``prefill`` returning a cache of stacked per-layer
+leaves, and a single-token ``decode_step``.  Parameters are a nested dict of tensors with
 the reference's names and shapes (:meth:`LMModel.param_specs`); weights made
 by the reference carry over with :func:`repro_torch.models.convert.from_reference`.
 
-The ``moe``, ``vlm`` and ``enc_dec`` families and MLA attention wait for
-ROADMAP A.4 and raise ``NotImplementedError``.
+A ``moe`` model's MoE layers run the single-device dispatch path, as the
+reference's serve does on a ``1x1`` mesh.  MLA attention (ROADMAP A.4b) and
+the ``vlm`` and ``enc_dec`` families (A.4c) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.models.sharding import param_count as _pc
 from repro_torch.models.transformer import Block, Segment
 
 #: families the port runs
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -39,17 +41,21 @@ class LMModel:
         cfg = self.cfg
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP A.4); "
+                f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP A.4c); "
                 f"the port runs {FAMILIES}"
             )
-        if cfg.mla is not None or cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MLA / MoE layers are not ported yet (ROADMAP A.4)")
+        if cfg.mla is not None:
+            raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet (ROADMAP A.4b)")
         self.dtype = _DTYPES[cfg.dtype]
         self.vocab = cfg.padded_vocab(max(self.tp, 16))
         self.segments: List[Segment] = self._build_segments()
 
     def _build_segments(self) -> List[Segment]:
         cfg, tp = self.cfg, self.tp
+        if cfg.family == "moe":
+            fd = cfg.moe.first_dense_layers
+            segs = [Segment("dense0", Block.make(cfg, "dense", tp), fd)] if fd else []
+            return segs + [Segment("moe", Block.make(cfg, "dense", tp, use_moe=True), cfg.n_layers - fd)]
         # the family is also the block kind; the names are the reference's
         name = {"dense": "dec", "ssm": "ssm", "hybrid": "hyb"}[cfg.family]
         return [Segment(name, Block.make(cfg, cfg.family, tp), cfg.n_layers)]

@@ -1,0 +1,366 @@
+"""Mixture-of-Experts layer with capacity dispatch over stacked ranks.
+
+The port of ``repro.models.moe``.  Token -> expert routing is the LM
+incarnation of the paper's irregular point-to-point pattern: per step, every
+data shard sends a data-dependent subset of its tokens to the shards owning
+their experts.  Where the reference runs the expert-parallel shards under
+``shard_map`` on a device mesh, the port holds every rank of a
+:class:`~repro_torch.comm.PodTopology` on one device, stacked on a leading
+``[nranks, ...]`` axis (the layout of the port's exchange), and the caller
+passes the topology at call time in place of the reference's mesh:
+
+* ``topo=None`` (or one rank): :meth:`MoELayer._dispatch_local`, the
+  reference's single-device path -- what ``LMModel`` serves on one card;
+* ``dispatch="all_to_all"``: :meth:`MoELayer._dispatch_all_to_all`, the
+  reference's ``_dispatch_shard_map``: the batch is block-sharded over the
+  ranks, expert ``e`` lives on rank ``e // (n_experts / nranks)``, and each
+  ``jax.lax.all_to_all(..., tiled=True)`` becomes a block transpose of the
+  stacked send buffer;
+* ``dispatch="exchange"``: :meth:`MoELayer._dispatch_exchange`, the same
+  routing math with both hops planned as node-aware
+  :class:`~repro_torch.comm.IrregularExchange` programs over the measured
+  (bucketed) routing pattern (:mod:`repro_torch.models.moe_dispatch`);
+  bitwise the all-to-all path for ``wire="none"``.
+
+Dispatch is capacity-based: assignments beyond ``capacity_factor`` per
+expert (local path) or per (src shard, dst shard) slot block (the sharded
+paths, with the reference's floor of 8 slots and its second capacity stage
+per local expert) are dropped, standard GShard/Switch practice.  Routing is
+gather-based; the only scatters are 1-D integer inverse-permutation builds
+whose duplicate writes all land in a dead slot that is sliced off.
+
+Each layer keeps a :class:`RoutingTally` of the assignments it routed and
+dropped (summed on the device, read only when a caller asks), and, on the
+exchange path, of the slots the hops shipped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.comm.topology import PodTopology
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models.layers import MLP
+from repro_torch.models.moe_dispatch import MoEDispatcher
+from repro_torch.models.sharding import ParamSpec
+
+#: the dispatch paths of a sharded call (``topo`` with more than one rank)
+DISPATCH_MODES = ("all_to_all", "exchange")
+
+
+@dataclasses.dataclass
+class RoutingTally:
+    """Running counts of one layer's routing over its calls.
+
+    ``routed`` counts token-expert assignments and ``shipped`` the slots the
+    exchange hops carried (both host integers, from shapes and plans);
+    ``dropped`` the assignments a capacity stage dropped, kept as a device
+    scalar so that counting never waits for the device.
+    """
+
+    calls: int = 0
+    routed: int = 0
+    shipped: int = 0
+    dropped: Optional[torch.Tensor] = None
+
+    def add(self, routed: int, dropped: torch.Tensor, shipped: int = 0) -> None:
+        self.calls += 1
+        self.routed += routed
+        self.shipped += shipped
+        self.dropped = dropped if self.dropped is None else self.dropped + dropped
+
+    def read(self) -> dict:
+        """The counts as host integers (one device read)."""
+        dropped = 0 if self.dropped is None else int(self.dropped)
+        return {"calls": self.calls, "routed": self.routed, "dropped": dropped, "shipped": self.shipped}
+
+    def reset(self) -> None:
+        self.calls = self.routed = self.shipped = 0
+        self.dropped = None
+
+
+def _inverse(slot: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Which assignment fills each of ``size`` slots, ``fill`` where none does.
+
+    ``slot [..., t]`` holds each assignment's slot in ``[0, size]``; ``size``
+    is the drop slot, whose (duplicate) writers are sliced off.  Returns
+    ``[..., size]`` int64.
+    """
+    t = slot.shape[-1]
+    src = torch.arange(t, device=slot.device).expand(slot.shape)
+    inv = torch.full((*slot.shape[:-1], size + 1), fill, dtype=torch.int64, device=slot.device)
+    return inv.scatter_(-1, slot, src)[..., :-1]
+
+
+def _pad_row(x: torch.Tensor, value=0) -> torch.Tensor:
+    """``x [n, L, ...]`` with one more row of ``value`` at index ``L``."""
+    pad = torch.full((x.shape[0], 1, *x.shape[2:]), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-rank gather: ``out[r, j] = x[r, idx[r, j]]`` for ``x [n, L, ...]``."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoELayer:
+    d_model: int
+    cfg: MoEConfig
+    act: str = "silu"
+    #: sharded path: "all_to_all" (the block-transpose baseline) or
+    #: "exchange" (node-aware IrregularExchange hops, planned per measured
+    #: routing pattern -- see repro_torch.models.moe_dispatch)
+    dispatch: str = "all_to_all"
+    #: exchange strategy: "auto" (advisor-picked from the measured routing
+    #: histogram) or one of repro_torch.comm.STRATEGY_NAMES
+    strategy: str = "auto"
+    #: inter-pod wire codec for the exchange path ("none" = full precision)
+    wire: str = "none"
+    #: slot granularity for routing-count bucketing (plan-cache stability)
+    route_quantum: int = 8
+    #: lazily-created per-layer dispatcher; not part of identity
+    dispatcher: Optional[MoEDispatcher] = dataclasses.field(default=None, compare=False)
+    tally: RoutingTally = dataclasses.field(default_factory=RoutingTally, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.dispatch not in DISPATCH_MODES:
+            raise ValueError(f"dispatch must be 'all_to_all' or 'exchange', got {self.dispatch!r}")
+
+    def params(self) -> dict:
+        E, M, F_ = self.cfg.n_experts, self.d_model, self.cfg.d_ff_expert
+        p = {
+            "router": ParamSpec((M, E), ("fsdp", None)),
+            "w_in": ParamSpec((E, M, F_), ("experts", None, "mlp")),
+            "w_gate": ParamSpec((E, M, F_), ("experts", None, "mlp")),
+            "w_out": ParamSpec((E, F_, M), ("experts", "mlp", None)),
+        }
+        if self.cfg.n_shared:
+            p["shared"] = self._shared().params()
+        return p
+
+    def _shared(self) -> MLP:
+        return MLP(self.d_model, self.cfg.d_ff_expert * self.cfg.n_shared, self.act)
+
+    # ------------------------------------------------------------------
+    def route(self, params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(top_p, top_e)``, each ``[B, S, k]``: the router's softmax in
+        float32, its top-k experts and their renormalised weights."""
+        logits = x @ params["router"].to(x.dtype)
+        probs = torch.softmax(logits.float(), dim=-1)
+        top_p, top_e = torch.topk(probs, self.cfg.top_k, dim=-1)
+        return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+
+    def __call__(self, params, x: torch.Tensor, topo: Optional[PodTopology] = None) -> torch.Tensor:
+        """x: [B, S, M].  Routed experts + optional shared experts.
+
+        ``topo`` places the experts and the batch on its stacked ranks; with
+        ``None`` or one rank the layer runs the single-device path.
+        """
+        top_p, top_e = self.route(params, x)
+        if topo is None or topo.nranks == 1:
+            routed = self._dispatch_local(params, x, top_p, top_e)
+        elif self.dispatch == "exchange":
+            routed = self._dispatch_exchange(params, x, top_p, top_e, topo)
+        else:
+            routed = self._dispatch_all_to_all(params, x, top_p, top_e, topo)
+        if self.cfg.n_shared:
+            routed = routed + self._shared()(params["shared"], x)
+        return routed
+
+    # ------------------------------------------------------------------
+    def _expert_ffn(self, w_in, w_gate, w_out, xe: torch.Tensor) -> torch.Tensor:
+        """Batched per-expert SwiGLU FFN. xe: [E, C, M] -> [E, C, M]."""
+        h = torch.bmm(xe, w_in.to(xe.dtype))
+        g = torch.bmm(xe, w_gate.to(xe.dtype))
+        return torch.bmm(F.silu(g) * h, w_out.to(xe.dtype))
+
+    @staticmethod
+    def _fill_capacity(eid: torch.Tensor, cap: int):
+        """Position of each assignment within its bin; ``>= cap`` means dropped.
+
+        eid: ``[..., T]`` bin ids (each leading index is one rank).  Returns
+        ``(pos_in_bin, keep)``, both ``[..., T]``.  A stable argsort groups
+        each bin's assignments in arrival order, the position within the run
+        is ``index - run start`` (a ``cummax`` over run-start indices), and
+        an inverse scatter restores assignment order -- the reference's
+        construction, so the positions are its own.
+        """
+        t = eid.shape[-1]
+        order = torch.argsort(eid, dim=-1, stable=True)
+        idx = torch.arange(t, device=eid.device).expand(eid.shape)
+        sorted_eid = eid.gather(-1, order)
+        is_start = torch.ones(eid.shape, dtype=torch.bool, device=eid.device)
+        is_start[..., 1:] = sorted_eid[..., 1:] != sorted_eid[..., :-1]
+        start = torch.cummax(torch.where(is_start, idx, 0), dim=-1).values
+        pos = torch.empty_like(order).scatter_(-1, order, idx - start)
+        return pos, pos < cap
+
+    # -- single-device path ------------------------------------------------
+    def _dispatch_local(self, params, x, top_p, top_e) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, M = x.shape
+        E, k = cfg.n_experts, cfg.top_k
+        T = B * S * k
+        xt = x.reshape(B * S, M)
+        xt = xt.repeat_interleave(k, dim=0) if k > 1 else xt  # [T, M]
+        eid = top_e.reshape(T)
+        w = top_p.reshape(T).to(x.dtype)
+        cap = max(int(T / E * cfg.capacity_factor), 1)
+        pos, keep = self._fill_capacity(eid, cap)
+        slot = torch.where(keep, eid * cap + pos, E * cap)  # drop slot
+        buf = _pad_row(xt[None])[0][_inverse(slot, E * cap, T)]
+        ye = self._expert_ffn(params["w_in"], params["w_gate"], params["w_out"], buf.view(E, cap, M))
+        yt = _pad_row(ye.reshape(1, E * cap, M))[0][slot] * w[:, None]
+        self.tally.add(T, (~keep).sum())
+        return yt.reshape(B * S, k, M).sum(1).reshape(B, S, M)
+
+    # -- expert-parallel paths over stacked ranks ---------------------------
+    def _shard_shapes(self, B: int, S: int, topo: PodTopology) -> Tuple[int, int, int, int]:
+        """``(n, e_local, t, cap)`` of a sharded call, with the reference's
+        divisibility checks (its messages, the topology in place of the
+        mesh axes)."""
+        cfg = self.cfg
+        n = topo.nranks
+        if cfg.n_experts % n:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} is not divisible by the "
+                f"expert-parallel degree {n} (topology {topo.npods}x{topo.ppn}); "
+                f"choose n_experts as a multiple of {n}"
+            )
+        if B % n:
+            raise ValueError(
+                f"dispatch={self.dispatch!r} shards the batch over all {n} ranks; "
+                f"batch {B} is not divisible by {n}"
+            )
+        t = B // n * S * cfg.top_k
+        # capacity per (src shard -> dst shard) slot block; the floor of 8
+        # keeps decode-time (tiny t) routing essentially drop-free
+        return n, cfg.n_experts // n, t, max(int(t / n * cfg.capacity_factor), 8)
+
+    def _stage_send(self, x, top_p, top_e, n: int, e_local: int, t: int, cap: int):
+        """Per rank: the ``[n * cap]`` send slots (token rows and local expert
+        ids, dead slots zero / ``e_local``), each assignment's slot, its
+        weight, and the ``[n, n]`` count matrix of assignments by (src, dst)."""
+        M, k = x.shape[-1], self.cfg.top_k
+        xt = x.reshape(n, -1, M)
+        xt = xt.repeat_interleave(k, dim=1) if k > 1 else xt  # [n, t, M]
+        eid = top_e.reshape(n, t)
+        w = top_p.reshape(n, t).to(x.dtype)
+        dst = eid // e_local
+        pos, keep = self._fill_capacity(dst, cap)
+        slot = torch.where(keep, dst * cap + pos, n * cap)
+        inv = _inverse(slot, n * cap, t)
+        send = _take(_pad_row(xt), inv)
+        send_e = _take(_pad_row((eid % e_local).to(torch.int32), e_local), inv)
+        rank = torch.arange(n, device=x.device)[:, None]
+        counts = torch.bincount((rank * n + dst).reshape(-1), minlength=n * n).view(n, n)
+        return send, send_e, slot, w, counts, (~keep).sum()
+
+    def _stage_expert(self, params, recv, recv_e, n: int, e_local: int, cap: int):
+        """Bin the received slots into the local experts (the second capacity
+        stage), run them, and lay their outputs back out in the received
+        slot order (the return hop's send buffer).  Returns ``(back, dropped)``."""
+        M = recv.shape[-1]
+        cap2 = max(int(n * cap / e_local), 1)
+        bin_id = torch.clamp(recv_e, max=e_local)  # dead slots -> drop bin
+        pos2, keep2 = self._fill_capacity(bin_id, cap2)
+        live = recv_e < e_local
+        keep2 &= live
+        slot2 = torch.where(keep2, bin_id.long() * cap2 + pos2, e_local * cap2)
+        buf = _take(_pad_row(recv), _inverse(slot2, e_local * cap2, n * cap))
+        ye = self._expert_ffn(params["w_in"], params["w_gate"], params["w_out"],
+                              buf.view(n * e_local, cap2, M)).view(n, e_local * cap2, M)
+        return _take(_pad_row(ye), slot2), (live & ~keep2).sum()
+
+    @staticmethod
+    def _stage_combine(ret, slot, w, B: int, S: int, k: int):
+        """Weight each assignment's returned row and sum its top-k."""
+        M = ret.shape[-1]
+        yt = _take(_pad_row(ret), slot) * w[..., None]
+        return yt.reshape(B * S, k, M).sum(1).reshape(B, S, M)
+
+    @staticmethod
+    def _all_to_all(buf: torch.Tensor, n: int) -> torch.Tensor:
+        """The tiled all-to-all over stacked ranks: block ``d`` of rank ``s``
+        becomes block ``s`` of rank ``d``."""
+        return buf.reshape(n, n, -1, *buf.shape[2:]).transpose(0, 1).reshape(buf.shape)
+
+    def _dispatch_all_to_all(self, params, x, top_p, top_e, topo) -> torch.Tensor:
+        B, S, _ = x.shape
+        n, e_local, t, cap = self._shard_shapes(B, S, topo)
+        send, send_e, slot, w, _, drop1 = self._stage_send(x, top_p, top_e, n, e_local, t, cap)
+        recv, recv_e = self._all_to_all(send, n), self._all_to_all(send_e, n)
+        back, drop2 = self._stage_expert(params, recv, recv_e, n, e_local, cap)
+        out = self._stage_combine(self._all_to_all(back, n), slot, w, B, S, self.cfg.top_k)
+        self.tally.add(n * t, drop1 + drop2)
+        return out.to(x.dtype)
+
+    # -- node-aware exchange dispatch ----------------------------------------
+    def _get_dispatcher(self, topo: PodTopology, device) -> MoEDispatcher:
+        if self.dispatcher is None:
+            disp = MoEDispatcher(topo, strategy=self.strategy, wire=self.wire,
+                                 quantum=self.route_quantum, device=device)
+            object.__setattr__(self, "dispatcher", disp)
+        return self.dispatcher
+
+    def _device_maps(self, bundle, cap: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bundle's splice maps on ``device``, moved once per bundle (one
+        bundle per capacity is current: the bucketer of that block size)."""
+        memo = self.__dict__.setdefault("_map_memo", {})
+        key = (cap, str(device))
+        got = memo.get(key)
+        if got is None or got[0] is not bundle:
+            maps = tuple(torch.as_tensor(m, dtype=torch.int64, device=device)
+                         for m in (bundle.map_dispatch, bundle.map_return))
+            got = memo[key] = (bundle, *maps)
+        return got[1], got[2]
+
+    def _dispatch_exchange(self, params, x, top_p, top_e, topo) -> torch.Tensor:
+        """Capacity dispatch with both hops on the node-aware exchange stack.
+
+        Same routing math as :meth:`_dispatch_all_to_all`, in three stages
+        with the block transposes replaced by planned
+        :class:`~repro_torch.comm.IrregularExchange` hops over the measured
+        (bucketed) routing pattern, so skewed traffic ships only the occupied
+        slot prefix per pair, the advisor can pick the strategy per pattern,
+        and wire codecs apply to the inter-pod segments.  The per-pair count
+        matrix is read by the host each batch (one ``[n, n]`` transfer); it
+        keys the bucketer and feeds the dispatcher's load histogram.
+
+        Bitwise the all-to-all path for ``wire="none"``: kept assignments
+        occupy the block prefix (at most the quantized width), and every slot
+        the all-to-all carries as dead (zero row / sentinel expert id) is
+        reproduced by the splice maps' sentinel row.
+        """
+        B, S, M = x.shape
+        n, e_local, t, cap = self._shard_shapes(B, S, topo)
+        send, send_e, slot, w, counts, drop1 = self._stage_send(x, top_p, top_e, n, e_local, t, cap)
+
+        # host read of the measured [n, n] histogram: the price of planning
+        # communication for the traffic we actually have
+        step = self._get_dispatcher(topo, x.device).step(counts.cpu().numpy(), cap, payload_width=M)
+        map_d, map_r = self._device_maps(step.bundle, cap, x.device)
+        ex_d, ex_r = step.exchange_dispatch, step.exchange_return
+
+        if ex_d is not None:
+            halo_x, halo_e = ex_d(send), ex_d(send_e)
+        else:
+            halo_x, halo_e = send[:, :0], send_e[:, :0]
+        # splice the canonical exchange receive into the [n * cap] slot
+        # layout; the sentinel row reproduces the all-to-all's dead slots
+        recv = _take(_pad_row(torch.cat([send, halo_x], dim=1)), map_d)
+        recv_e = _take(_pad_row(torch.cat([send_e, halo_e], dim=1), e_local), map_d)
+        back, drop2 = self._stage_expert(params, recv, recv_e, n, e_local, cap)
+
+        halo_b = ex_r(back) if ex_r is not None else back[:, :0]
+        ret = _take(_pad_row(torch.cat([back, halo_b], dim=1)), map_r)
+        out = self._stage_combine(ret, slot, w, B, S, self.cfg.top_k)
+        shipped = 2 * int(step.bundle.widths.sum())
+        self.tally.add(n * t, drop1 + drop2, shipped)
+        return out.to(x.dtype)

@@ -2,7 +2,7 @@
 
 The port of ``repro.models.transformer`` for the block kinds of this slice:
 
-* ``dense``   -- self-attention (GQA) + MLP
+* ``dense``   -- self-attention (GQA) + MLP, or + MoE (``use_moe``)
 * ``ssm``     -- Mamba-2 mixer only
 * ``hybrid``  -- parallel attention + SSM heads (Hymba), then MLP
 
@@ -22,7 +22,8 @@ reference's tests hold the Pallas kernel to ``ssd_chunked`` within 2e-4
 (``tests/test_kernels.py``).  Every other ``impl`` runs the plain chunked SSD,
 as the reference does.
 
-The MoE, MLA, cross-attention and encoder blocks wait for ROADMAP A.4.
+The MLA block waits for ROADMAP A.4b, the cross-attention and encoder
+blocks for A.4c.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import Mamba2Mixer
+from repro_torch.models.moe import MoELayer
 from repro_torch.models.sharding import ParamSpec, tree_map
 
 #: block kinds of this slice
@@ -164,12 +166,13 @@ class Block:
     self_attn: Optional[CachedAttention] = None
     ssm: Optional[Mamba2Mixer] = None
     mlp: Optional[L.MLP] = None
+    moe: Optional[MoELayer] = None
 
     @staticmethod
-    def make(cfg: ModelConfig, kind: str, tp: int = 1) -> "Block":
+    def make(cfg: ModelConfig, kind: str, tp: int = 1, use_moe: bool = False) -> "Block":
         if kind not in BLOCK_KINDS:
             raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP A.4); the port runs {BLOCK_KINDS}"
+                f"block kind {kind!r} is not ported yet (ROADMAP A.4c); the port runs {BLOCK_KINDS}"
             )
         hp, kvp = pad_heads(cfg.n_heads, cfg.n_kv_heads, tp)
         attn = L.AttentionLayer(
@@ -180,6 +183,8 @@ class Block:
         cached = CachedAttention(attn, kv_store_heads(kvp, tp), window=cfg.window)
         mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act) if cfg.d_ff else None
         if kind == "dense":
+            if use_moe and cfg.moe:
+                return Block(cfg=cfg, tp=tp, self_attn=cached, moe=MoELayer(cfg.d_model, cfg.moe, cfg.act))
             return Block(cfg=cfg, tp=tp, self_attn=cached, mlp=mlp)
         if kind == "ssm":
             return Block(cfg=cfg, tp=tp, ssm=Mamba2Mixer(cfg.d_model, cfg.ssm))
@@ -196,6 +201,9 @@ class Block:
                 p["ssm_norm"] = L.rmsnorm_params(self.cfg.d_model)
         if self.mlp is not None:
             p["mlp"] = self.mlp.params()
+            p["mlp_norm"] = L.rmsnorm_params(self.cfg.d_model)
+        if self.moe is not None:
+            p["moe"] = self.moe.params()
             p["mlp_norm"] = L.rmsnorm_params(self.cfg.d_model)
         return p
 
@@ -253,9 +261,9 @@ class Block:
         """mode: apply | prefill | decode. Returns (x, new_cache)."""
         delta, new_cache = self._mix(p, x, positions, impl, mode, cache, pos)
         x = x + delta
-        if self.mlp is not None:
+        if self.mlp is not None or self.moe is not None:
             h = L.rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
-            x = x + self.mlp(p["mlp"], h)
+            x = x + (self.moe(p["moe"], h) if self.moe is not None else self.mlp(p["mlp"], h))
         return x, new_cache
 
     def init_cache(self, batch, max_len, dtype, device):

@@ -6,7 +6,7 @@ straggler events; after ``budget`` consecutive events (straggler steps,
 integrity failures from :class:`repro_torch.comm.faults.HealthTracker`, or
 admission overload) it reports the escalation budget exhausted, which is
 the trainer's cue to checkpoint and restart (the trainer waits for ROADMAP
-A.4).  A copy of the reference's ``runtime/watchdog.py``.
+A.4d).  A copy of the reference's ``runtime/watchdog.py``.
 """
 
 from __future__ import annotations

@@ -5,10 +5,11 @@ Concurrent SpMV/SpMM solve requests enter per-fingerprint FIFO lanes
 :class:`repro_torch.runtime.AdmissionController`), coalesce into wider
 payload batches under a window and memory budget
 (:class:`ContinuousBatcher`), and drain through the port's fused SpMM
-(:class:`BatchExecutor`: ``DistributedSpMV.matmat``, kernel B2).  The seeded
+(:class:`BatchExecutor`: ``DistributedSpMV.matmat``, kernel B2; MoE
+dispatch batches through one ``MoELayer`` call each).  The seeded
 virtual-clock simulator (:func:`simulate`) makes every scheduling decision
 bit-reproducible; its ``trace_hash`` equals the reference's for the same
-seed and config.  MoE dispatch batches wait for ROADMAP A.4.
+seed and config.
 """
 
 from .batcher import Batch, ContinuousBatcher

@@ -20,7 +20,8 @@ preserved) and feeds the shared
 :class:`repro_torch.runtime.watchdog.StragglerWatchdog` /
 :class:`~repro_torch.runtime.watchdog.AdmissionController` escalation
 budget, so fault pressure and overload reach the control plane through one
-path.  MoE dispatch batches (``register_moe``) wait for ROADMAP A.4.
+path.  MoE dispatch batches (``register_moe``) run one
+``MoELayer(dispatch="exchange")`` call over the coalesced token batch.
 """
 
 from __future__ import annotations
@@ -148,12 +149,13 @@ class BatchExecutor:
         columns (:meth:`repro_torch.sparse.spmv.DistributedSpMV.matmat`)."""
         self.register(fp, sp.matmat)
 
-    def register_moe(self, fp: str, layer, params, mesh) -> None:
-        """MoE batches need ``MoELayer(dispatch="exchange")``, which is not
-        ported yet."""
-        raise NotImplementedError(
-            "BatchExecutor.register_moe needs the MoE layers, not ported yet (ROADMAP A.4)"
-        )
+    def register_moe(self, fp: str, layer, params, topo) -> None:
+        """MoE batches execute one exchange-dispatch layer call
+        (:class:`repro_torch.models.moe.MoELayer` on the stacked ranks of
+        ``topo``, the reference's mesh); coalesced requests arrive stacked on
+        the batch axis, so wider batches route more tokens through the same
+        planned exchange."""
+        self.register(fp, lambda x: layer(params, x, topo))
 
     def execute(self, batch: Batch, payload):
         handler = self._handlers.get(batch.fp)

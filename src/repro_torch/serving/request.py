@@ -86,8 +86,8 @@ class WorkloadClass:
         ``counts[s, d]`` are routed tokens per (src shard, dst shard); one
         request is one token batch, shipping ``d_model`` features per token
         (``base_width = d_model`` -- the advisor's byte terms scale with the
-        activation row, as the reference's ``launch/serve.py::dispatch_advice``
-        scales them; its port waits for ROADMAP A.4).
+        activation row, as :func:`repro_torch.launch.serve.dispatch_advice`
+        scales them).
         """
         import numpy as np
 

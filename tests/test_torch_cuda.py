@@ -398,3 +398,46 @@ def test_tiny_hymba_prefill_kernel_vs_plain(dev):
             torch.testing.assert_close(
                 cache["seg_hyb"][name][leaf], want_cache["seg_hyb"][name][leaf], rtol=1e-4, atol=1e-4
             )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_exchange_dispatch_is_bitwise_all_to_all_on_card(dev, dtype):
+    """The MoE layer's exchange dispatch on the card: bitwise its all-to-all
+    for every strategy, uniform and skewed routing; the all-to-all within
+    the kernel tolerances of the same layer on the CPU."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import MoELayer
+
+    M, cfg = 32, MoEConfig(n_experts=16, top_k=2, d_ff_expert=64)
+    rng = np.random.default_rng(8)
+    shapes = {"router": ((M, 16), 2.0), "w_in": ((16, M, 64), 0.1), "w_gate": ((16, M, 64), 0.1),
+              "w_out": ((16, 64, M), 0.1)}
+    cpu = {k: torch.as_tensor((rng.standard_normal(s) * sc).astype(np.float32)) for k, (s, sc) in shapes.items()}
+    params = {k: v.to(dev, dtype) for k, v in cpu.items()}
+    inputs = {"uniform": rng.standard_normal((8, 64, M)),
+              "skewed": rng.standard_normal((8, 64, M)) * 0.3 + rng.standard_normal(M)}
+    for name, x in inputs.items():
+        xc = torch.as_tensor(x.astype(np.float32))
+        xd = xc.to(dev, dtype)
+        base = MoELayer(M, cfg)(params, xd, TOPO)
+        assert torch.isfinite(base).all()
+        for strategy in STRATEGY_NAMES + ("auto",):
+            got = MoELayer(M, cfg, dispatch="exchange", strategy=strategy)(params, xd, TOPO)
+            assert torch.equal(got, base), (name, strategy)
+        if dtype == torch.float32:
+            torch.testing.assert_close(base.cpu(), MoELayer(M, cfg)(cpu, xc, TOPO), rtol=1e-4, atol=1e-4)
+
+
+def test_tiny_llama4_prefill_kernel_vs_plain(dev):
+    """A tiny llama4-scout prefill through B3 against the plain route on the
+    card: one launch per layer, last logits within 1e-4, greedy decode equal."""
+    from repro_torch.launch.serve import generate
+
+    model, params = build("llama4-scout-17b-a16e", "tiny", seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(0, 1024, (2, 80)), device=dev)
+    n_fa = FA.flash_attention.launches
+    got = generate(model, params, tokens, 4, impl="kernel")
+    assert FA.flash_attention.launches - n_fa == model.cfg.n_layers
+    want = generate(model, params, tokens, 4, impl="chunked")
+    torch.testing.assert_close(got["logits"][0], want["logits"][0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got["tokens"], want["tokens"])

@@ -1,8 +1,10 @@
-"""The port's LMModel against the JAX reference, for its three families.
+"""The port's LMModel against the JAX reference, for its four families.
 
 ``hymba-1.5b`` (hybrid: sliding-window GQA + Mamba-2 heads), ``stablelm-3b``
-(dense) and ``mamba2-780m`` (ssm), each shrunk as in ``tests/test_models.py``,
-in float32.  The reference's parameters (``LMModel.init``) are carried over
+(dense), ``mamba2-780m`` (ssm) and ``llama4-scout-17b-a16e`` (moe: 4
+experts, top-2, one shared expert, at the reference tests' capacity factor
+8, so that no assignment is dropped and decode equals the full forward),
+each shrunk as in ``tests/test_models.py``, in float32.  The reference's parameters (``LMModel.init``) are carried over
 with ``from_reference``; the port runs with ``impl="kernel"`` on the CPU
 (the plain versions of B3 and B4), the reference with ``impl="pallas"``
 (Pallas in interpret mode).  The hymba prompt (12) is longer than its window
@@ -30,7 +32,7 @@ from repro_torch.models.convert import from_reference
 from repro_torch.models.lm import LMModel
 from repro_torch.models.sharding import tree_items
 
-ARCHS = ["hymba-1.5b", "stablelm-3b", "mamba2-780m"]
+ARCHS = ["hymba-1.5b", "stablelm-3b", "mamba2-780m", "llama4-scout-17b-a16e"]
 B, S, EXTRA = 2, 12, 3
 TOL = 1e-4
 
@@ -40,6 +42,11 @@ def shrink(cfg, dtype="float32"):
         n_layers=2, d_model=64, d_ff=128 if cfg.d_ff else 0, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16, vocab_size=256, dtype=dtype,
     )
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=2, d_ff_expert=32, capacity_factor=8.0,
+            first_dense_layers=min(cfg.moe.first_dense_layers, 1),
+        )
     if cfg.ssm:
         kw["ssm"] = dataclasses.replace(cfg.ssm, state_dim=8, head_dim=8, chunk=8)
     if cfg.window:
@@ -140,9 +147,7 @@ def test_from_reference_rejects_missing_extra_and_misshapen(pair):
         assert {half[seg]["ssm"][k].dtype for k in ("a_log", "dt_bias", "d_skip")} == {torch.float32}
 
 
-@pytest.mark.parametrize(
-    "arch", ["deepseek-v2-lite-16b", "llama4-scout-17b-a16e", "llama-3.2-vision-90b", "whisper-large-v3"]
-)
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama-3.2-vision-90b", "whisper-large-v3"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
         LMModel(get_config(arch))

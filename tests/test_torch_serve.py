@@ -3,9 +3,11 @@
 At the ``tiny`` preset its greedy tokens equal those of the reference
 launcher's prefill + decode loop (``src/repro/launch/serve.py``) on the same
 weights, carried over with ``from_reference``; the prompt (40) is longer than
-the tiny window (32).  The families and flags the port does not run yet
-raise ``NotImplementedError``, and without ``--device`` the entry point needs
-a CUDA device.
+the tiny window (32).  For llama4-scout (MoE) the same holds, and the
+measured routing counts, the dispatch advice, the serving simulation's
+report and the chaos storm's trace hash equal the reference launcher's.
+The families the port does not run yet raise ``NotImplementedError``, and
+without ``--device`` the entry point needs a CUDA device.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_config
+from repro.launch import serve as ref_serve
 from repro.launch.train import PRESETS as REF_PRESETS
 from repro.models import LMModel as RefModel
 from repro_torch.launch import serve
@@ -94,18 +97,110 @@ def test_main_runs_on_the_cpu_when_asked(capsys):
     "argv",
     [
         ["--arch", "deepseek-v2-lite-16b"],
-        ["--arch", "llama4-scout-17b-a16e"],
         ["--arch", "llama-3.2-vision-90b"],
         ["--arch", "whisper-large-v3"],
-        ["--advise-dispatch"],
-        ["--simulate-serving", "8"],
-        ["--chaos", "1"],
     ],
-    ids=["mla-moe", "moe", "vlm", "enc-dec", "advise-dispatch", "simulate-serving", "chaos"],
+    ids=["mla-moe", "vlm", "enc-dec"],
 )
 def test_unported_families_and_flags_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         serve.main(argv + ["--preset", "tiny", "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# llama4-scout (MoE): serving, routing counts, advice, simulation, chaos
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "llama4-scout-17b-a16e"
+
+
+@pytest.fixture(scope="module")
+def moe_reference():
+    """The reference launcher's tiny llama4-scout serve and its dispatch
+    reports, on weights that the port then carries over."""
+    ref = RefModel(REF_PRESETS["tiny"](ref_config(MOE_ARCH)))
+    params = jax.jit(ref.init)(jax.random.PRNGKey(0))
+    prompts = serve.make_prompts(ref.cfg.vocab_size, BATCH, PROMPT, seed=0)
+    tokens = _reference_greedy(ref, params, jnp.asarray(prompts, jnp.int32), GEN)
+    served = np.concatenate([prompts, tokens], axis=1)
+    reports = {}
+    for npods, ppn in ((2, 4), (1, 3)):  # 3 ranks: batch rows not divisible
+        counts, advice = ref_serve.dispatch_advice(params, ref.cfg, served, npods, ppn)
+        reports[npods, ppn] = (counts, advice)
+    return jax.tree.map(np.asarray, params), prompts, tokens, ref.cfg, reports
+
+
+def _moe_port(moe_reference):
+    params, *_ = moe_reference
+    model = serve.LMModel(PRESETS["tiny"](serve.get_config(MOE_ARCH)))
+    return model, from_reference(model, params, device="cpu")
+
+
+def test_tiny_llama4_greedy_tokens_match_reference(moe_reference):
+    _, prompts, want, *_ = moe_reference
+    model, tparams = _moe_port(moe_reference)
+    out = serve.generate(model, tparams, torch.as_tensor(prompts), GEN, impl="kernel")
+    np.testing.assert_array_equal(out["tokens"].numpy(), want)
+
+
+@pytest.mark.parametrize("ranks", [(2, 4), (1, 3)], ids=["2x4", "1x3"])
+def test_routing_counts_and_advice_match_reference(moe_reference, ranks):
+    _, prompts, tokens, ref_cfg, reports = moe_reference
+    model, tparams = _moe_port(moe_reference)
+    served = np.concatenate([prompts, tokens], axis=1)
+    want_counts, want_advice = reports[ranks]
+    counts = serve.routing_counts(tparams, model.cfg, torch.as_tensor(served), ranks[0] * ranks[1])
+    assert counts.dtype == want_counts.dtype
+    np.testing.assert_array_equal(counts, want_counts)
+    counts, advice = serve.dispatch_advice(tparams, model.cfg, served, *ranks)
+    assert [(r.key, r.predicted_time) for r in advice.ranked] == [
+        (r.key, r.predicted_time) for r in want_advice.ranked]
+    assert advice.table() == want_advice.table()
+    with pytest.raises(ValueError, match="MoE arch"):
+        serve.routing_counts(tparams, PRESETS["tiny"](serve.get_config("stablelm-3b")), served, 8)
+
+
+def test_simulate_serving_and_chaos_match_reference(moe_reference, capsys):
+    from repro.comm.faults import FaultPlan as RefFaultPlan
+    from repro.comm.faults import FaultSpec as RefFaultSpec
+    from repro.serving import SimConfig as RefSimConfig
+    from repro.serving import WorkloadClass as RefWorkloadClass
+    from repro.serving import serving_report as ref_serving_report
+    from repro.serving import simulate as ref_simulate
+    from repro.testing import make_trace as ref_make_trace
+
+    ref_cfg = moe_reference[3]
+    out = serve.main(["--arch", MOE_ARCH, "--preset", "tiny", "--device", "cpu", "--batch", str(BATCH),
+                      "--prompt-len", str(PROMPT), "--gen", str(GEN), "--advise-dispatch",
+                      "--simulate-serving", "8", "--chaos", "1"])
+    printed = capsys.readouterr().out
+    assert "dispatch advice (2 pods x 4" in printed and "chaos storm (seed 1)" in printed
+    got = out["dispatch"]
+    # the reference launcher's reports on the same weights and served tokens
+    _, params = serve.build(MOE_ARCH, "tiny", seed=0, device="cpu")
+    numpy_params = {"embed": params["embed"].numpy(),
+                    "seg_moe": {"moe": {"router": params["seg_moe"]["moe"]["router"].numpy()}}}
+    served = np.concatenate([serve.make_prompts(ref_cfg.vocab_size, BATCH, PROMPT, 0), out["tokens"].numpy()], 1)
+    counts, advice = ref_serve.dispatch_advice(numpy_params, ref_cfg, served, 2, 4)
+    np.testing.assert_array_equal(got["counts"], counts)
+    assert got["advice"].table() == advice.table()
+    cls = RefWorkloadClass.from_routing(counts, ppn=4, d_model=ref_cfg.d_model, fp="moe")
+    trace = ref_make_trace(0, 8, ["moe"], pattern="burst", rate=400, kinds={"moe": "moe"})
+    assert got["report"] == ref_serving_report({"moe": cls}, trace, RefSimConfig(max_width=8))
+    plan = RefFaultPlan(seed=1, specs=(RefFaultSpec(kind="perturb", prob=0.25, frac=0.1),
+                                       RefFaultSpec(kind="slow", prob=0.1, delay_s=2e-3)))
+    storm = ref_simulate({"moe": cls}, trace, RefSimConfig(max_width=8, chaos=plan, deadline_s=0.05))
+    assert got["storm"].trace_hash == storm.trace_hash
+    assert (got["storm"].completed, got["storm"].fault_events, got["storm"].recoveries) == (
+        storm.completed, storm.fault_events, storm.recoveries)
+
+
+def test_advise_dispatch_needs_a_moe_arch_and_layers_cut_depth():
+    with pytest.raises(ValueError, match="MoE arch"):
+        serve.main(["--arch", "stablelm-3b", "--preset", "tiny", "--device", "cpu", "--gen", "2",
+                    "--advise-dispatch"])
+    model, params = serve.build(MOE_ARCH, "tiny", device="cpu", layers=1)
+    assert model.cfg.n_layers == 1 and params["seg_moe"]["moe"]["w_in"].shape[0] == 1
 
 
 def test_entry_point_needs_a_card_without_device():

@@ -344,6 +344,49 @@ def test_run_schedule_drains_a_simulated_schedule_through_matmat():
     assert ex.executed == len(outcomes) and ex.shed_batches == 0
 
 
+def test_register_moe_drains_a_simulated_moe_schedule():
+    """MoE dispatch batches: the simulator coalesces requests of a measured
+    routing class, each request a token batch of one row per rank; the
+    executor runs each coalesced batch (requests stacked on the batch axis)
+    through one exchange-dispatch ``MoELayer`` call, bitwise the all-to-all
+    layer on the same stacked payload."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import MoELayer
+
+    M, S = 16, 4
+    cfg = MoEConfig(n_experts=16, top_k=2, d_ff_expert=32)
+    rng = np.random.default_rng(7)
+    params = {k: torch.as_tensor((rng.standard_normal(shape) * sc).astype(np.float32))
+              for k, shape, sc in (("router", (M, 16), 2.0), ("w_in", (16, M, 32), 0.1),
+                                   ("w_gate", (16, M, 32), 0.1), ("w_out", (16, 32, M), 0.1))}
+    counts = rng.integers(0, 12, size=(TOPO.nranks, TOPO.nranks))
+    classes = {"moe": WorkloadClass.from_routing(counts, ppn=TOPO.ppn, d_model=M, fp="moe")}
+    trace = make_trace(3, 24, ["moe"], pattern="poisson", rate=2000.0, kinds={"moe": "moe"})
+    res = simulate(classes, trace, SimConfig(max_width=8))
+    layer = MoELayer(M, cfg, dispatch="exchange", strategy="two_step")
+    base = MoELayer(M, cfg)
+    ex = BatchExecutor()
+    ex.register_moe("moe", layer, params, TOPO)
+    by_rid = {r.rid: r for r in trace}
+    batches, payloads = [], []
+    for ev in res.events:
+        if ev[0] != "dispatch":
+            continue
+        _, _, fp, width, key, rids = ev
+        batches.append(Batch(fp=fp, requests=tuple(by_rid[r] for r in rids), payload_width=width,
+                             resident_bytes=classes[fp].bytes_per_request * width, strategy="two_step",
+                             wire="none", key=key, predicted_time=0.0, kind="moe"))
+        payloads.append(torch.as_tensor(
+            rng.standard_normal((width * TOPO.nranks, S, M)).astype(np.float32)))
+    outcomes = ex.run_schedule(batches, payloads)
+    assert len(outcomes) == res.batches and all(o.ok and o.recovery is None for o in outcomes)
+    assert sum(o.batch.width for o in outcomes) == res.completed == 24
+    assert len({o.batch.width for o in outcomes}) > 1  # widths differ: several capacities
+    for o, x in zip(outcomes, payloads):
+        assert torch.equal(o.value, base(params, x, TOPO))
+    assert layer.dispatcher.histogram.updates == len(outcomes) and ex.executed == len(outcomes)
+
+
 def _exchange_fixture():
     rng = np.random.default_rng(0)
     pats = {f"t{i}": random_pattern(np.random.default_rng(40 + i), TOPO, local_size=16, max_elems=4)
@@ -471,8 +514,6 @@ def test_resilient_drain(case):
 def test_executor_entry_points_that_wait_or_need_the_card():
     _, part = _spmv_case()
     op = DistributedSpMV(part, strategy="two_step", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        BatchExecutor().register_moe("m", None, None, None)
     with pytest.raises(ValueError, match="times the card"):
         measure_spmv_replay(op, 4, 2, np.random.default_rng(0))
     with pytest.raises(ValueError, match=">= 1"):
