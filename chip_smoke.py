@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA GPU
 
-Seven paths, each driven with the kernels' launch counts set to 0 just
+These paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * the paper's case study at a real size: the 5-point stencil
@@ -24,7 +24,19 @@ before it and read just after:
   heads of 128, 16 experts top-1 of d_ff 8192 and a shared expert), 8 of
   its 48 layers (19,685,790,720 parameters, bf16), batch 4 x 4096, 32
   greedy tokens; kernel B3 at head width 128 (the MoE layers are GEMMs and
-  index moves, as in the reference).
+  index moves, as in the reference);
+* MLA serving: deepseek-v2-lite-16b whole (27 layers, MLA with q/k heads
+  192 wide and v heads 128 over 16 heads, 64 experts top-6 and 2 shared,
+  15,647,895,040 parameters, bf16), batch 4 x 4096, 32 greedy tokens;
+  kernel B3 at the pair (192, 128);
+* encoder-decoder serving: whisper-large-v3 whole (32 encoder + 32 decoder
+  layers, d_model 1280, 20 heads of 64), batch 16, 1500 stub frames,
+  prompts of 192 tokens, 32 greedy tokens; kernel B3 in the encoder
+  (non-causal), the decoder's self- and cross-attention;
+* VLM serving: llama-3.2-vision-90b at full width (d_model 8192, 64/8 heads
+  of 128, d_ff 28672, 1600 stub image tokens), 20 of its 100 layers (16
+  self + 4 cross, 19,281,551,360 parameters), batch 4 x 2048, 16 greedy
+  tokens; kernel B3 in self- and cross-attention.
 
 Phases, each of which fails the run on any error:
 
@@ -54,9 +66,13 @@ Phases, each of which fails the run on any error:
    (80, 128), stablelm-3b's and llama4-scout's at their serve phases'
    shapes too, against their plain versions (B3 against the plain version
    in float32 on the same inputs); kernel, plain and library (``scaled_dot_product_attention``;
-   none for the SSD) times and the bound, B3's at both serve phases' shapes;
-   B3 beside SDPA at D = 128, S = 4096, causal; at hymba's shapes (D = 64)
-   the wgmma kernel beside the mma.sync kernel of the other widths;
+   none for the SSD) times and the bound, B3's at every shape a serve
+   phase gives it (hymba's, stablelm-3b's, llama4-scout's; MLA's q/k 192 /
+   v 128; whisper's encoder, decoder self- and cross-attention; the vlm's
+   self- and cross-attention), beside SDPA on its fastest backend that
+   takes the shapes; B3 beside SDPA at D = 128, S = 4096, causal; at hymba's
+   shapes (D = 64) the wgmma kernel beside the mma.sync kernel of the other
+   widths;
 10. the serving path: in float32, the kernel route against the plain route
    (prefill logits, greedy tokens) and decode against the full forward;
    then the bfloat16 run, its prefill and decode times, peak memory, and the
@@ -78,7 +94,16 @@ Phases, each of which fails the run on any error:
    its times, memory, capacity drops, decode busy share and prefill device
    time by class, and the dispatch advice, serving simulation and chaos
    storm on the served tokens;
-14. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
+14.-16. this slice's serving paths (``serve_mla``, ``serve_whisper``,
+   ``serve_vlm``): in float32 at a small depth (deepseek 2 layers at 2 x
+   1024 with a capacity factor at which nothing drops, whisper 4 + 4 layers
+   at 4 x 192, the vlm 4 + 1 layers at 2 x 512) the kernel route against the
+   plain route and decode against the full forward; then the bfloat16 main
+   path, B3 launched once per attention in the prefill (27, 96, 20), each
+   launch at a shape phase 9 checked and timed, and never in decode, finite
+   logits, times, peak memory, capacity drops
+   (deepseek), the decode busy share and the prefill's device time by class;
+17. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
    on the case study): against the host loops (iterations, status, matvecs,
    histories within 1e-10, true residual), one fused-cache miss then a hit,
    graph replay bitwise the eager body, histories bitwise across strategies
@@ -90,9 +115,11 @@ Phases, each of which fails the run on any error:
    times the replays, held to the profiler's count of B1 kernels in a
    profiled solve); last, because after it ``torch.profiler`` records no
    device activity in this process;
-15. one JSON line of the kernels (B3 twice: at hymba's shapes and at
-    llama4-scout's), the card's name and power limit, and the device line
-    last.
+18. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
+    llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
+    and cross-attention, and at the vlm's self- and cross-attention; each
+    B3 entry's launches are its main path's launches at that shape), the
+    card's name and power limit, and the device line last.
 
 Without a CUDA device, or without the rest of the checkout beside it, it
 exits non-zero and prints no result.  Details go to
@@ -153,6 +180,26 @@ MOE_SIM_REQUESTS, MOE_SIM_SEQ = 24, 64
 #: the reference's acceptance number for the exchange cache under a
 #: jittered skewed stream (tests/test_moe_dispatch.py)
 MOE_HIT_RATE = 0.9
+
+#: this slice's serving paths, at full width: deepseek-v2-lite-16b whole (MLA
+#: q/k 192 / v 128 over 16 heads + 64 experts top-6 and 2 shared, 27 layers,
+#: 31.3 GB in bf16); whisper-large-v3 whole (32 encoder + 32 decoder layers,
+#: 1500 frames, 192-token prompts + 32 tokens within its 448 text positions);
+#: llama-3.2-vision-90b at 20 of its 100 layers (16 self + 4 cross over 1600
+#: image tokens, 38.6 GB in bf16; all 100 are 175.5 GB).  Each has a float32
+#: check at a small depth first: deepseek's at a capacity factor of 11 (at
+#: least experts / top_k, so no expert can overflow and decode must equal
+#: the full forward)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 4, 4096, 32
+MLA_CHECK = {"layers": 2, "batch": 2, "prompt": 1024, "gen": 8, "capacity_factor": 11.0}
+WH_ARCH = "whisper-large-v3"
+WH_BATCH, WH_PROMPT, WH_GEN = 16, 192, 32
+WH_CHECK = {"layers": 4, "encoder_layers": 4, "batch": 4, "prompt": 192, "gen": 8}
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 20
+VLM_BATCH, VLM_PROMPT, VLM_GEN = 4, 2048, 16
+VLM_CHECK = {"layers": 5, "batch": 2, "prompt": 512, "gen": 8}
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 #: and dense bf16 tensor-core FLOP/s
@@ -1362,6 +1409,75 @@ def phase_serving(ctx) -> None:
         raise AssertionError("serving phase failed: " + ", ".join(failures))
 
 
+def serve_b3_shapes() -> dict:
+    """kernels-line name -> (serve phase, q, k, v shapes, causal, window):
+    every shape at which this slice's serve phases launch B3 on their main
+    paths, from the configs -- MLA's prefill attention; whisper's encoder
+    (non-causal over the frames), decoder self-attention and cross-attention
+    over the frames; the vlm's self-attention and cross-attention over the
+    image tokens."""
+    from repro_torch.configs import get_config
+
+    def heads(b, sq, sk, h, kv, d, dv=None):
+        return (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, dv or d)
+
+    mla, wh, vl = get_config(MLA_ARCH), get_config(WH_ARCH), get_config(VLM_ARCH)
+    m, frames = mla.mla, wh.encoder.context
+    mla_heads = (mla.n_heads, mla.n_heads, m.nope_head_dim + m.rope_head_dim, m.v_head_dim)
+    wh_heads = (wh.n_heads, wh.n_kv_heads, wh.resolved_head_dim)
+    vl_heads = (vl.n_heads, vl.n_kv_heads, vl.resolved_head_dim)
+    return {
+        "flash_attention_mla": ("serve_mla", *heads(MLA_BATCH, MLA_PROMPT, MLA_PROMPT, *mla_heads), True, mla.window),
+        "flash_attention_whisper_encoder": ("serve_whisper", *heads(WH_BATCH, frames, frames, *wh_heads), False,
+                                            wh.window),
+        "flash_attention_whisper_self": ("serve_whisper", *heads(WH_BATCH, WH_PROMPT, WH_PROMPT, *wh_heads), True,
+                                         wh.window),
+        "flash_attention_whisper_cross": ("serve_whisper", *heads(WH_BATCH, WH_PROMPT, frames, *wh_heads), False,
+                                          wh.window),
+        "flash_attention_vlm_self": ("serve_vlm", *heads(VLM_BATCH, VLM_PROMPT, VLM_PROMPT, *vl_heads), True,
+                                     vl.window),
+        "flash_attention_vlm_cross": ("serve_vlm", *heads(VLM_BATCH, VLM_PROMPT, vl.cross_context, *vl_heads), False,
+                                      vl.window),
+    }
+
+
+def sdpa_backends(q, k, v, causal: bool, window=None) -> dict:
+    """backend -> ``scaled_dot_product_attention`` on ``q [B,Sq,H,Dqk]``,
+    ``k``, ``v`` (a window, or causal with Sq != Sk, as a boolean mask)
+    pinned to that backend, for each fused backend (flash, cuDNN,
+    memory-efficient) that takes the shapes, dtype and mask; the math
+    backend only where none does."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    Sq, Sk, mask = q.shape[1], k.shape[1], None
+    if window or (causal and Sq != Sk):  # is_causal would put query 0 at key 0
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        mask = (kpos <= qpos) | (not causal)
+        if window:
+            mask &= kpos > qpos - window
+    fns = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.MATH):
+        if backend == SDPBackend.MATH and fns:
+            break
+
+        def fn(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                                                      enable_gqa=True)
+
+        try:
+            fn()
+        except RuntimeError:
+            continue
+        fns[backend.name.lower()] = fn
+    return fns
+
+
 def phase_lm_kernels(ctx) -> None:
     """B3 and B4 at the serving path's shapes (and a few others) against
     their plain versions; times of kernel, plain version and library call."""
@@ -1400,99 +1516,89 @@ def phase_lm_kernels(ctx) -> None:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
         return err
 
-    # ---- B3: the path's shapes, then ragged S, Sq < Sk, non-causal, no
-    # window; then the head widths of the other served configs: stablelm-3b's
-    # 80 over 32/32 heads at its serve phase's shapes, and with qwen3-32b's
-    # 128 over 64/8 each with a ragged S and a window edge inside a 64-key tile
+    # ---- B3 at every shape a serving path gives it, each timed beside its
+    # plain version, SDPA and the bound; then, checked only, ragged S,
+    # Sq < Sk, non-causal, no window, and stablelm-3b's 80 over 32/32 heads
+    # and qwen3-32b's 128 over 64/8, each with a ragged S and a window edge
+    # inside a 64-key tile
+    def heads(b, sq, sk, h, kv, d):
+        return (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)
+
     slm = get_config(SLM_ARCH)
     slm_heads = (slm.n_heads, slm.n_kv_heads, slm.resolved_head_dim)
     moe = get_config(MOE_ARCH)
     moe_heads = (moe.n_heads, moe.n_kv_heads, moe.resolved_head_dim)
-    paths = {  # tag: (batch, S, heads, kv heads, D, window), timed below
-        "path": (B, S, H, KV, D, W),
-        "stablelm-3b path": (SLM_BATCH, SLM_PROMPT, *slm_heads, slm.window),
-        "llama4-scout path": (MOE_BATCH, MOE_PROMPT, *moe_heads, moe.window),
-    }
-    attn_cases = [
-        ("path", B, S, S, H, KV, D, True, W),
-        ("ragged S=1000 window=300", 2, 1000, 1000, H, KV, D, True, 300),
-        ("Sq=100 < Sk=1000", 2, 100, 1000, H, KV, D, True, 256),
-        ("non-causal S=600", 2, 600, 600, H, KV, D, False, None),
-        ("causal no window S=1000", 2, 1000, 1000, H, KV, D, True, None),
-        ("stablelm-3b path", SLM_BATCH, SLM_PROMPT, SLM_PROMPT, *slm_heads, True, slm.window),
-        ("stablelm-3b heads ragged S=1000 window=300", 2, 1000, 1000, *slm_heads, True, 300),
-        ("llama4-scout path", MOE_BATCH, MOE_PROMPT, MOE_PROMPT, *moe_heads, True, moe.window),
-        ("qwen3-32b heads ragged S=1000 window=300", 2, 1000, 1000, 64, 8, 128, True, 300),
+    attn_cases = [  # tag, q, k, v shapes, causal, window
+        ("path", *heads(B, S, S, H, KV, D), True, W),
+        ("ragged S=1000 window=300", *heads(2, 1000, 1000, H, KV, D), True, 300),
+        ("Sq=100 < Sk=1000", *heads(2, 100, 1000, H, KV, D), True, 256),
+        ("non-causal S=600", *heads(2, 600, 600, H, KV, D), False, None),
+        ("causal no window S=1000", *heads(2, 1000, 1000, H, KV, D), True, None),
+        ("stablelm-3b path", *heads(SLM_BATCH, SLM_PROMPT, SLM_PROMPT, *slm_heads), True, slm.window),
+        ("stablelm-3b heads ragged S=1000 window=300", *heads(2, 1000, 1000, *slm_heads), True, 300),
+        ("llama4-scout path", *heads(MOE_BATCH, MOE_PROMPT, MOE_PROMPT, *moe_heads), True, moe.window),
+        ("qwen3-32b heads ragged S=1000 window=300", *heads(2, 1000, 1000, 64, 8, 128), True, 300),
     ]
-    path_err = {}
-    for tag, b, sq, sk, h, kv, d, causal, win in attn_cases:
-        q32, k32, v32 = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
-        for dtype, tol in ((torch.float32, TOL_ATTN_F32), (torch.bfloat16, TOL_ATTN_BF16)):
-            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-            got = FA.flash_attention(q, k, v, causal=causal, window=win)
-            if got.dtype != dtype:
-                raise AssertionError(f"flash_attention returned {got.dtype} for {dtype} inputs")
-            err = check(
-                f"flash_attention {tag} [{b},{sq},{h},{d}]/[{b},{sk},{kv},{d}] {dtype}".replace("torch.", ""),
-                got, FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win), tol,
-            )
-            if tag in paths:
-                path_err[tag, dtype] = err
-        del q32, k32, v32, q, k, v
-        torch.cuda.empty_cache()
-
-    # ---- B3's time at each path's shapes beside its plain version, SDPA
-    # (masked for a window, else is_causal) and the bound
+    # tag -> its kernels-line name (None: timed, not in the line)
+    timed = {"path": "flash_attention", "stablelm-3b path": None, "llama4-scout path": "flash_attention_d128"}
+    for line, (phase, *case) in serve_b3_shapes().items():
+        tag = f"{phase} {line.removeprefix('flash_attention_')}"
+        attn_cases.append((tag, *case))
+        timed[tag] = line
     timer = Timer(torch)
     timings = ctx.setdefault("timings", {})
-    for tag, (b, s, h, kv, d, win) in paths.items():
-        q32, k32, v32 = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d)
-        pairs = attention_pairs(s, s, True, win) * b * h
-        mask = None
-        if win:
-            mask = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
-            mask &= ~torch.ones((s, s), dtype=torch.bool, device="cuda").tril(-win)
-        for dtype, peak in ((torch.bfloat16, BF16_TENSOR_FLOPS), (torch.float32, FP32_FLOPS)):
+    for tag, qs, ks, vs, causal, win in attn_cases:
+        q32, k32, v32 = randn(*qs), randn(*ks), randn(*vs)
+        for dtype, tol, peak in ((torch.float32, TOL_ATTN_F32, FP32_FLOPS),
+                                 (torch.bfloat16, TOL_ATTN_BF16, BF16_TENSOR_FLOPS)):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-
-            def lib():
-                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                                                      enable_gqa=True)
+            name = f"flash_attention {tag} {list(qs)}/{list(ks)}/{list(vs)} {dtype}".replace("torch.", "")
 
             def kern():
-                return FA.flash_attention(q, k, v, causal=True, window=win)
+                return FA.flash_attention(q, k, v, causal=causal, window=win)
 
-            tol = TOL_ATTN_F32 if dtype == torch.float32 else TOL_SDPA_BF16
-            check(f"sdpa yardstick vs kernel {tag} {dtype}".replace("torch.", ""), lib().transpose(1, 2),
-                  kern(), tol)
-            nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-            b_ms, b_by = bound(nbytes, 4 * d * pairs, peak)
+            got = kern()
+            if got.dtype != dtype or got.shape != (*qs[:3], vs[3]):
+                raise AssertionError(f"{name}: returned {got.dtype} {tuple(got.shape)}")
+            err = check(name, got, FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win), tol)
+            del got
+            if tag not in timed:
+                continue
+            # the library call: SDPA on its fastest backend that takes the inputs
+            libs = sdpa_backends(q, k, v, causal, win)
+            lib_ms = {backend: timer(fn) for backend, fn in libs.items()}
+            backend = min(lib_ms, key=lib_ms.get) if lib_ms else None
+            if backend is not None:
+                check(f"sdpa ({backend}) yardstick vs kernel {tag} {dtype}".replace("torch.", ""),
+                      libs[backend]().transpose(1, 2), kern(),
+                      TOL_ATTN_F32 if dtype == torch.float32 else TOL_SDPA_BF16)
+            pairs = attention_pairs(qs[1], ks[1], causal, win) * qs[0] * qs[2]
+            nbytes = q.nbytes + k.nbytes + v.nbytes + q.nbytes // qs[3] * vs[3]
+            b_ms, b_by = bound(nbytes, 2 * (qs[3] + vs[3]) * pairs, peak)
             t = {
                 "name": "flash_attention",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:72",
                 "path": tag,
-                "shape": [[b, s, h, d], [b, s, kv, d]],
+                "shape": [list(qs), list(ks), list(vs)],
                 "dtype": str(dtype).replace("torch.", ""),
+                "causal": causal,
                 "window": win,
                 "ms": timer(kern),
-                "plain_ms": timer(lambda: FA.attention_ref(q, k, v, causal=True, window=win)),
-                "library_ms": timer(lib),
+                "plain_ms": timer(lambda: FA.attention_ref(q, k, v, causal=causal, window=win)),
+                "library_ms": lib_ms.get(backend),
+                "library": f"scaled_dot_product_attention ({backend})" if backend else "none",
+                "library_ms_by_backend": lib_ms,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
-                "max_abs_err": path_err[tag, dtype],
+                "max_abs_err": err,
                 "visible_pairs": pairs,
             }
             log(f"[lm_kernels] flash_attention {tag} {t['dtype']}: " + json.dumps(t))
             ctx["details"].setdefault("lm_kernel_timings", []).append(t)
-            if dtype == torch.bfloat16:  # the dtype the serving paths run
-                if tag == "path":
-                    timings["flash_attention"] = t
-                elif tag == "llama4-scout path":
-                    timings["flash_attention_d128"] = t
-            del q, k, v, qt, kt, vt
-        del q32, k32, v32, mask
+            if dtype == torch.bfloat16 and timed[tag]:  # the dtype the serving paths run
+                timings[timed[tag]] = t
+        del q32, k32, v32, q, k, v
         torch.cuda.empty_cache()
 
     # ---- why B3 keeps two bf16 kernels: at hymba's path shapes (D = 64) the
@@ -1723,7 +1829,7 @@ def phase_serve_stablelm(ctx) -> None:
     finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
     summary = {
         "arch": SLM_ARCH, "parameters": model.param_count(), "layers": L,
-        "head_dim": model.attention_head_dim, "batch": B, "prompt": S, "gen": G,
+        "head_pairs": sorted(model.attention_head_pairs), "batch": B, "prompt": S, "gen": G,
         "prefill_ms": out["prefill_s"] * 1e3, "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
         "launches": launches, "tokens": out["tokens"].tolist(),
     }
@@ -2033,11 +2139,230 @@ def phase_serve_moe(ctx) -> None:
     ctx.setdefault("launches", {})["flash_attention_d128"] = launches
 
 
+def _check_config(arch: str, check: dict):
+    """The float32 full-width config of ``arch`` at ``check``'s depth (and the
+    encoder's depth and the MoE capacity factor it names)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", n_layers=check["layers"])
+    if "encoder_layers" in check:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, n_layers=check["encoder_layers"]))
+    if "capacity_factor" in check:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=check["capacity_factor"]))
+    return cfg
+
+
+def _b3_per_prefill(model) -> int:
+    """B3 launches one kernel-route prefill makes: one per self / MLA /
+    cross attention of every decoder and encoder layer."""
+    return sum(s.count * (bool(s.block.self_attn) + bool(s.block.mla) + bool(s.block.cross))
+               for s in model.segments + model.enc_segments)
+
+
+def _moe_tally(model):
+    moe = [s.block.moe for s in model.segments if s.block.moe is not None]
+    return moe[0].tally if moe else None
+
+
+def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen: int, check: dict) -> None:
+    """One of this slice's serving paths through the port's serving entry
+    point (``build``'s model at full width and ``layers`` deep, or whole where
+    that is ``None``; ``make_context``; ``generate``):
+
+    1. float32 at ``check``'s depth: the kernel route against the plain
+       route (every step's logits within 1e-3 of the largest and the greedy
+       tokens equal up to the first top-2 gap under that), B3 launched once
+       per attention of the prefill and never in decode, and decode against
+       the full forward over the same tokens within 5e-2;
+    2. the bfloat16 main path at ``layers`` (counts reset just before, read
+       just after): B3 launches per prefill and none in decode, each at a
+       shape of :func:`serve_b3_shapes` (which ``lm_kernels`` checked and
+       timed), finite logits, its times, peak memory, capacity drops where it has MoE
+       layers, the decode busy share over ten steps and the prefill's
+       device time by class.
+    """
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build, generate, make_context, rehome_cache
+    from repro_torch.models.lm import LMModel
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+
+    def inputs(model, b, s):
+        p, c = make_context(model.cfg.vocab_size, b, s, model.ctx_len(), model.cfg.d_model, SEED)
+        return torch.as_tensor(p, device=dev), None if c is None else torch.as_tensor(c, device=dev)
+
+    # ---- float32 at a small depth: kernel route vs plain route, decode vs apply ----
+    cfg = _check_config(arch, check)
+    model = LMModel(cfg)
+    p32 = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    B, S, G = check["batch"], check["prompt"], check["gen"]
+    prompts, cx = inputs(model, B, S)
+    tally = _moe_tally(model)
+    if tally is not None:
+        tally.reset()
+    FA.flash_attention.launches = 0
+    k_out = generate(model, p32, prompts, G, impl="kernel", ctx=cx)
+    f32_launches = FA.flash_attention.launches
+    f32_drops = int(tally.read()["dropped"]) if tally is not None else 0
+    c_out = generate(model, p32, prompts, G, impl="chunked", ctx=cx)
+    scale = k_out["logits"][0].abs().max().item()
+    tol_abs = TOL_LOGITS * scale
+    logit_err, compared, tokens_ok = 0.0, 0, True
+    for t in range(G):  # every step's logits up to the first top-2 gap under tol
+        gap = min(float(torch.topk(out["logits"][t], 2).values.diff().abs().min()) for out in (k_out, c_out))
+        logit_err = max(logit_err, (k_out["logits"][t] - c_out["logits"][t]).abs().max().item())
+        if not torch.equal(k_out["tokens"][:, t], c_out["tokens"][:, t]):
+            tokens_ok = gap < tol_abs  # a flip only where the top two are within tol
+            break
+        compared += 1
+        if gap < tol_abs:
+            break
+    with torch.inference_mode():
+        full = model.apply(p32, torch.cat([prompts, k_out["tokens"][:, :3]], dim=1), cx, impl="kernel")
+    decode_err = max((k_out["logits"][t + 1] - full[:, S + t].float()).abs().max().item() for t in range(3))
+    decode_ok = all(torch.allclose(k_out["logits"][t + 1], full[:, S + t].float(), rtol=TOL_DECODE, atol=TOL_DECODE)
+                    for t in range(3))
+    f32 = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
+           "batch": [B, S], "ctx_len": model.ctx_len(), "gen": G, "launches": f32_launches,
+           "launches_expected": _b3_per_prefill(model), "dropped": f32_drops,
+           "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+           "max_abs_logit": scale, "logits_rel_err": logit_err / scale, "steps_compared": compared,
+           "tokens_equal": tokens_ok, "decode_vs_apply_max_abs_err": decode_err, "decode_vs_apply_ok": decode_ok,
+           "finite": all(bool(torch.isfinite(lg).all()) for out in (k_out, c_out) for lg in out["logits"])}
+    log(f"[{tag}] float32 check: " + json.dumps(f32))
+    del model, p32, k_out, c_out, full, prompts, cx
+    torch.cuda.empty_cache()
+
+    # ---- bfloat16: the main path, counts reset just before, read just after ----
+    model, p16 = build(arch, "full", seed=SEED, device=dev, dtype=torch.bfloat16, layers=layers)
+    cfg = model.cfg
+    L = cfg.n_layers
+    expected = _b3_per_prefill(model)
+    prompts, cx = inputs(model, batch, prompt)
+    summary = {"arch": arch, "parameters": model.param_count(), "layers": L,
+               "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0, "ctx_len": model.ctx_len(),
+               "head_pairs": sorted(model.attention_head_pairs), "batch": batch, "prompt": prompt, "gen": gen,
+               "float32": f32}
+    log(f"[{tag}] {arch}: {summary['parameters']:,} parameters, {L} layers "
+        f"(+{summary['encoder_layers']} encoder), batch {batch}, prompt {prompt}, context {model.ctx_len()}, "
+        f"{gen} greedy tokens")
+    generate(model, p16, prompts[:, :256], 2, impl="kernel", ctx=cx)  # warm: cuBLAS handles, allocator
+    tally = _moe_tally(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if tally is not None:
+        tally.reset()
+    FA.flash_attention.launches = 0
+    FA.flash_attention.by_shape.clear()
+    out = generate(model, p16, prompts, gen, impl="kernel", ctx=cx)
+    launches = FA.flash_attention.launches
+    by_shape = dict(FA.flash_attention.by_shape)
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the main path ----
+    # B3's launches at each of this path's shapes in serve_b3_shapes
+    per_shape = {line: by_shape.get(tuple(case), 0)
+                 for line, (phase, *case) in serve_b3_shapes().items() if phase == tag}
+    served_tally = tally.read() if tally is not None else None
+    finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
+
+    cache = rehome_cache(model, out["cache"], batch, prompt + gen + 24)
+    token, pos = out["tokens"][:, -1:], prompt + gen - 1
+
+    def decode(n):
+        nonlocal cache, pos
+        with torch.inference_mode():
+            for _ in range(n):
+                _, cache = model.decode_step(p16, token, cache, pos)
+                pos += 1
+
+    n0 = FA.flash_attention.launches
+    decode(2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(10)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    decode_extra = FA.flash_attention.launches - n0
+    device_ms, top = device_profile(lambda: decode(10), 10)
+    if tally is not None:
+        tally.reset()
+    with torch.inference_mode():
+        split = device_split(lambda: model.prefill(p16, prompts, cx, impl="kernel"), OP_CLASSES,
+                             {"flash_attention": "flash_fwd"})
+    summary["bfloat16"] = {
+        "prefill_ms": out["prefill_s"] * 1e3,
+        "prefill_tokens_per_s": batch * prompt / out["prefill_s"],
+        "decode_ms_per_token": out["decode_s"] / (gen - 1) * 1e3,
+        "decode_tokens_per_s": batch * (gen - 1) / out["decode_s"],
+        "max_memory_allocated": peak,
+        "flash_attention_launches": launches,
+        "flash_attention_launches_by_shape": per_shape,
+        "decode_profile": {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                           "device_busy_share": device_ms / wall_ms, "top_kernels": top},
+        "prefill_split": split,
+        "tokens": out["tokens"][:, :8].tolist(),
+    }
+    if tally is not None:
+        prefill_tally = tally.read()
+        summary["bfloat16"]["dropped"] = {
+            "prefill": prefill_tally["dropped"], "routed_prefill": prefill_tally["routed"],
+            "decode": served_tally["dropped"] - prefill_tally["dropped"],
+            "routed_decode": served_tally["routed"] - prefill_tally["routed"]}
+    ctx["details"][tag] = summary
+    log(f"[{tag}] " + json.dumps(summary))
+    checks = {
+        f"float32 kernel route launched B3 {f32_launches} = {f32['launches_expected']} (one prefill, none in decode)":
+            f32_launches == f32["launches_expected"],
+        f"float32 logits kernel vs chunked {f32['logits_rel_err']:.3e} <= {TOL_LOGITS} of max |logit|":
+            f32["logits_rel_err"] <= TOL_LOGITS,
+        f"float32 greedy tokens equal up to the first top-2 gap under tol ({compared} steps)": tokens_ok,
+        f"float32 nothing dropped by capacity ({f32_drops})": f32_drops == 0,
+        f"float32 decode vs apply within {TOL_DECODE} (max abs err {decode_err:.3e})": decode_ok,
+        f"bfloat16 main path launched B3 {launches} = {expected} (one prefill, none in decode)": launches == expected,
+        f"decode launches no B3 ({decode_extra})": decode_extra == 0,
+        f"every B3 launch at a shape lm_kernels checked and timed, each of them launched ({per_shape})":
+            sum(per_shape.values()) == launches and all(per_shape.values()),
+        "every logit finite (float32 and bfloat16)": finite and f32["finite"],
+    }
+    if tally is not None:
+        checks["capacity drops reported"] = "dropped" in summary["bfloat16"]
+    for name, ok in checks.items():
+        log(f"[{tag}] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+    ctx.setdefault("launches", {}).update(per_shape)
+    del model, p16, out, cache
+    torch.cuda.empty_cache()
+
+
+def phase_serve_mla(ctx) -> None:
+    """deepseek-v2-lite-16b whole: MLA (B3 at q/k 192 / v 128) + MoE."""
+    serve_family(ctx, "serve_mla", MLA_ARCH, None, MLA_BATCH, MLA_PROMPT, MLA_GEN, MLA_CHECK)
+
+
+def phase_serve_whisper(ctx) -> None:
+    """whisper-large-v3 whole: encoder (B3 non-causal over the frames),
+    decoder self- and cross-attention."""
+    serve_family(ctx, "serve_whisper", WH_ARCH, None, WH_BATCH, WH_PROMPT, WH_GEN, WH_CHECK)
+
+
+def phase_serve_vlm(ctx) -> None:
+    """llama-3.2-vision-90b at 20 of 100 layers: self-attention and
+    cross-attention over the image tokens."""
+    serve_family(ctx, "serve_vlm", VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_CHECK)
+
+
 def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     out = []
-    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked", "flash_attention_d128"):
+    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked", "flash_attention_d128",
+                 *serve_b3_shapes()):
         t = {**ctx["timings"][name], "name": name, "route": "cuda", "launches": ctx["launches"][name]}
         out.append({k: t[k] for k in keys})
     return {"kernels": out}
@@ -2073,6 +2398,9 @@ def main() -> int:
         ("serve_stablelm", phase_serve_stablelm),
         ("moe_dispatch", phase_moe_dispatch),
         ("serve_moe", phase_serve_moe),
+        ("serve_mla", phase_serve_mla),
+        ("serve_whisper", phase_serve_whisper),
+        ("serve_vlm", phase_serve_vlm),
         # last: after thousands of graph replays torch.profiler sessions in
         # this process record no device activity (PERF.md), and the phases
         # above gate on theirs

@@ -7,11 +7,16 @@
 //
 // over the keys j visible from query i: j < Sk, j <= i + Sk - Sq when
 // causal, j > i + Sk - Sq - window when a window is set.  rep = H / KV (GQA:
-// the KV head is found from the query head, K/V are never repeated).  Any
-// head width D that is a multiple of 16 up to 128 is compiled (REPRO_HEAD_DIMS).
+// the KV head is found from the query head, K/V are never repeated).  q and
+// k are DQK wide, v and out DV wide.  Compiled: every DQK = DV that is a
+// multiple of 16 up to 128 (REPRO_HEAD_DIMS), and the unequal pairs of the
+// served MLA configs (REPRO_HEAD_PAIRS: deepseek-v2-lite's 192 / 128 and its
+// tiny preset's 48 / 32).  An unequal pair gets its own tiles: K rows DQK
+// wide, V rows and the output accumulator DV wide, so no product is spent
+// on padding.
 //
 // What bounds it on an H100: operations.  Each visible (query, key) pair
-// costs 4 * D flops (QK^T and PV) against a few bytes of q/k/v/out, so the
+// costs 2 * (DQK + DV) flops (QK^T and PV) against a few bytes of q/k/v/out, so the
 // least time is the visible band's flops over the peak rate of the input
 // type (989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32).
 //
@@ -43,13 +48,16 @@
 // shared memory), then O += P V with wgmma m64n64k16, P from registers and
 // V read MN-major from shared memory.
 //
-// bfloat16, other D -- flash_fwd_bf16: mma.sync.m16n8k16 (the
+// bfloat16, other widths -- flash_fwd_bf16: mma.sync.m16n8k16 (the
 // FlashAttention-2 shape).  One CTA per (128 query rows, query head,
 // batch), eight warps of 16 rows; q loaded once into mma A fragments; K/V
 // tiles of 64 keys by cp.async into two shared stages, rows padded by 16
 // bytes so the ldmatrix reads (x4 for K, x4.trans for V) are free of bank
-// conflicts at every D.  A D = 80 row is 160 bytes, which no 128-byte
-// swizzle row holds; this kernel takes every width.
+// conflicts at every width.  A D = 80 row is 160 bytes, which no 128-byte
+// swizzle row holds; this kernel takes every width and every pair.  At
+// DQK 192 / DV 128 a thread holds 48 registers of q fragments, 64 of O and
+// 32 of S; the two stages of K and V tiles take 86,016 bytes of shared
+// memory (opt-in above 48 KB).
 //
 // float32 -- flash_fwd_f32: exact fp32 on the CUDA cores (the tensor
 // cores' TF32 would cost the float32 checks their digits).  One CTA per
@@ -70,6 +78,8 @@
 #include <stdint.h>
 
 #define REPRO_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+// (DQK, DV) with DQK != DV: deepseek-v2-lite-16b (full, 100m) and its tiny preset
+#define REPRO_HEAD_PAIRS(X) X(192, 128) X(48, 32)
 
 namespace {
 
@@ -97,9 +107,9 @@ constexpr int kThreadsTC = 32 * kWarpsTC;
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes_tc() {
-  return (size_t)kStages * 2 * kBK * (D + 8) * sizeof(__nv_bfloat16);
+  return (size_t)kStages * kBK * ((DQK + 8) + (DV + 8)) * sizeof(__nv_bfloat16);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -153,21 +163,24 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = as_u32(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
 }
 
-// grid (ceil(Sq / kBQTC), H, B), block kThreadsTC, dynamic smem smem_bytes_tc<D>()
-template <int D>
+// grid (ceil(Sq / kBQTC), H, B), block kThreadsTC, dynamic smem smem_bytes_tc<DQK, DV>()
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq,
                int Sk, int H, int KV, int causal, int window, float scale_log2) {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of 16 up to 128");
-  constexpr int kS = D + 8;       // shared row stride (elements): 16-byte rows, no conflicts
-  constexpr int kKT = D / 16;     // k-steps of Q K^T
-  constexpr int kNT = kBK / 8;    // n-tiles of S
-  constexpr int kDT = D / 8;      // n-tiles of O
-  constexpr int kChunks = D / 8;  // 16-byte chunks per K/V row
+  static_assert(DQK % 16 == 0 && DQK <= 192, "q/k width must be a multiple of 16 up to 192");
+  static_assert(DV % 16 == 0 && DV <= 128, "v width must be a multiple of 16 up to 128");
+  constexpr int kSK = DQK + 8;      // shared row strides (elements): 16-byte rows, no conflicts
+  constexpr int kSV = DV + 8;
+  constexpr int kKT = DQK / 16;     // k-steps of Q K^T
+  constexpr int kNT = kBK / 8;      // n-tiles of S
+  constexpr int kDT = DV / 8;       // n-tiles of O
+  constexpr int kChunksK = DQK / 8; // 16-byte chunks per K row
+  constexpr int kChunksV = DV / 8;  // and per V row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kBK][kS]
-  __nv_bfloat16* Vs = Ks + kStages * kBK * kS;                       // [kStages][kBK][kS]
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kBK][kSK]
+  __nv_bfloat16* Vs = Ks + kStages * kBK * kSK;                      // [kStages][kBK][kSV]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -192,8 +205,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int rows[2] = {w0 + g, w0 + g + 8};
 
   // q rows as mma A fragments, loaded once
-  const int64_t qstride = (int64_t)H * D;
-  const __nv_bfloat16* qb = q + (int64_t)b * Sq * qstride + (int64_t)h * D;
+  const int64_t qstride = (int64_t)H * DQK;
+  const __nv_bfloat16* qb = q + (int64_t)b * Sq * qstride + (int64_t)h * DQK;
   uint32_t qf[kKT][4];
 #pragma unroll
   for (int kk = 0; kk < kKT; ++kk) {
@@ -214,21 +227,26 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
   float l[2] = {0.f, 0.f};              // this thread's share of the row sums
 
-  const int64_t kvstride = (int64_t)KV * D;
-  const __nv_bfloat16* kb = k + (int64_t)b * Sk * kvstride + (int64_t)kvh * D;
-  const __nv_bfloat16* vb = v + (int64_t)b * Sk * kvstride + (int64_t)kvh * D;
+  const int64_t kstride = (int64_t)KV * DQK;
+  const int64_t vstride = (int64_t)KV * DV;
+  const __nv_bfloat16* kb = k + (int64_t)b * Sk * kstride + (int64_t)kvh * DQK;
+  const __nv_bfloat16* vb = v + (int64_t)b * Sk * vstride + (int64_t)kvh * DV;
 
   auto load_tile = [&](int tile, int stage) {
     const int k0 = kbeg + tile * kBK;
-    __nv_bfloat16* ks = Ks + stage * kBK * kS;
-    __nv_bfloat16* vs = Vs + stage * kBK * kS;
-    for (int e = tid; e < kBK * kChunks; e += kThreadsTC) {
-      const int j = e / kChunks;
-      const int c = e - j * kChunks;
+    __nv_bfloat16* ks = Ks + stage * kBK * kSK;
+    __nv_bfloat16* vs = Vs + stage * kBK * kSV;
+    for (int e = tid; e < kBK * kChunksK; e += kThreadsTC) {
+      const int j = e / kChunksK;
+      const int c = e - j * kChunksK;
       const bool ok = k0 + j < Sk;
-      const int64_t src = (ok ? (int64_t)(k0 + j) * kvstride : 0) + c * 8;
-      cp_async16(smem_addr(ks + j * kS + c * 8), kb + src, ok);
-      cp_async16(smem_addr(vs + j * kS + c * 8), vb + src, ok);
+      cp_async16(smem_addr(ks + j * kSK + c * 8), kb + (ok ? (int64_t)(k0 + j) * kstride : 0) + c * 8, ok);
+    }
+    for (int e = tid; e < kBK * kChunksV; e += kThreadsTC) {
+      const int j = e / kChunksV;
+      const int c = e - j * kChunksV;
+      const bool ok = k0 + j < Sk;
+      cp_async16(smem_addr(vs + j * kSV + c * 8), vb + (ok ? (int64_t)(k0 + j) * vstride : 0) + c * 8, ok);
     }
   };
 
@@ -246,8 +264,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
     const int k0 = kbeg + it * kBK;
     if (wrows > 0 && k0 <= whi && k0 + kBK - 1 >= wlo) {
-      const __nv_bfloat16* ks = Ks + (it % kStages) * kBK * kS;
-      const __nv_bfloat16* vs = Vs + (it % kStages) * kBK * kS;
+      const __nv_bfloat16* ks = Ks + (it % kStages) * kBK * kSK;
+      const __nv_bfloat16* vs = Vs + (it % kStages) * kBK * kSV;
 
       // S = Q K^T: B[d][j] = K[j][d]; matrices (keys +0/+8) x (d +0/+8)
       float s[kNT][4];
@@ -263,7 +281,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           uint32_t b0, b1, b2, b3;
           const int row = np * 16 + (lm >> 1) * 8 + lr;
           const int col = kk * 16 + (lm & 1) * 8;
-          ldmatrix_x4(smem_addr(ks + row * kS + col), b0, b1, b2, b3);
+          ldmatrix_x4(smem_addr(ks + row * kSK + col), b0, b1, b2, b3);
           mma_bf16(s[2 * np], qf[kk], b0, b1);
           mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
         }
@@ -327,11 +345,11 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
           split_bf16(s[nt][c], s[nt][c + 1], ahi[e], alo[e]);
         }
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t v0, v1, v2, v3;
           const int row = kk2 * 16 + (lm & 1) * 8 + lr;
           const int col = dp * 16 + (lm >> 1) * 8;
-          ldmatrix_x4_trans(smem_addr(vs + row * kS + col), v0, v1, v2, v3);
+          ldmatrix_x4_trans(smem_addr(vs + row * kSV + col), v0, v1, v2, v3);
           mma_bf16(o[2 * dp], ahi, v0, v1);
           mma_bf16(o[2 * dp], alo, v0, v1);
           mma_bf16(o[2 * dp + 1], ahi, v2, v3);
@@ -342,7 +360,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  __nv_bfloat16* ob = out + (int64_t)b * Sq * qstride + (int64_t)h * D;
+  const int64_t ostride = (int64_t)H * DV;
+  __nv_bfloat16* ob = out + (int64_t)b * Sq * ostride + (int64_t)h * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float den = l[r];
@@ -352,7 +371,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     if (rows[r] >= Sq) continue;
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + rows[r] * qstride + dt * 8 + 2 * t) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + rows[r] * ostride + dt * 8 + 2 * t) =
           __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
     }
   }
@@ -647,23 +666,25 @@ __device__ __forceinline__ float group_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes_f32() {
-  return (2 * kBK * D + kBQ * kSStride) * sizeof(float);
+  return (kBK * (DQK + DV) + kBQ * kSStride) * sizeof(float);
 }
 
-// grid (ceil(Sq / kBQ), H, B), block kThreads, dynamic smem smem_bytes_f32<D>()
-template <int D>
+// grid (ceil(Sq / kBQ), H, B), block kThreads, dynamic smem smem_bytes_f32<DQK, DV>()
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
               float* __restrict__ out, int Sq, int Sk, int H, int KV, int causal, int window,
               float scale) {
-  constexpr int kC = D / 4 / kT;  // float4 chunks per thread
-  static_assert(kC >= 1 && D % (4 * kT) == 0, "head_dim must be a multiple of 16");
+  constexpr int kCQ = DQK / 4 / kT;  // float4 chunks of q per thread
+  constexpr int kCV = DV / 4 / kT;   // and of the accumulator
+  static_assert(kCQ >= 1 && DQK % (4 * kT) == 0, "q/k width must be a multiple of 16");
+  static_assert(kCV >= 1 && DV % (4 * kT) == 0, "v width must be a multiple of 16");
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [kBK][D]
-  float* Vs = Ks + kBK * D;                     // [kBK][D]
-  float* Ss = Vs + kBK * D;                     // [kBQ][kSStride]
+  float* Ks = reinterpret_cast<float*>(smem4);  // [kBK][DQK]
+  float* Vs = Ks + kBK * DQK;                   // [kBK][DV]
+  float* Ss = Vs + kBK * DV;                    // [kBQ][kSStride]
 
   const int tid = threadIdx.x;
   const int r = tid / kT;
@@ -677,49 +698,48 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   const bool row_ok = qi < Sq;
   const int qpos = qi + off;
 
-  const int64_t qrow = ((int64_t)b * Sq + qi) * H * D + (int64_t)h * D;
-  float4 qr[kC];
-  float4 acc[kC];
+  const int64_t qrow = ((int64_t)b * Sq + qi) * H * DQK + (int64_t)h * DQK;
+  const int64_t orow = ((int64_t)b * Sq + qi) * H * DV + (int64_t)h * DV;
+  float4 qr[kCQ];
+  float4 acc[kCV];
 #pragma unroll
-  for (int c = 0; c < kC; ++c) {
+  for (int c = 0; c < kCQ; ++c) {
     const int d0 = 4 * (t + kT * c);
     qr[c] = row_ok ? make_float4(q[qrow + d0], q[qrow + d0 + 1], q[qrow + d0 + 2], q[qrow + d0 + 3])
                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+#pragma unroll
+  for (int c = 0; c < kCV; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = -INFINITY;
   float l = 0.f;
 
   int kbeg, kend;
   band(q0, min(kBQ, Sq - q0), off, Sk, causal, window, kbeg, kend);
 
-  const int64_t kvbase = (int64_t)b * Sk * KV * D + (int64_t)kvh * D;
-  const int64_t kvstride = (int64_t)KV * D;
+  const int64_t kbase = (int64_t)b * Sk * KV * DQK + (int64_t)kvh * DQK;
+  const int64_t vbase = (int64_t)b * Sk * KV * DV + (int64_t)kvh * DV;
   float* srow = Ss + r * kSStride;
 
   for (int k0 = kbeg; k0 < kend; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int j = e / D;
-      const int d = e - j * D;
+    for (int e = tid; e < kBK * DQK; e += kThreads) {
+      const int j = e / DQK;
       const int kp = k0 + j;
-      float kk = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        const int64_t idx = kvbase + kp * kvstride + d;
-        kk = k[idx];
-        vv = v[idx];
-      }
-      Ks[e] = kk;
-      Vs[e] = vv;
+      Ks[e] = kp < Sk ? k[kbase + kp * (int64_t)KV * DQK + (e - j * DQK)] : 0.f;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int j = e / DV;
+      const int kp = k0 + j;
+      Vs[e] = kp < Sk ? v[vbase + kp * (int64_t)KV * DV + (e - j * DV)] : 0.f;
     }
     __syncthreads();
 
     // scores of this row against the tile; thread (j % kT) stores column j
     for (int j = 0; j < kBK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(Ks + j * D);
+      const float4* kr = reinterpret_cast<const float4*>(Ks + j * DQK);
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < kC; ++c) s = dot4(qr[c], kr[t + kT * c], s);
+      for (int c = 0; c < kCQ; ++c) s = dot4(qr[c], kr[t + kT * c], s);
       s = group_sum(s);
       const bool vis = visible(k0 + j, qpos, Sk, causal, window);
       if ((j % kT) == t) srow[j] = vis ? s * scale : -INFINITY;
@@ -745,7 +765,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
     __syncwarp();
 
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
+    for (int c = 0; c < kCV; ++c) {
       acc[c].x *= alpha;
       acc[c].y *= alpha;
       acc[c].z *= alpha;
@@ -753,9 +773,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
     }
     for (int j = 0; j < kBK; ++j) {
       const float p = srow[j];
-      const float4* vr = reinterpret_cast<const float4*>(Vs + j * D);
+      const float4* vr = reinterpret_cast<const float4*>(Vs + j * DV);
 #pragma unroll
-      for (int c = 0; c < kC; ++c) {
+      for (int c = 0; c < kCV; ++c) {
         const float4 x = vr[t + kT * c];
         acc[c].x = fmaf(p, x.x, acc[c].x);
         acc[c].y = fmaf(p, x.y, acc[c].y);
@@ -768,12 +788,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
   if (row_ok) {
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kC; ++c) {
+    for (int c = 0; c < kCV; ++c) {
       const int d0 = 4 * (t + kT * c);
-      out[qrow + d0] = acc[c].x / den;
-      out[qrow + d0 + 1] = acc[c].y / den;
-      out[qrow + d0 + 2] = acc[c].z / den;
-      out[qrow + d0 + 3] = acc[c].w / den;
+      out[orow + d0] = acc[c].x / den;
+      out[orow + d0 + 1] = acc[c].y / den;
+      out[orow + d0 + 2] = acc[c].z / den;
+      out[orow + d0 + 3] = acc[c].w / den;
     }
   }
 }
@@ -782,15 +802,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 // launches
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
                 int H, int KV, int causal, int window, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes_tc<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
+  const size_t smem = smem_bytes_tc<DQK, DV>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<DQK, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBQTC - 1) / kBQTC, H, B);
-  flash_fwd_bf16<D><<<grid, kThreadsTC, smem, s>>>(
+  flash_fwd_bf16<DQK, DV><<<grid, kThreadsTC, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
       causal, window, scale * kLog2e);
@@ -849,63 +869,66 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out, in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
                int H, int KV, int causal, int window, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes_f32<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<D>,
+  const size_t smem = smem_bytes_f32<DQK, DV>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<DQK, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_f32<D><<<grid, kThreads, smem, s>>>(
+  flash_fwd_f32<DQK, DV><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), Sq, Sk, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int Sq,
            int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-  if constexpr (D == wg::kD) {
+  if (dtype == 0) return launch_f32<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if constexpr (DQK == wg::kD && DV == wg::kD) {
     return launch_bf16_wgmma(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   } else {
-    return launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    return launch_bf16<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/out [B, Sq, H, D], k/v [B, Sk, KV, D],
-// all contiguous and 16-byte aligned; D a multiple of 16 up to 128.  window
-// <= 0 means none.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  q [B, Sq, H, Dqk], k [B, Sk, KV, Dqk],
+// v [B, Sk, KV, Dv], out [B, Sq, H, Dv], all contiguous and 16-byte aligned;
+// (Dqk, Dv) one of the compiled widths (REPRO_HEAD_DIMS with Dqk = Dv, or
+// REPRO_HEAD_PAIRS).  window <= 0 means none.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* out, int B, int Sq, int Sk, int H, int KV, int D,
-                                     int causal, int window, float scale, void* stream) {
+                                     void* out, int B, int Sq, int Sk, int H, int KV, int Dqk,
+                                     int Dv, int causal, int window, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_CASE(d) \
-  case d:               \
-    return launch<d>(dtype, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    REPRO_HEAD_DIMS(REPRO_CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPRO_CASE
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_EQUAL(d) \
+  if (Dqk == d && Dv == d) \
+    return launch<d, d>(dtype, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+#define REPRO_PAIR(dqk, dv) \
+  if (Dqk == dqk && Dv == dv) \
+    return launch<dqk, dv>(dtype, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  REPRO_HEAD_DIMS(REPRO_EQUAL)
+  REPRO_HEAD_PAIRS(REPRO_PAIR)
+#undef REPRO_EQUAL
+#undef REPRO_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The mma.sync bf16 kernel at D = 64, where repro_flash_attention runs the
 // wgmma kernel: for timing the two side by side (no wrapper calls it).
-// Arguments as above, bfloat16 only.
+// Arguments as above with Dqk = Dv = 64, bfloat16 only.
 extern "C" int repro_flash_attention_bf16_mma64(const void* q, const void* k, const void* v,
                                                 void* out, int B, int Sq, int Sk, int H, int KV,
                                                 int causal, int window, float scale,
                                                 void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale,
-                         static_cast<cudaStream_t>(stream));
+  return launch_bf16<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale,
+                             static_cast<cudaStream_t>(stream));
 }

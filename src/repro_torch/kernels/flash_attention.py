@@ -1,22 +1,25 @@
 """Flash attention (forward): a hand-written CUDA kernel and its plain version.
 
-:func:`flash_attention` computes softmax attention for ``q [B, Sq, H, D]``
-over ``k``/``v [B, Sk, KV, D]`` with grouped query heads (query head ``h``
-reads KV head ``h // (H // KV)``), a causal and/or sliding-window mask built
-from absolute positions (query ``i`` sits at key position ``i + Sk - Sq``),
-a float32 online softmax and the output in ``q``'s dtype.  It replaces the
-Pallas kernel ``flash_attention_kernel`` of
-``src/repro/kernels/flash_attention.py``; the CUDA source is
-``csrc/flash_attention.cu``, which also says what bounds it on an H100:
-bfloat16 runs on the tensor cores, float32 exactly on the CUDA cores.  The
-kernel takes every head width in :data:`HEAD_DIMS` (the multiples of 16 up
-to 128); :func:`head_dim_supported` is the predicate, pure Python, that the
-wrapper checks on a CUDA tensor.
+:func:`flash_attention` computes softmax attention for ``q [B, Sq, H, Dqk]``
+over ``k [B, Sk, KV, Dqk]`` and ``v [B, Sk, KV, Dv]`` with grouped query
+heads (query head ``h`` reads KV head ``h // (H // KV)``), a causal and/or
+sliding-window mask built from absolute positions (query ``i`` sits at key
+position ``i + Sk - Sq``), a float32 online softmax and the output
+``[B, Sq, H, Dv]`` in ``q``'s dtype.  The value width may differ from the
+query/key width, as MLA's does (192 / 128).  It replaces the Pallas kernel
+``flash_attention_kernel`` of ``src/repro/kernels/flash_attention.py``; the
+CUDA source is ``csrc/flash_attention.cu``, which also says what bounds it
+on an H100: bfloat16 runs on the tensor cores, float32 exactly on the CUDA
+cores.  The kernel is compiled for the width pairs in :data:`HEAD_PAIRS`:
+every multiple of 16 up to 128 for q, k and v alike, and the unequal pairs
+of the served MLA configs; :func:`head_dims_supported` is the predicate,
+pure Python, that the wrapper checks on a CUDA tensor.
 
 A tensor on the CPU goes to the plain PyTorch version
 (:func:`attention_ref`, the batched form of ``repro.kernels.ref.attention``);
 a CUDA tensor goes to the kernel, or the call raises.  The wrapper counts its
-kernel launches in ``flash_attention.launches``.
+kernel launches in ``flash_attention.launches``, and in
+``flash_attention.by_shape`` per (q, k, v shape, causal, window).
 
 Rows that see no key at all (causal with ``Sq > Sk``) are outside the
 contract: the plain version averages every value there, the kernel writes
@@ -25,6 +28,7 @@ zeros.  They never occur on the model's path.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional
@@ -33,16 +37,20 @@ import torch
 
 from repro_torch.kernels import build as kbuild
 
-#: head dims the kernel is compiled for: the multiples of 16 up to 128
-HEAD_DIMS = tuple(range(16, 129, 16))
+#: (q/k width, v width) pairs the kernel is compiled for: every multiple of
+#: 16 up to 128 for all three (``REPRO_HEAD_DIMS`` in the CUDA source), and
+#: the MLA pairs of deepseek-v2-lite-16b at its full / 100m presets and at
+#: its tiny one (``REPRO_HEAD_PAIRS``)
+HEAD_PAIRS = tuple((d, d) for d in range(16, 129, 16)) + ((192, 128), (48, 32))
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def head_dim_supported(head_dim: int) -> bool:
-    """Whether the CUDA kernel takes heads of width ``head_dim``."""
-    return head_dim in HEAD_DIMS
+def head_dims_supported(qk_dim: int, v_dim: int) -> bool:
+    """Whether the CUDA kernel takes q/k heads ``qk_dim`` wide with v heads
+    ``v_dim`` wide."""
+    return (qk_dim, v_dim) in HEAD_PAIRS
 
 
 def attention_ref(
@@ -55,8 +63,10 @@ def attention_ref(
 ) -> torch.Tensor:
     """Softmax attention with every score materialised.
 
-    q: ``[B, Sq, H, D]``; k/v: ``[B, Sk, KV, D]`` (GQA by repeat).  Scores in
-    float32, probabilities cast to ``q``'s dtype before the value product.
+    q: ``[B, Sq, H, Dqk]``; k: ``[B, Sk, KV, Dqk]``; v: ``[B, Sk, KV, Dv]``
+    (GQA by repeat) -> ``[B, Sq, H, Dv]``.  Scores in float32, probabilities
+    cast to ``q``'s dtype before the value product; ``scale`` defaults to
+    ``1/sqrt(Dqk)``.
     """
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -79,9 +89,9 @@ def attention_ref(
 
 
 def _check(q, k, v, window) -> None:
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
-            "flash_attention: q must be [B, Sq, H, D] and k/v [B, Sk, KV, D] of one shape, got "
+            "flash_attention: q must be [B, Sq, H, Dqk], k [B, Sk, KV, Dqk] and v [B, Sk, KV, Dv], got "
             f"{tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}"
         )
     B, Sq, H, D = q.shape
@@ -113,7 +123,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = kbuild.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.repro_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        lib.repro_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.repro_flash_attention.restype = i
         _LIB = lib
     return _LIB
@@ -127,29 +137,35 @@ def flash_attention(
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Attention of ``q [B, Sq, H, D]`` over ``k``/``v [B, Sk, KV, D]`` -> ``[B, Sq, H, D]``."""
+    """Attention of ``q [B, Sq, H, Dqk]`` over ``k [B, Sk, KV, Dqk]`` and
+    ``v [B, Sk, KV, Dv]`` -> ``[B, Sq, H, Dv]``."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     B, Sq, H, D = q.shape
-    if not head_dim_supported(D):
-        raise ValueError(f"flash_attention: head_dim {D} is not one the kernel takes: {HEAD_DIMS}")
+    Dv = v.shape[3]
+    if not head_dims_supported(D, Dv):
+        raise ValueError(
+            f"flash_attention: head_dim {D} (q/k) / {Dv} (v) is not a pair the kernel takes: {HEAD_PAIRS}"
+        )
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary")
     Sk, KV = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().repro_flash_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, KV, D, int(causal), int(window or 0), float(scale), stream,
+        B, Sq, Sk, H, KV, D, Dv, int(causal), int(window or 0), float(scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with cudaError_t {err}")
     flash_attention.launches += 1
+    flash_attention.by_shape[tuple(q.shape), tuple(k.shape), tuple(v.shape), bool(causal), window] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.by_shape = collections.Counter()

@@ -10,17 +10,27 @@ switched on:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
         --preset full --layers 8 --batch 4 --prompt-len 4096 --gen 32 \\
         --advise-dispatch --simulate-serving 64 --chaos 1   # MoE, 8 of 48 layers
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --preset full --batch 4 --prompt-len 4096 --gen 32  # MLA + MoE, whole
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+        --preset full --batch 16 --prompt-len 192 --gen 32  # encoder-decoder
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b \\
+        --preset full --layers 20 --batch 4 --prompt-len 2048 --gen 16  # 20 of 100 layers
 
 1. build ``LMModel`` for the architecture at the preset's size;
 2. draw the parameters on the device from a ``torch.Generator`` seeded by
    ``--seed``, in the config's dtype;
-3. prefill the prompts (``--impl kernel``: the CUDA kernels B3 and B4 in every
-   layer; ``chunked`` / ``dot``: plain torch ops);
-4. re-home the prefill cache into buffers ``prompt_len + gen`` deep;
-5. decode ``--gen`` tokens greedily with plain torch ops.
+3. for ``vlm`` and ``enc_dec``, draw the frontend's stub embeddings
+   ``[batch, ctx_len, d_model]`` after the prompts, as the reference's
+   launcher does;
+4. prefill the prompts (``--impl kernel``: the CUDA kernels B3 and B4 in every
+   layer, the encoder's too; ``chunked`` / ``dot``: plain torch ops);
+5. re-home the prefill cache into buffers ``prompt_len + gen`` deep;
+6. decode ``--gen`` tokens greedily with plain torch ops.
 
 Without ``--device`` it runs on the CUDA device and raises where there is
-none.  ``--layers`` cuts the depth (a model too large for one card).  For a
+none.  ``--layers`` cuts the depth (a model too large for one card; for a
+``vlm`` a multiple of its ``cross_attn_every``).  For a
 MoE model, ``--advise-dispatch`` then ranks the exchange strategies for the
 routing histogram of the served tokens over ``--npods`` x ``--ppn`` ranks;
 ``--simulate-serving N`` replays N dispatch requests of that pattern through
@@ -41,7 +51,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention import HEAD_DIMS, head_dim_supported
+from repro_torch.kernels.flash_attention import HEAD_PAIRS, head_dims_supported
 from repro_torch.launch.presets import PRESETS
 from repro_torch.models.lm import LMModel
 from repro_torch.models.moe_dispatch import ExpertLoadHistogram
@@ -55,13 +65,19 @@ def build(arch: str, preset: str = "tiny", seed: int = 0, device: DeviceLike = N
 
     ``dtype`` (default: the config's) sets the model's activation dtype and
     its weights' together; one seed draws the same weights in every dtype.
-    ``layers`` (default: the preset's) cuts the depth and nothing else.
+    ``layers`` (default: the preset's) cuts the depth and nothing else; for
+    a ``vlm`` it must be a multiple of ``cross_attn_every``, so that the cut
+    keeps the published share of cross-attention layers.
     """
     device = resolve_device(device)
     cfg = PRESETS[preset](get_config(arch))
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
     if layers is not None:
+        if cfg.family == "vlm" and layers % cfg.cross_attn_every:
+            raise ValueError(
+                f"{cfg.name}: --layers {layers} is not a multiple of cross_attn_every {cfg.cross_attn_every}"
+            )
         cfg = dataclasses.replace(cfg, n_layers=layers)
     model = LMModel(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -71,12 +87,27 @@ def build(arch: str, preset: str = "tiny", seed: int = 0, device: DeviceLike = N
 def make_prompts(vocab_size: int, batch: int, prompt_len: int, seed: int = 0) -> np.ndarray:
     """``[batch, prompt_len]`` token ids from ``np.random.default_rng(seed)``,
     as the reference's launcher draws them."""
-    return np.random.default_rng(seed).integers(0, vocab_size, (batch, prompt_len))
+    return make_context(vocab_size, batch, prompt_len, 0, 0, seed)[0]
+
+
+def make_context(vocab_size: int, batch: int, prompt_len: int, ctx_len: int, d_model: int,
+                 seed: int = 0) -> tuple:
+    """``(prompts, ctx)``: the prompts of :func:`make_prompts` and, from the
+    same ``np.random.default_rng(seed)`` right after them, the frontend's
+    ``[batch, ctx_len, d_model]`` float32 stub embeddings (audio frames,
+    image patches), or ``None`` where ``ctx_len`` is 0 -- the reference
+    launcher's draw."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, vocab_size, (batch, prompt_len))
+    if not ctx_len:
+        return prompts, None
+    return prompts, rng.normal(size=(batch, ctx_len, d_model)).astype(np.float32)
 
 
 def rehome_cache(model: LMModel, cache: dict, batch: int, max_len: int) -> dict:
     """The prefill cache copied into zeroed buffers ``max_len`` deep (window
-    rings and SSM states keep their shape)."""
+    rings, SSM states and cross-attention K/V over the ``ctx_len`` context
+    keep their shape)."""
     _, first = next(tree_items(cache))
     full = model.init_cache(batch, max_len, model.dtype, first.device)
 
@@ -98,17 +129,20 @@ def _sync(device: torch.device) -> None:
 
 def check_kernel_heads(model: LMModel) -> None:
     """Raise, naming the config, where the attention kernel B3 cannot take
-    the model's head width on a CUDA device."""
-    D = model.attention_head_dim
-    if D is not None and not head_dim_supported(D):
-        raise ValueError(
-            f"{model.cfg.name}: head_dim {D} is not one the flash_attention kernel takes {HEAD_DIMS}"
-        )
+    one of the model's (q/k, v) head widths on a CUDA device."""
+    for qk, v in sorted(model.attention_head_pairs):
+        if not head_dims_supported(qk, v):
+            raise ValueError(
+                f"{model.cfg.name}: head_dim {qk} (q/k) / {v} (v) is not a pair the flash_attention "
+                f"kernel takes {HEAD_PAIRS}"
+            )
 
 
 @torch.inference_mode()
-def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl: str = "kernel") -> dict:
-    """Prefill ``prompts [B, S]`` with ``impl``, then ``gen`` greedy tokens.
+def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl: str = "kernel",
+             ctx: Optional[torch.Tensor] = None) -> dict:
+    """Prefill ``prompts [B, S]`` (with the stub context embeddings ``ctx``
+    of a ``vlm`` / ``enc_dec`` model) with ``impl``, then ``gen`` greedy tokens.
 
     Returns ``tokens [B, gen]``, ``logits`` (one float32 ``[B, vocab]`` per
     generated token: the prefill's last position, then each decode step's),
@@ -121,7 +155,7 @@ def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl
     B, S = prompts.shape
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, impl=impl)
+    logits, cache = model.prefill(params, prompts, ctx, impl=impl)
     cache = rehome_cache(model, cache, B, S + gen)
     _sync(device)
     t1 = time.perf_counter()
@@ -273,8 +307,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     model, params = build(args.arch, args.preset, args.seed, args.device, layers=args.layers)
     device = params["embed"].device
-    prompts = make_prompts(model.cfg.vocab_size, args.batch, args.prompt_len, args.seed)
-    out = generate(model, params, torch.as_tensor(prompts, device=device), args.gen, impl=args.impl)
+    cfg = model.cfg
+    prompts, ctx = make_context(cfg.vocab_size, args.batch, args.prompt_len, model.ctx_len(), cfg.d_model,
+                                args.seed)
+    out = generate(model, params, torch.as_tensor(prompts, device=device), args.gen, impl=args.impl,
+                   ctx=None if ctx is None else torch.as_tensor(ctx, device=device))
     print(f"{model.cfg.name} ({args.preset}, {model.param_count():,} parameters) on {device}: "
           f"prefill {args.batch}x{args.prompt_len} in {out['prefill_s']:.3f}s; "
           f"decoded {args.gen} tokens/seq in {out['decode_s']:.3f}s")

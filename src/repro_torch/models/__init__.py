@@ -1,4 +1,5 @@
-"""Model zoo of the port: the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families.
+"""Model zoo of the port: every family of the reference (``dense``, ``moe``,
+``ssm``, ``hybrid``, ``vlm``, ``enc_dec``).
 
 Import the modules themselves (``repro_torch.models.lm`` and its
 neighbours).  The MoE names the reference exports from its package

@@ -22,8 +22,8 @@ from repro_torch.models.sharding import tree_items
 def from_reference(model, tree, device: DeviceLike = None, dtype: Optional[torch.dtype] = None) -> dict:
     """The port's parameters for ``model`` from the reference tree ``tree``.
 
-    Leaves the port keeps in float32 (norm scales, ``a_log``, ``dt_bias``,
-    ``d_skip``) stay float32; every other leaf is cast to ``dtype``
+    Leaves the port keeps in float32 (norm scales, MLA's ``kv_norm`` among
+    them, ``a_log``, ``dt_bias``, ``d_skip``) stay float32; every other leaf is cast to ``dtype``
     (default: the model's).  ``device`` defaults to the CUDA device.
     """
     device = resolve_device(device)

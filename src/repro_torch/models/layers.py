@@ -170,6 +170,7 @@ class AttentionLayer:
     rope_theta: float = 1e4
     rope_fraction: float = 1.0
     window: Optional[int] = None
+    cross: bool = False  # cross-attention (kv from encoder/image context)
 
     def params(self) -> dict:
         H, KV, D, M = self.n_heads, self.n_kv_heads, self.head_dim, self.d_model
@@ -184,16 +185,21 @@ class AttentionLayer:
             p["k_norm"] = rmsnorm_params(D)
         return p
 
-    def qkv(self, params, x, positions):
-        """x: [B, S, M] -> q [B,S,H,D], k/v [B,S,KV,D] (rotated, normed)."""
+    def qkv(self, params, x, positions, kv_x=None):
+        """x: [B, S, M] -> q [B,S,H,D], k/v [B,Skv,KV,D] (rotated, normed);
+        k/v are projected from ``kv_x`` (default: x).  Cross-attention
+        rotates neither q nor k."""
+        kv_x = x if kv_x is None else kv_x
         q = _proj(x, params["wq"])
-        k = _proj(x, params["wk"])
-        v = _proj(x, params["wv"])
+        k = _proj(kv_x, params["wk"])
+        v = _proj(kv_x, params["wv"])
         if self.qk_norm:
             q = rmsnorm(params["q_norm"], q)
             k = rmsnorm(params["k_norm"], k)
-        q = rope(q, positions, self.rope_theta, self.rope_fraction)
-        k = rope(k, positions, self.rope_theta, self.rope_fraction)
+        if not self.cross:
+            q = rope(q, positions, self.rope_theta, self.rope_fraction)
+            kpos = positions[..., -k.shape[1]:] if k.shape[1] != q.shape[1] else positions
+            k = rope(k, kpos, self.rope_theta, self.rope_fraction)
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     def out(self, params, attn_out):
@@ -201,8 +207,9 @@ class AttentionLayer:
         B, S = attn_out.shape[:2]
         return attn_out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
-    def __call__(self, params, x, positions, impl="dot", causal: bool = True):
-        q, k, v = self.qkv(params, x, positions)
+    def __call__(self, params, x, positions, impl="dot", kv_x=None, causal: Optional[bool] = None):
+        q, k, v = self.qkv(params, x, positions, kv_x=kv_x)
+        causal = (not self.cross) if causal is None else causal
         o = attend(q, k, v, impl=impl, causal=causal, window=self.window)
         return self.out(params, o)
 

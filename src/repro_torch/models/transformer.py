@@ -1,10 +1,15 @@
 """Transformer blocks and stacked segments.
 
-The port of ``repro.models.transformer`` for the block kinds of this slice:
+The port of ``repro.models.transformer``, every block kind of the reference:
 
-* ``dense``   -- self-attention (GQA) + MLP, or + MoE (``use_moe``)
+* ``dense``   -- self-attention (GQA, or MLA where the config has one) + MLP,
+  or + MoE (``use_moe``)
 * ``ssm``     -- Mamba-2 mixer only
 * ``hybrid``  -- parallel attention + SSM heads (Hymba), then MLP
+* ``cross``   -- cross-attention to a fixed context (the VLM's image layers)
+  + MLP
+* ``decoder`` -- self-attention + cross-attention + MLP (encoder-decoder)
+* ``encoder`` -- bidirectional self-attention + MLP
 
 A model is a sequence of **segments**; each segment is ``count`` copies of
 one block with **stacked** ``[count, ...]`` parameters and cache leaves, as
@@ -22,8 +27,9 @@ reference's tests hold the Pallas kernel to ``ssd_chunked`` within 2e-4
 (``tests/test_kernels.py``).  Every other ``impl`` runs the plain chunked SSD,
 as the reference does.
 
-The MLA block waits for ROADMAP A.4b, the cross-attention and encoder
-blocks for A.4c.
+Cross-attention keys and values come from the context (``ctx``: the adapted
+frontend embeddings, run through the encoder for ``enc_dec``); the prefill
+caches them per layer and decode reads them, never re-emitting them.
 """
 
 from __future__ import annotations
@@ -36,11 +42,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import Mamba2Mixer
+from repro_torch.models.mla import MLAttention
 from repro_torch.models.moe import MoELayer
 from repro_torch.models.sharding import ParamSpec, tree_map
 
-#: block kinds of this slice
-BLOCK_KINDS = ("dense", "ssm", "hybrid")
+#: block kinds (the reference's)
+BLOCK_KINDS = ("dense", "ssm", "hybrid", "cross", "decoder", "encoder")
 
 
 def pad_heads(n_heads: int, n_kv: int, tp: int) -> Tuple[int, int]:
@@ -164,41 +171,58 @@ class Block:
     cfg: ModelConfig
     tp: int = 1
     self_attn: Optional[CachedAttention] = None
+    mla: Optional[MLAttention] = None
     ssm: Optional[Mamba2Mixer] = None
+    cross: Optional[L.AttentionLayer] = None
     mlp: Optional[L.MLP] = None
     moe: Optional[MoELayer] = None
+    causal: bool = True
 
     @staticmethod
     def make(cfg: ModelConfig, kind: str, tp: int = 1, use_moe: bool = False) -> "Block":
         if kind not in BLOCK_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP A.4c); the port runs {BLOCK_KINDS}"
-            )
+            raise ValueError(f"unknown block kind {kind!r}; the kinds are {BLOCK_KINDS}")
         hp, kvp = pad_heads(cfg.n_heads, cfg.n_kv_heads, tp)
+        d = cfg.resolved_head_dim
         attn = L.AttentionLayer(
-            d_model=cfg.d_model, n_heads=hp, n_kv_heads=kvp, head_dim=cfg.resolved_head_dim,
+            d_model=cfg.d_model, n_heads=hp, n_kv_heads=kvp, head_dim=d,
             qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
             rope_fraction=cfg.rope_fraction, window=cfg.window,
         )
         cached = CachedAttention(attn, kv_store_heads(kvp, tp), window=cfg.window)
         mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act) if cfg.d_ff else None
+        moe = MoELayer(cfg.d_model, cfg.moe, cfg.act) if (use_moe and cfg.moe) else None
+        kw: Dict[str, Any] = dict(cfg=cfg, tp=tp, mlp=None if moe else mlp, moe=moe)
         if kind == "dense":
-            if use_moe and cfg.moe:
-                return Block(cfg=cfg, tp=tp, self_attn=cached, moe=MoELayer(cfg.d_model, cfg.moe, cfg.act))
-            return Block(cfg=cfg, tp=tp, self_attn=cached, mlp=mlp)
+            if cfg.mla is not None:
+                return Block(mla=MLAttention(cfg.d_model, hp, cfg.mla, cfg.rope_theta), **kw)
+            return Block(self_attn=cached, **kw)
         if kind == "ssm":
             return Block(cfg=cfg, tp=tp, ssm=Mamba2Mixer(cfg.d_model, cfg.ssm))
-        return Block(cfg=cfg, tp=tp, self_attn=cached, ssm=Mamba2Mixer(cfg.d_model, cfg.ssm), mlp=mlp)
+        if kind == "hybrid":
+            return Block(self_attn=cached, ssm=Mamba2Mixer(cfg.d_model, cfg.ssm), **kw)
+        if kind == "encoder":
+            return Block(self_attn=cached, causal=False, **kw)
+        xattn = L.AttentionLayer(d_model=cfg.d_model, n_heads=hp, n_kv_heads=kvp, head_dim=d, cross=True)
+        if kind == "cross":
+            return Block(cross=xattn, **kw)
+        return Block(self_attn=cached, cross=xattn, **kw)  # decoder: self + cross + mlp
 
     def params(self) -> dict:
         p: Dict[str, Any] = {}
         if self.self_attn is not None:
             p["attn"] = self.self_attn.params()
             p["attn_norm"] = L.rmsnorm_params(self.cfg.d_model)
+        if self.mla is not None:
+            p["attn"] = self.mla.params()
+            p["attn_norm"] = L.rmsnorm_params(self.cfg.d_model)
         if self.ssm is not None:
             p["ssm"] = self.ssm.params()
             if self.self_attn is None:
                 p["ssm_norm"] = L.rmsnorm_params(self.cfg.d_model)
+        if self.cross is not None:
+            p["cross"] = self.cross.params()
+            p["cross_norm"] = L.rmsnorm_params(self.cfg.d_model)
         if self.mlp is not None:
             p["mlp"] = self.mlp.params()
             p["mlp_norm"] = L.rmsnorm_params(self.cfg.d_model)
@@ -207,16 +231,39 @@ class Block:
             p["mlp_norm"] = L.rmsnorm_params(self.cfg.d_model)
         return p
 
+    def attention_pairs(self) -> set:
+        """(q/k width, v width) of every attention a kernel-route prefill or
+        apply of this block sends to B3."""
+        pairs = set()
+        for a in (self.self_attn.attn if self.self_attn else None, self.cross):
+            if a is not None:
+                pairs.add((a.head_dim, a.head_dim))
+        if self.mla is not None:
+            pairs.add((self.mla.qk_dim, self.mla.cfg.v_head_dim))
+        return pairs
+
     # -- mixing sub-layer (attention and/or SSM) ---------------------------
     def _mix(self, p, x, positions, impl, mode, cache=None, pos=None):
         """Returns (delta, new_cache_pieces)."""
         new_cache: Dict[str, Any] = {}
         parts = []
         eps = self.cfg.norm_eps
+        if self.mla is not None:
+            h = L.rmsnorm(p["attn_norm"], x, eps)
+            if mode == "decode":
+                o, new_cache["mla"] = self.mla.decode(p["attn"], h, positions, cache["mla"], pos)
+            else:
+                # one latent for the attention and the cache (the reference
+                # computes it twice, to the same values)
+                c_kv, k_rope = self.mla.latent(p["attn"], h, positions)
+                o = self.mla(p["attn"], h, positions, impl=impl, latent=(c_kv, k_rope))
+                if mode == "prefill":
+                    new_cache["mla"] = {"c_kv": c_kv, "k_rope": k_rope}
+            parts.append(o)
         if self.self_attn is not None:
             h = L.rmsnorm(p["attn_norm"], x, eps)
             if mode == "apply":
-                o = self.self_attn.attn(p["attn"], h, positions, impl=impl, causal=True)
+                o = self.self_attn.attn(p["attn"], h, positions, impl=impl, causal=self.causal)
             elif mode == "prefill":
                 o, new_cache["attn"] = self.self_attn.prefill(p["attn"], h, positions, impl)
             else:
@@ -257,21 +304,41 @@ class Block:
         h = torch.einsum("bsn,bsh,bshp->bhnp", b.float(), w, xdt)
         return {"ssm": h, "conv": conv_state[:, -(m.cfg.conv_width - 1):]}
 
-    def run(self, p, x, positions, *, impl, mode, cache=None, pos=None):
+    def run(self, p, x, positions, *, impl, mode, cache=None, pos=None, ctx=None):
         """mode: apply | prefill | decode. Returns (x, new_cache)."""
-        delta, new_cache = self._mix(p, x, positions, impl, mode, cache, pos)
-        x = x + delta
+        new_cache: Dict[str, Any] = {}
+        if self.self_attn is not None or self.mla is not None or self.ssm is not None:
+            delta, new_cache = self._mix(p, x, positions, impl, mode, cache, pos)
+            x = x + delta
+        if self.cross is not None:
+            h = L.rmsnorm(p["cross_norm"], x, self.cfg.norm_eps)
+            if mode == "decode":
+                # cross K/V are immutable after prefill: read, never re-emit
+                q = L._proj(h, p["cross"]["wq"])
+                o = L.attend(q, cache["cross_k"], cache["cross_v"], impl="dot", causal=False)
+            else:
+                q, k, v = self.cross.qkv(p["cross"], h, positions, kv_x=ctx)
+                o = L.attend(q, k, v, impl=impl, causal=False)
+                if mode == "prefill":
+                    new_cache["cross_k"], new_cache["cross_v"] = k, v
+            x = x + self.cross.out(p["cross"], o)
         if self.mlp is not None or self.moe is not None:
             h = L.rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
             x = x + (self.moe(p["moe"], h) if self.moe is not None else self.mlp(p["mlp"], h))
         return x, new_cache
 
-    def init_cache(self, batch, max_len, dtype, device):
+    def init_cache(self, batch, max_len, dtype, device, ctx_len: int = 0):
         c: Dict[str, Any] = {}
         if self.self_attn is not None:
             c["attn"] = self.self_attn.init_cache(batch, max_len, dtype, device)
+        if self.mla is not None:
+            c["mla"] = self.mla.init_cache(batch, max_len, dtype, device)
         if self.ssm is not None:
             c["ssm"] = self.ssm.init_cache(batch, dtype, device)
+        if self.cross is not None:
+            shape = (batch, ctx_len, self.cross.n_kv_heads, self.cross.head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
         return c
 
 
@@ -306,15 +373,18 @@ class Segment:
 
         return tree_map(stack, self.block.params())
 
-    def apply(self, params, x, positions, *, impl):
+    def apply(self, params, x, positions, *, impl, ctx=None):
         for i in range(self.count):
-            x, _ = self.block.run(_layer(params, i), x, positions, impl=impl, mode="apply")
+            x, _ = self.block.run(_layer(params, i), x, positions, impl=impl, mode="apply", ctx=ctx)
         return x
 
-    def prefill(self, params, x, positions, *, impl):
+    def prefill(self, params, x, positions, *, impl, ctx=None):
+        if self.count == 0:  # e.g. a vlm cut below one cross layer: empty stacked leaves
+            return x, self.init_cache(x.shape[0], x.shape[1], x.dtype, x.device,
+                                      0 if ctx is None else ctx.shape[1])
         caches = []
         for i in range(self.count):
-            x, cache = self.block.run(_layer(params, i), x, positions, impl=impl, mode="prefill")
+            x, cache = self.block.run(_layer(params, i), x, positions, impl=impl, mode="prefill", ctx=ctx)
             caches.append(cache)
         return x, _stack(caches)  # cache leaves stacked [count, ...]
 
@@ -324,8 +394,11 @@ class Segment:
         Blocks never return updated cache tensors, only the new entries; they
         are written into the stacked caches **in place** after the loop (one
         copy per tensor), and the SSM state is replaced.  The caller's cache
-        tensors therefore hold the new step on return.
+        tensors therefore hold the new step on return.  Cross-attention
+        caches are only read.
         """
+        if self.count == 0:
+            return x, caches
         updates = []
         for i in range(self.count):
             x, upd = self.block.run(
@@ -335,17 +408,21 @@ class Segment:
             updates.append(upd)
         updates = _stack(updates)
         new_caches = dict(caches)
+        # old: [count, B, S, ...]; new: [count, B, 1, ...]
         if "attn" in updates:
             W = self.block.self_attn.window
             slot = pos % W if W is not None else pos
             for name in ("k", "v"):
-                # old: [count, B, S, ...]; new: [count, B, 1, ...]
                 old = caches["attn"][name]
                 old[:, :, slot] = updates["attn"][f"{name}_new"][:, :, 0].to(old.dtype)
+        if "mla" in updates:
+            for name in ("c_kv", "k_rope"):
+                old = caches["mla"][name]
+                old[:, :, pos] = updates["mla"][f"{name}_new"][:, :, 0].to(old.dtype)
         if "ssm" in updates:
             new_caches["ssm"] = updates["ssm"]  # full replacement (O(1) state)
         return x, new_caches
 
-    def init_cache(self, batch, max_len, dtype, device):
-        one = self.block.init_cache(batch, max_len, dtype, device)
+    def init_cache(self, batch, max_len, dtype, device, ctx_len: int = 0):
+        one = self.block.init_cache(batch, max_len, dtype, device, ctx_len)
         return tree_map(lambda a: torch.zeros((self.count, *a.shape), dtype=a.dtype, device=device), one)

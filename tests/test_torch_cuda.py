@@ -1,6 +1,7 @@
 """The port on a CUDA GPU: the hand-written kernels against their plain
 versions, the exchange, SpMV and CG on the card against the same code on
-the CPU, and a tiny hymba prefill through the kernels against the plain route.
+the CPU, and tiny serves (hymba, llama4-scout, deepseek-v2-lite's MLA,
+llama-3.2-vision, whisper) through the kernels against the plain route.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode).  The file imports no JAX, so it runs on a GPU machine
@@ -315,6 +316,37 @@ def test_flash_attention_matches_plain(dev, case, dtype):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
+#: (B, Sq, Sk, H, KV, Dqk, Dv, causal, window): MLA's (192, 128) and its tiny
+#: preset's (48, 32), causal and not, ragged, GQA, Sq < Sk
+SPLIT_CASES = [
+    (2, 300, 300, 16, 16, 192, 128, True, None),
+    (1, 130, 130, 4, 4, 192, 128, False, None),
+    (1, 70, 200, 4, 2, 192, 128, True, 100),
+    (2, 100, 100, 4, 4, 48, 32, True, None),
+    (1, 65, 150, 4, 1, 48, 32, False, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_value_width_of_its_own_matches_plain(dev, case, dtype):
+    """B3 with v narrower than q/k (MLA) against ``attention_ref`` in float32
+    on the same inputs, at ``ATTN_TOL``, one launch, output ``Dv`` wide."""
+    B, Sq, Sk, H, KV, Dqk, Dv, causal, window = case
+    rtol, atol = ATTN_TOL[dtype]
+    rng = np.random.default_rng(11)
+    q, k, v = (
+        torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
+        for shape in ((B, Sq, H, Dqk), (B, Sk, KV, Dqk), (B, Sk, KV, Dv))
+    )
+    n0 = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
+    want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize(
     "B,S,H,P,N,Q",
     [(2, 32, 3, 4, 8, 8), (1, 50, 2, 16, 8, 16), (2, 128, 4, 8, 16, 32), (1, 7, 1, 2, 3, 4),
@@ -375,10 +407,13 @@ def test_ssd_rejects_head_width_above_1024(dev):
 
 @pytest.mark.parametrize("D", [8, 72, 144])
 def test_flash_attention_rejects_head_dims_it_does_not_take(dev, D):
-    """No fallback: a head width outside ``HEAD_DIMS`` raises on the card."""
+    """No fallback: a width pair outside ``HEAD_PAIRS`` raises on the card,
+    equal or not."""
     q = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, q, q[..., : D // 2].contiguous())
 
 
 def test_tiny_hymba_prefill_kernel_vs_plain(dev):
@@ -439,5 +474,28 @@ def test_tiny_llama4_prefill_kernel_vs_plain(dev):
     got = generate(model, params, tokens, 4, impl="kernel")
     assert FA.flash_attention.launches - n_fa == model.cfg.n_layers
     want = generate(model, params, tokens, 4, impl="chunked")
+    torch.testing.assert_close(got["logits"][0], want["logits"][0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got["tokens"], want["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama-3.2-vision-90b", "whisper-large-v3"])
+def test_tiny_mla_vlm_enc_dec_kernel_vs_plain(dev, arch):
+    """A tiny serve of each family this slice added, through B3 (MLA's pair
+    (48, 32); cross-attention; the encoder) against the plain route on the
+    card: B3 launched once per attention in the prefill (encoder included)
+    and never in decode, first logits within 1e-4, greedy tokens equal."""
+    from repro_torch.launch.serve import generate, make_context
+
+    # the vlm at 5 layers (4 self + 1 cross): its tiny preset's 2 hold no cross layer
+    model, params = build(arch, "tiny", seed=0, device=dev, layers=5 if arch == "llama-3.2-vision-90b" else None)
+    tokens, ctx = make_context(1024, 2, 40, model.ctx_len(), model.cfg.d_model, seed=9)
+    tokens = torch.as_tensor(tokens, device=dev)
+    ctx = None if ctx is None else torch.as_tensor(ctx, device=dev)
+    per_prefill = sum(s.count * (bool(s.block.self_attn) + bool(s.block.mla) + bool(s.block.cross))
+                      for s in model.segments + model.enc_segments)
+    n_fa = FA.flash_attention.launches
+    got = generate(model, params, tokens, 4, impl="kernel", ctx=ctx)
+    assert FA.flash_attention.launches - n_fa == per_prefill > 0
+    want = generate(model, params, tokens, 4, impl="chunked", ctx=ctx)
     torch.testing.assert_close(got["logits"][0], want["logits"][0], rtol=1e-4, atol=1e-4)
     assert torch.equal(got["tokens"], want["tokens"])

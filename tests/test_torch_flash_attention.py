@@ -7,13 +7,17 @@ at the shapes of ``tests/test_kernels.py`` plus one at hymba-1.5b's head
 ratio (25 query heads over 5 KV heads, head_dim 64, a window shorter than
 the sequence) and at the head widths of stablelm-3b (80) and qwen3-32b
 (128), with the reference's tolerances: 2e-4 in float32, 3e-2 in bfloat16.
-Every head width a served config resolves to is one the kernel takes.  The
-CUDA kernel itself is held to the plain version on a GPU by
-``tests/test_torch_cuda.py``.
+At a value width other than the query/key width (MLA's), where the Pallas
+kernel has no route, the wrapper and its plain version are held to the
+reference's ``attend_chunked``.  Every (q/k, v) width pair that a config
+sends to B3, at every preset, is one the kernel is compiled for, and the
+pairs of :data:`HEAD_PAIRS` are the CUDA source's.  The CUDA kernel itself
+is held to the plain version on a GPU by ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
-
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,11 +27,12 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_kernel
+from repro.models.layers import attend_chunked as ref_attend_chunked
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.launch.presets import PRESETS
 from repro_torch.launch.serve import check_kernel_heads
-from repro_torch.models.lm import FAMILIES, LMModel
+from repro_torch.models.lm import LMModel
 
 CASES = [
     (2, 64, 64, 4, 2, 32, True, None),
@@ -75,6 +80,38 @@ def test_flash_attention_matches_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(plain.float().numpy(), oracle, rtol=tol, atol=tol)
 
 
+#: (B, Sq, Sk, H, KV, Dqk, Dv, causal): MLA's pair (192, 128) and its tiny
+#: preset's (48, 32), GQA, a cached Sq < Sk, non-causal
+SPLIT_CASES = [
+    (2, 24, 24, 4, 4, 48, 32, True),
+    (1, 40, 40, 4, 4, 192, 128, True),
+    (2, 16, 48, 4, 2, 32, 16, True),
+    (1, 30, 50, 4, 1, 64, 32, False),
+]
+ref_chunked = jax.jit(ref_attend_chunked, static_argnames=("causal", "window", "scale", "block"))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_value_width_of_its_own_matches_reference_chunked(case, dtype):
+    """q/k ``Dqk`` wide, v ``Dv`` wide: the wrapper (its plain version on the
+    CPU) and ``attention_ref`` against the reference's ``attend_chunked``
+    (small key blocks, so the online softmax is exercised), with MLA's
+    scale ``1/sqrt(Dqk)``, at the reference's tolerances."""
+    B, Sq, Sk, H, KV, Dqk, Dv, causal = case
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=s).astype(np.float32) for s in ((B, Sq, H, Dqk), (B, Sk, KV, Dqk), (B, Sk, KV, Dv)))
+    scale = 1.0 / np.sqrt(Dqk)
+    want = np.asarray(ref_chunked(*(jnp.asarray(a, jdt) for a in (q, k, v)), causal=causal, scale=scale, block=16),
+                      np.float32)
+    tq, tk, tv = (torch.as_tensor(a).to(tdt) for a in (q, k, v))
+    got = FA.flash_attention(tq, tk, tv, causal=causal, scale=scale)
+    assert got.dtype == tdt and got.shape == (B, Sq, H, Dv)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(FA.attention_ref(tq, tk, tv, causal=causal).float().numpy(), want, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize(
     "make,err",
     [
@@ -82,26 +119,40 @@ def test_flash_attention_matches_pallas_and_ref(case, dtype):
         (lambda: (torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8)), ValueError),
         (lambda: (torch.zeros(1, 4, 2, 16, dtype=torch.float16),) * 3, TypeError),
         (lambda: (torch.zeros(1, 2, 4, 16).transpose(1, 2),) + (torch.zeros(1, 4, 2, 16),) * 2, ValueError),
+        (lambda: (torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32), torch.zeros(2, 4, 2, 16)), ValueError),
+        (lambda: (torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32), torch.zeros(1, 5, 2, 16)), ValueError),
+        (lambda: (torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 1, 16)), ValueError),
+        (lambda: (torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32), torch.zeros(4, 2, 16)), ValueError),
     ],
-    ids=["heads-do-not-group", "head-dim-differs", "float16", "not-contiguous"],
+    ids=["heads-do-not-group", "head-dim-differs", "float16", "not-contiguous", "v-batch-differs",
+         "v-keys-differ", "v-kv-heads-differ", "v-not-4d"],
 )
 def test_flash_attention_rejects_bad_inputs(make, err):
     with pytest.raises(err):
         FA.flash_attention(*make())
 
 
-#: the configs LMModel builds: a ported family and no MLA (ROADMAP A.4b)
-SERVED = [a for a in ARCH_IDS if get_config(a).family in FAMILIES and get_config(a).mla is None]
+def test_check_accepts_a_value_width_of_its_own():
+    """v may be as wide as it likes; its batch, keys and KV heads are k's."""
+    q, k, v = torch.zeros(1, 4, 2, 32), torch.zeros(1, 6, 1, 32), torch.zeros(1, 6, 1, 16)
+    FA._check(q, k, v, None)
+    assert FA.flash_attention(q, k, v).shape == (1, 4, 2, 16)
+
+
+#: every config LMModel builds: all of the repo's
+SERVED = list(ARCH_IDS)
 
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 @pytest.mark.parametrize("arch", SERVED)
 def test_every_served_head_width_is_taken(arch, preset):
-    """The head width of every served config, at every preset, is one the
-    CUDA kernel takes (the predicate its wrapper checks on a CUDA tensor)."""
+    """Every (q/k, v) width pair that a config sends to B3, at every preset,
+    is one the CUDA kernel takes (the predicate its wrapper checks on a CUDA
+    tensor)."""
     model = LMModel(PRESETS[preset](get_config(arch)))
-    D = model.attention_head_dim
-    assert D is None or FA.head_dim_supported(D), (arch, preset, D)
+    for qk, v in model.attention_head_pairs:
+        assert FA.head_dims_supported(qk, v), (arch, preset, qk, v)
+    assert bool(model.attention_head_pairs) == (model.cfg.family != "ssm")
     check_kernel_heads(model)
 
 
@@ -109,4 +160,29 @@ def test_check_kernel_heads_names_the_config():
     cfg = dataclasses.replace(get_config("stablelm-3b"), head_dim=72)
     with pytest.raises(ValueError, match="stablelm-3b: head_dim 72"):
         check_kernel_heads(LMModel(cfg))
-    assert not FA.head_dim_supported(72) and FA.head_dim_supported(80)
+    assert not FA.head_dims_supported(72, 72) and FA.head_dims_supported(80, 80)
+    mla = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(mla, mla=dataclasses.replace(mla.mla, v_head_dim=96))
+    with pytest.raises(ValueError, match="deepseek-v2-lite-16b: head_dim 192 .q/k. / 96 .v."):
+        check_kernel_heads(LMModel(cfg))
+
+
+def test_head_pair_predicate():
+    """Equal widths: the multiples of 16 up to 128; unequal: MLA's pairs
+    only, in that order (q/k, v)."""
+    for d in range(1, 200):
+        assert FA.head_dims_supported(d, d) == (d % 16 == 0 and d <= 128), d
+    assert FA.head_dims_supported(192, 128) and FA.head_dims_supported(48, 32)
+    for qk, v in [(128, 192), (32, 48), (192, 192), (192, 64), (64, 32), (48, 16)]:
+        assert not FA.head_dims_supported(qk, v), (qk, v)
+
+
+def test_head_pairs_are_the_cuda_sources():
+    """The pure-Python list of compiled pairs is the one the CUDA source
+    dispatches on (``REPRO_HEAD_DIMS`` and ``REPRO_HEAD_PAIRS``)."""
+    src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    equal = re.search(r"#define REPRO_HEAD_DIMS\(X\) (.*)", src).group(1)
+    pairs = re.search(r"#define REPRO_HEAD_PAIRS\(X\) (.*)", src).group(1)
+    compiled = [(int(d), int(d)) for d in re.findall(r"X\((\d+)\)", equal)]
+    compiled += [(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", pairs)]
+    assert tuple(compiled) == FA.HEAD_PAIRS

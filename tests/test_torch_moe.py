@@ -324,7 +324,7 @@ def test_tiny_llama4_prefill_and_capacity_limited_decode_match_reference(llama4_
 def test_full_llama4_matches_the_reference_parameter_count():
     model = LMModel(get_config(ARCH))
     assert model.param_count() == RefModel(ref_config(ARCH)).param_count() == 107_769_861_120
-    assert [s.name for s in model.segments] == ["moe"] and model.attention_head_dim == 128
+    assert [s.name for s in model.segments] == ["moe"] and model.attention_head_pairs == {(128, 128)}
     cut = LMModel(dataclasses.replace(get_config(ARCH), n_layers=8))
     assert cut.param_count() == 19_685_790_720
 

@@ -6,8 +6,11 @@ weights, carried over with ``from_reference``; the prompt (40) is longer than
 the tiny window (32).  For llama4-scout (MoE) the same holds, and the
 measured routing counts, the dispatch advice, the serving simulation's
 report and the chaos storm's trace hash equal the reference launcher's.
-The families the port does not run yet raise ``NotImplementedError``, and
-without ``--device`` the entry point needs a CUDA device.
+For deepseek-v2-lite (MLA + MoE), llama-3.2-vision (vlm) and whisper-large-v3
+(enc_dec) at the tiny preset, with the stub context embeddings drawn after
+the prompts as the reference launcher draws them, the greedy tokens equal
+the reference's too.  Without ``--device`` the entry point needs a CUDA
+device.
 """
 
 import dataclasses
@@ -34,9 +37,9 @@ REPO = Path(__file__).resolve().parents[1]
 BATCH, PROMPT, GEN = 2, 40, 6
 
 
-def _reference_greedy(model, params, prompts, gen):
+def _reference_greedy(model, params, prompts, gen, ctx=None):
     """The loop of ``repro.launch.serve.main``: prefill, re-home, greedy decode."""
-    logits, cache = model.prefill(params, prompts)
+    logits, cache = model.prefill(params, prompts, ctx)
     full = model.init_cache(prompts.shape[0], prompts.shape[1] + gen, model.dtype)
 
     def blend(dst, src):
@@ -93,18 +96,36 @@ def test_main_runs_on_the_cpu_when_asked(capsys):
     assert torch.equal(out["tokens"], again["tokens"])
 
 
-@pytest.mark.parametrize(
-    "argv",
-    [
-        ["--arch", "deepseek-v2-lite-16b"],
-        ["--arch", "llama-3.2-vision-90b"],
-        ["--arch", "whisper-large-v3"],
-    ],
-    ids=["mla-moe", "vlm", "enc-dec"],
-)
-def test_unported_families_and_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        serve.main(argv + ["--preset", "tiny", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama-3.2-vision-90b", "whisper-large-v3"],
+                         ids=["mla-moe", "vlm", "enc-dec"])
+def test_mla_vlm_enc_dec_greedy_tokens_match_reference(arch):
+    """The reference launcher's loop at the tiny preset (its default
+    ``chunked`` prefill) and the port's kernel route on the same weights,
+    prompts and stub context (drawn after the prompts from one seed) give
+    the same greedy tokens; so does the port's ``main`` on its own seed's
+    weights, twice."""
+    ref = RefModel(REF_PRESETS["tiny"](ref_config(arch)))
+    params = jax.jit(ref.init)(jax.random.PRNGKey(0))
+    prompts, ctx = serve.make_context(ref.cfg.vocab_size, BATCH, PROMPT, ref.ctx_len(), ref.cfg.d_model, seed=0)
+    assert (ctx is None) == (arch == "deepseek-v2-lite-16b")
+    want = _reference_greedy(ref, params, jnp.asarray(prompts, jnp.int32), GEN,
+                             None if ctx is None else jnp.asarray(ctx))
+    model = serve.LMModel(PRESETS["tiny"](serve.get_config(arch)))
+    tparams = from_reference(model, jax.tree.map(np.asarray, params), device="cpu")
+    out = serve.generate(model, tparams, torch.as_tensor(prompts), GEN, impl="kernel",
+                         ctx=None if ctx is None else torch.as_tensor(ctx))
+    np.testing.assert_array_equal(out["tokens"].numpy(), want)
+    argv = ["--arch", arch, "--preset", "tiny", "--device", "cpu", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed", "4"]
+    assert torch.equal(serve.main(argv)["tokens"], serve.main(argv)["tokens"])
+
+
+def test_vlm_layers_must_keep_whole_cross_groups():
+    with pytest.raises(ValueError, match="not a multiple of cross_attn_every 5"):
+        serve.build("llama-3.2-vision-90b", "tiny", device="cpu", layers=7)
+    model, params = serve.build("llama-3.2-vision-90b", "tiny", device="cpu", layers=10)
+    assert [(s.name, s.count) for s in model.segments] == [("self", 8), ("cross", 2)]
+    assert params["seg_cross"]["cross"]["wq"].shape[0] == 2
 
 
 # ---------------------------------------------------------------------------
