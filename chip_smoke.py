@@ -36,7 +36,12 @@ before it and read just after:
 * VLM serving: llama-3.2-vision-90b at full width (d_model 8192, 64/8 heads
   of 128, d_ff 28672, 1600 stub image tokens), 20 of its 100 layers (16
   self + 4 cross, 19,281,551,360 parameters), batch 4 x 2048, 16 greedy
-  tokens; kernel B3 in self- and cross-attention.
+  tokens; kernel B3 in self- and cross-attention;
+* training: stablelm-3b at full width and depth (2,795,276,800 parameters,
+  bf16 compute on float32 masters), batch 2 x 4096, 10 AdamW steps through
+  ``repro_torch.runtime.Trainer``; no kernel (B3 and B4 have no backward,
+  and the trainer runs the plain attention and SSD under autograd, as the
+  reference trains with ``impl="dot"``): B3/B4 launch 0 times.
 
 Phases, each of which fails the run on any error:
 
@@ -103,7 +108,15 @@ Phases, each of which fails the run on any error:
    launch at a shape phase 9 checked and timed, and never in decode, finite
    logits, times, peak memory, capacity drops
    (deepseek), the decode busy share and the prefill's device time by class;
-17. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
+17. the training path (``train``): stablelm-3b at full width and depth,
+   10 steps at 2 x 4096 (finite, falling losses; the working copy equal to
+   the masters cast to bf16; no B3/B4 launch), ms per step, tokens/s, MFU,
+   peak memory, and 2 profiled steps' busy share and device time by class;
+   then the 100m preset in float32, 3 steps on the card against the CPU,
+   and a failure at step 3 resumed from a checkpoint bitwise an
+   uninterrupted run; before ``fused``, whose graph replays would leave the
+   profiler blind;
+18. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
    on the case study): against the host loops (iterations, status, matvecs,
    histories within 1e-10, true residual), one fused-cache miss then a hit,
    graph replay bitwise the eager body, histories bitwise across strategies
@@ -115,7 +128,7 @@ Phases, each of which fails the run on any error:
    times the replays, held to the profiler's count of B1 kernels in a
    profiled solve); last, because after it ``torch.profiler`` records no
    device activity in this process;
-18. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
+19. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
     B3 entry's launches are its main path's launches at that shape), the
@@ -200,6 +213,22 @@ VLM_ARCH = "llama-3.2-vision-90b"
 VLM_LAYERS = 20
 VLM_BATCH, VLM_PROMPT, VLM_GEN = 4, 2048, 16
 VLM_CHECK = {"layers": 5, "batch": 2, "prompt": 512, "gen": 8}
+
+#: the training path: stablelm-3b at full width and depth (32 layers,
+#: d_model 2560, 32 heads of 80, d_ff 6912, vocab 50304) with bf16 compute
+#: on float32 masters, the reference's train_4k sequence of 4096 tokens and
+#: its global batch of 256 cut to 2 for one card; remat "full", the
+#: launcher's AdamW (lr 3e-3, warmup steps // 10); 10 steps, of which the
+#: median of 3-10 is reported, then 2 more under the profiler
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 10, 3e-3
+#: the float32 check: the 100m preset, 3 steps on the card against the same
+#: steps on the CPU, then checkpoints every 2 steps, a failure injected at
+#: step 3 and a resume to step 6 against an uninterrupted run
+TRAIN_CHECK = {"preset": "100m", "batch": 2, "seq": 128, "steps": 3, "resume_steps": 6, "fail_at": 3,
+               "every": 2}
+#: the card's losses against the CPU's (relative)
+TOL_TRAIN_LOSS = 1e-4
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) FLOP/s
 #: and dense bf16 tensor-core FLOP/s
@@ -2357,6 +2386,273 @@ def phase_serve_vlm(ctx) -> None:
     serve_family(ctx, "serve_vlm", VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_CHECK)
 
 
+#: profiler labels of the trainer's two phases outside the model
+TRAIN_RANGES = ("train.adamw", "train.cast")
+
+
+def train_split(prof, seq: int, steps: int) -> dict:
+    """Device ms per step of a profiled training window, by class: the
+    AdamW update with its clipping and the master -> working cast (ops under
+    those ``record_function`` ranges), GEMMs (``mm``/``bmm``/``addmm``,
+    forward and backward), the attention's elementwise work (any other op
+    with an input whose last two dims are ``seq x seq``: the scores and
+    probabilities, and their gradients), and the rest.  Each kernel counts
+    for the innermost aten op that launched it; ``device_events_ms`` is the
+    device's own record of its kernels, copies and sets (the busy share's
+    numerator)."""
+    from torch.autograd import DeviceType
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    def label(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name in TRAIN_RANGES:
+                return p.name
+            p = p.cpu_parent
+        return None
+
+    split = {"gemms": 0.0, "attention_elementwise": 0.0, "adamw_and_clip": 0.0, "master_cast": 0.0, "other": 0.0}
+    names = {"train.adamw": "adamw_and_clip", "train.cast": "master_cast"}
+    device_events = 0.0  # kernels, copies and sets as the device recorded them
+    ops = {}
+    for e in prof.events():
+        us = self_us(e)
+        if e.name in TRAIN_RANGES or us <= 0:  # a range's own span is not work
+            continue
+        if e.device_type != DeviceType.CPU:
+            device_events += us
+            continue
+        if not e.name.startswith("aten::"):  # runtime markers ("Command Buffer Full") repeat op time
+            continue
+        ops[e.name] = ops.get(e.name, 0.0) + us
+        where = label(e)
+        if where:
+            split[names[where]] += us
+        elif e.name in ("aten::mm", "aten::bmm", "aten::addmm"):
+            split["gemms"] += us
+        elif any(len(sh) >= 2 and tuple(sh[-2:]) == (seq, seq) for sh in (e.input_shapes or ())):
+            split["attention_elementwise"] += us
+        else:
+            split["other"] += us
+    out = {k: v / 1e3 / steps for k, v in split.items()}
+    out["device_ms"] = sum(out.values())
+    out["device_events_ms"] = device_events / 1e3 / steps
+    if out["device_ms"] <= 0 or device_events <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    out["top_ops"] = [{"name": k, "ms_per_step": v / 1e3 / steps}
+                      for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:15]]
+    return out
+
+
+def phase_train(ctx) -> None:
+    """The training path through ``repro_torch.runtime.Trainer``:
+
+    1. stablelm-3b at full width and depth, bf16 compute on float32
+       masters, batch 2 x 4096, 10 steps (counts reset just before, read
+       just after: no B3/B4 launch, since the trainer runs ``attend_dot``
+       and the plain SSD under autograd); ms per step, tokens/s, MFU on
+       6·N·T, peak memory; then 2 profiled steps: busy share and device ms
+       by class; gates: finite losses, the mean of steps 8-10 under step 1's,
+       the working copy equal to ``master.to(bf16)`` bitwise;
+    2. the 100m preset in float32: 3 steps on the card against the same 3
+       on the CPU from the same masters (losses within 1e-4, masters by
+       ``compare_trajectories``), then checkpoints every 2 steps, a failure
+       at step 3 and a resume to step 6, bitwise an uninterrupted run.
+    """
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.checkpoint import flatten_state, map_state
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.presets import PRESETS
+    from repro_torch.models.sharding import tree_items
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainerConfig
+    from repro_torch.runtime import trainer as trainer_mod
+    from repro_torch.testing.trajectory import compare_trajectories, noisy_steps
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+
+    def adamw_opt(steps):  # the launcher's
+        return AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(steps // 10, 1), total_steps=steps)
+
+    # ---- 1. stablelm-3b, full: the main path ----
+    B, S, N = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    cfg = get_config(TRAIN_ARCH)
+    trainer = Trainer(cfg, TrainerConfig(steps=N, batch=B, seq_len=S, log_every=1), adamw_opt(N), device=dev)
+    n_params = trainer.model.param_count()
+    step_ms = []
+    inner = trainer.step_fn
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in out["history"]]
+    state = out["state"]
+    work_equal = all(torch.equal(w.detach(), m.to(w.dtype))
+                     for (_, w), (_, m) in zip(tree_items(inner.work), tree_items(state["params"])))
+    ms = float(np.median(step_ms[2:]))
+    flops = 6 * n_params * B * S
+
+    # two more steps under the profiler, the update and the cast labelled
+    plain_update, plain_cast = trainer_mod.adamw_update, inner.cast
+
+    def labelled_update(*a, **k):
+        with record_function("train.adamw"):
+            return plain_update(*a, **k)
+
+    def labelled_cast(masters):
+        with record_function("train.cast"):
+            return plain_cast(masters)
+
+    trainer_mod.adamw_update, inner.cast = labelled_update, labelled_cast
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            t1 = time.perf_counter()
+            for k in range(2):
+                state, _ = inner(state, trainer.data.batch_at(N + k))
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t1) * 1e3 / 2
+    finally:
+        trainer_mod.adamw_update = plain_update
+        del inner.cast
+    split = train_split(prof, S, 2)
+    launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    main = {
+        "arch": TRAIN_ARCH, "parameters": n_params, "layers": cfg.n_layers, "batch": B, "seq": S,
+        "steps": N, "dtype": cfg.dtype, "masters": "float32", "remat": "full", "lr": TRAIN_LR,
+        "losses": losses, "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": B * S / ms * 1e3,
+        "model_tflop_per_step": flops / 1e12, "mfu": flops / (ms / 1e3) / BF16_TENSOR_FLOPS,
+        "max_memory_allocated": peak, "run_s": run_s,
+        "profile": {"wall_ms_per_step": prof_wall_ms, "busy_share": split["device_events_ms"] / prof_wall_ms,
+                    "busy_share_vs_unprofiled_step": split["device_events_ms"] / ms, **split},
+        "launches": launches,
+    }
+    log("[train] " + json.dumps(main))
+    del state, out, trainer, inner, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2. the 100m preset in float32: the card against the CPU, and resume ----
+    c = TRAIN_CHECK
+    cfg = PRESETS[c["preset"]](get_config(TRAIN_ARCH))
+
+    def small(steps, device, **kw):
+        return Trainer(cfg, TrainerConfig(steps=steps, batch=c["batch"], seq_len=c["seq"], log_every=1, **kw),
+                       adamw_opt(steps), device=device)
+
+    cpu = small(c["steps"], "cpu")
+    n_small = cpu.model.param_count()
+    init = cpu.init_state(SEED)  # drawn on the CPU, copied to the card: the same masters
+    card_init = map_state(lambda _, t: t.to(dev, copy=True), init)
+    on_card = small(c["steps"], dev)
+    on_card.init_state = lambda rng_seed=0: card_init
+    cpu.init_state = lambda rng_seed=0: init
+    # copies: on the CPU .numpy() would alias the moments the next step updates in place
+    flat = lambda tree: flatten_state(tree, copy=True)
+    moments = {"cpu": [], "card": []}  # after each step, to mark Adam's noise-driven elements
+
+    def recording(trainer, name):
+        inner = trainer.step_fn
+
+        def step(state, batch):
+            state, metrics = inner(state, batch)
+            moments[name].append((flat(state["opt"].mu), flat(state["opt"].nu)))
+            return state, metrics
+
+        trainer.step_fn = step
+
+    recording(cpu, "cpu")
+    recording(on_card, "card")
+    card_out = on_card.run()
+    cpu_out = cpu.run()
+    noisy = None
+    for t, ((mu_card, _), (mu_cpu, nu_cpu)) in enumerate(zip(moments["card"], moments["cpu"]), start=1):
+        noisy = noisy_steps(noisy, mu_card, mu_cpu, nu_cpu, t)
+    del moments
+    lr_sum = sum(float(warmup_cosine(adamw_opt(c["steps"]), torch.tensor(s)))
+                 for s in range(1, c["steps"] + 1))
+    card_losses = [h["loss"] for h in card_out["history"]]
+    cpu_losses = [h["loss"] for h in cpu_out["history"]]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    cmp = compare_trajectories(flat(card_out["state"]["params"]), flat(cpu_out["state"]["params"]), noisy, lr_sum)
+    del card_out, cpu_out, init, card_init, cpu, on_card
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        R, every = c["resume_steps"], c["every"]
+        full = small(R, dev, checkpoint_every=every, checkpoint_dir=os.path.join(tmp, "full")).run()
+        failing = small(R, dev, checkpoint_every=every, checkpoint_dir=os.path.join(tmp, "cut"),
+                        fail_at_step=c["fail_at"])
+        try:
+            failing.run()
+            failed = False
+        except SimulatedFailure:
+            failed = True
+        failing.ckpt.wait()  # the save submitted before the failure commits
+        resumed = small(R, dev, checkpoint_every=every, checkpoint_dir=os.path.join(tmp, "cut")).run()
+        ends = [(x["state"]["params"], x["state"]["opt"].mu, x["state"]["opt"].nu) for x in (full, resumed)]
+        resume_equal = (resumed["history"] == full["history"][every:]
+                        and torch.equal(full["state"]["opt"].step, resumed["state"]["opt"].step)
+                        and all(torch.equal(a, b) for ta, tb in zip(*ends)
+                                for (_, a), (_, b) in zip(tree_items(ta), tree_items(tb))))
+        resume = {"failed_at": c["fail_at"], "resumed_history": resumed["history"],
+                  "uninterrupted_history": full["history"]}
+        del full, failing, resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    check = {
+        "preset": c["preset"], "parameters": n_small,
+        "card_losses": card_losses, "cpu_losses": cpu_losses, "loss_rel_err": loss_rel,
+        "masters": cmp, "resume": resume,
+    }
+    log("[train] float32 check " + json.dumps(check))
+    ctx["details"]["train"] = {"stablelm_full": main, "float32_check": check, "launches": launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    checks = {
+        f"every loss finite ({len(losses)} steps)": len(losses) == N and all(math.isfinite(x) for x in losses),
+        f"mean loss of steps 8-10 {np.mean(losses[7:10]):.4f} < step 1's {losses[0]:.4f}":
+            bool(np.mean(losses[7:10]) < losses[0]),
+        "working copy == master.to(bf16) bitwise after the last step": work_equal,
+        f"B3/B4 launches across the phase {launches} = (0, 0)": launches == (0, 0),
+        f"100m float32 losses card vs CPU {loss_rel:.3e} <= {TOL_TRAIN_LOSS}": loss_rel <= TOL_TRAIN_LOSS,
+        f"100m float32 masters card vs CPU ({cmp['noise_driven']} of {cmp['elements']} driven by gradient noise, "
+        f"at most {cmp['max_marked_share']:.3e} of leaf {cmp['max_marked_leaf']}; out of tolerance "
+        f"{cmp['out_of_tolerance']}, marked beyond the share {cmp['marked_beyond_share']})": cmp["ok"],
+        f"failure injected at step {c['fail_at']} raised": failed,
+        "resume after the failure bitwise the uninterrupted run (history, masters, moments)": resume_equal,
+    }
+    for name, ok in checks.items():
+        log(f"[train] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("training path failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+
+
 def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
@@ -2401,6 +2697,7 @@ def main() -> int:
         ("serve_mla", phase_serve_mla),
         ("serve_whisper", phase_serve_whisper),
         ("serve_vlm", phase_serve_vlm),
+        ("train", phase_train),
         # last: after thousands of graph replays torch.profiler sessions in
         # this process record no device activity (PERF.md), and the phases
         # above gate on theirs

@@ -85,6 +85,12 @@ class ModelConfig:
     def padded_vocab(self, multiple: int = 16) -> int:
         return -(-self.vocab_size // multiple) * multiple
 
+    def approx_params(self) -> int:
+        """Rough dense-equivalent parameter count (used for MODEL_FLOPS)."""
+        from repro_torch.models.lm import LMModel  # local import to avoid cycle
+
+        return LMModel(self).param_count()
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

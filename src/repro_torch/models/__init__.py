@@ -2,14 +2,15 @@
 ``ssm``, ``hybrid``, ``vlm``, ``enc_dec``).
 
 Import the modules themselves (``repro_torch.models.lm`` and its
-neighbours).  The MoE names the reference exports from its package
-(``MoELayer``, ``MoEDispatcher``, ``RoutingBucketer``,
-``ExpertLoadHistogram``, ``recv_maps``) resolve here on first access, so
-importing this package file imports nothing and the kernel wrappers can use
-:mod:`repro_torch.models.ssd` without an import cycle.
+neighbours).  ``LMModel`` (the train / serve interface) and the MoE names
+the reference exports from its package (``MoELayer``, ``MoEDispatcher``,
+``RoutingBucketer``, ``ExpertLoadHistogram``, ``recv_maps``) resolve here on
+first access, so importing this package file imports nothing and the kernel
+wrappers can use :mod:`repro_torch.models.ssd` without an import cycle.
 """
 
 _EXPORTS = {
+    "LMModel": "repro_torch.models.lm",
     "MoELayer": "repro_torch.models.moe",
     "MoEDispatcher": "repro_torch.models.moe_dispatch",
     "RoutingBucketer": "repro_torch.models.moe_dispatch",

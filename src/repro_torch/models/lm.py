@@ -1,10 +1,11 @@
-"""LMModel: the serving interface over every architecture of the reference.
+"""LMModel: the train / serve interface over every architecture of the reference.
 
 The port of ``repro.models.lm`` for all six families (``dense``, ``moe``,
 ``ssm``, ``hybrid``, ``vlm``, ``enc_dec``): token embedding, the segments,
-final norm + LM head, full-sequence ``apply``, ``prefill`` returning a cache
-of stacked per-layer leaves, and a single-token ``decode_step``.  Parameters
-are a nested dict of tensors with the reference's names and shapes
+final norm + LM head, full-sequence ``apply`` and the training ``loss``,
+``prefill`` returning a cache of stacked per-layer leaves, and a
+single-token ``decode_step``.  Parameters are a nested dict of tensors with
+the reference's names and shapes
 (:meth:`LMModel.param_specs`); weights made by the reference carry over with
 :func:`repro_torch.models.convert.from_reference`.
 
@@ -113,7 +114,9 @@ class LMModel:
 
     # ------------------------------------------------------------------
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(self.dtype)
+        # F.embedding, not indexing: its backward sums repeated tokens in a
+        # fixed order (indexing's accumulates across CPU threads in any order)
+        return torch.nn.functional.embedding(tokens, params["embed"]).to(self.dtype)
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
@@ -124,7 +127,7 @@ class LMModel:
     def _positions(S: int, device) -> torch.Tensor:
         return torch.arange(S, device=device)[None, :]
 
-    def _context(self, params, ctx_emb, impl: str) -> Optional[torch.Tensor]:
+    def _context(self, params, ctx_emb, impl: str, remat: bool) -> Optional[torch.Tensor]:
         """The frontend adapter (then the encoder, for ``enc_dec``) over the
         stub embeddings ``ctx_emb [B, ctx_len, d_model]``; ``None`` without."""
         if ctx_emb is None:
@@ -133,23 +136,33 @@ class LMModel:
         if self.enc_segments:
             epos = self._positions(ctx.shape[1], ctx.device)
             for s in self.enc_segments:
-                ctx = s.apply(params[f"enc_{s.name}"], ctx, epos, impl=impl)
+                ctx = s.apply(params[f"enc_{s.name}"], ctx, epos, impl=impl, remat=remat)
         return ctx
 
-    def apply(self, params, tokens, ctx_emb=None, impl: str = "dot"):
-        """Full-sequence logits [B, S, vocab]."""
+    def apply(self, params, tokens, ctx_emb=None, impl: str = "dot", remat: bool = True):
+        """Full-sequence logits [B, S, vocab] (training / eval).  ``remat``
+        recomputes each layer in the backward (``Segment.apply``); without
+        autograd it changes nothing."""
         positions = self._positions(tokens.shape[1], tokens.device)
         x = self._embed(params, tokens)
-        ctx = self._context(params, ctx_emb, impl)
+        ctx = self._context(params, ctx_emb, impl, remat)
         for s in self.segments:
-            x = s.apply(params[f"seg_{s.name}"], x, positions, impl=impl, ctx=ctx)
+            x = s.apply(params[f"seg_{s.name}"], x, positions, impl=impl, ctx=ctx, remat=remat)
         return self._head(params, x)
+
+    def loss(self, params, batch: dict, impl: str = "dot", remat: bool = True) -> torch.Tensor:
+        """Mean next-token cross-entropy in float32. batch: tokens/labels
+        [B, S] (+ ``ctx`` stub embeddings for vlm / enc_dec)."""
+        logits = self.apply(params, batch["tokens"], batch.get("ctx"), impl=impl, remat=remat).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+        return (logz - gold).mean()
 
     def prefill(self, params, tokens, ctx_emb=None, impl: str = "chunked"):
         """Returns (last-position logits [B, 1, vocab], cache tree)."""
         positions = self._positions(tokens.shape[1], tokens.device)
         x = self._embed(params, tokens)
-        ctx = self._context(params, ctx_emb, impl)
+        ctx = self._context(params, ctx_emb, impl, remat=False)
         caches = {}
         for s in self.segments:
             x, caches[f"seg_{s.name}"] = s.prefill(params[f"seg_{s.name}"], x, positions, impl=impl, ctx=ctx)

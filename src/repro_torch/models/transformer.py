@@ -15,8 +15,11 @@ A model is a sequence of **segments**; each segment is ``count`` copies of
 one block with **stacked** ``[count, ...]`` parameters and cache leaves, as
 in the reference.  Where the reference scans the layers with ``lax.scan``,
 the port runs a Python loop over the stacked leaves, so weights carry over
-one to one.  Every block implements ``apply`` (full sequence), ``prefill``
-(full sequence, returns its cache slice) and ``decode`` (one token + cache).
+one to one; a training ``apply`` recomputes each layer in the backward
+(``torch.utils.checkpoint`` under ``REPRO_REMAT_POLICY``), where the
+reference wraps its scan body in ``jax.checkpoint``.  Every block
+implements ``apply`` (full sequence), ``prefill`` (full sequence, returns
+its cache slice) and ``decode`` (one token + cache).
 
 Departure from the reference: ``Block._mix`` hands ``impl="kernel"`` through
 to the Mamba-2 mixer, so the kernel route of a prefill runs the SSD kernel B4.
@@ -35,9 +38,12 @@ caches them per layer and decode reads them, never re-emitting them.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -351,6 +357,25 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _unbind(tree, count: int) -> list:
+    """The ``count`` per-layer trees of a stacked tree, by one ``unbind``
+    per leaf: under autograd its backward is one ``stack`` per leaf, where
+    indexing layer by layer would allocate and add into a zero tensor the
+    size of the whole stacked leaf once per layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(count)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` remat policy: keep the outputs of matrix products
+    without batch dimensions (``aten.mm``: the projections), as the
+    reference's ``dots_with_no_batch_dims_saveable`` does; batched products
+    (the attention scores, ``[B, H, S, S]`` each) are recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _stack(trees):
     first = trees[0]
     return {
@@ -373,9 +398,36 @@ class Segment:
 
         return tree_map(stack, self.block.params())
 
-    def apply(self, params, x, positions, *, impl, ctx=None):
-        for i in range(self.count):
-            x, _ = self.block.run(_layer(params, i), x, positions, impl=impl, mode="apply", ctx=ctx)
+    @staticmethod
+    def _checkpoint(body):
+        """Remat policy knob (read at each call): REPRO_REMAT_POLICY in
+        {"full" (default: save only the layer's input), "dots" (save the
+        outputs of unbatched matrix products, trading memory for recompute
+        FLOPs), "none" (no remat)}, the reference's.  Each layer runs under
+        ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
+        on the reference's scan body."""
+        policy = os.environ.get("REPRO_REMAT_POLICY", "full")
+        if policy == "none":
+            return body
+        kw = {}
+        if policy == "dots":
+            kw["context_fn"] = functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts, _save_dots
+            )
+        return functools.partial(torch.utils.checkpoint.checkpoint, body, use_reentrant=False, **kw)
+
+    def apply(self, params, x, positions, *, impl, ctx=None, remat: bool = True):
+        """Every layer over the full sequence.  ``remat`` recomputes each
+        layer in the backward (:meth:`_checkpoint`); it is a no-op when
+        autograd is off, as in serving."""
+
+        def body(layer_p, carry):
+            return self.block.run(layer_p, carry, positions, impl=impl, mode="apply", ctx=ctx)[0]
+
+        if remat and torch.is_grad_enabled():
+            body = Segment._checkpoint(body)
+        for layer_p in _unbind(params, self.count):
+            x = body(layer_p, x)
         return x
 
     def prefill(self, params, x, positions, *, impl, ctx=None):

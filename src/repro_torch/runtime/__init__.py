@@ -1,8 +1,13 @@
-"""Serving runtime control plane: straggler watchdog and admission control.
+"""Runtime: the trainer's step loop, straggler watchdog and admission control."""
 
-The trainer (``runtime/trainer.py`` in the reference) waits for ROADMAP A.4d.
-"""
-
+from repro_torch.runtime.trainer import SimulatedFailure, Trainer, TrainerConfig, build_train_step
 from repro_torch.runtime.watchdog import AdmissionController, StragglerWatchdog
 
-__all__ = ["AdmissionController", "StragglerWatchdog"]
+__all__ = [
+    "AdmissionController",
+    "SimulatedFailure",
+    "StragglerWatchdog",
+    "Trainer",
+    "TrainerConfig",
+    "build_train_step",
+]

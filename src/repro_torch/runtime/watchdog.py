@@ -5,8 +5,9 @@ keeps an EMA of step wall-time and flags steps beyond ``factor x EMA`` as
 straggler events; after ``budget`` consecutive events (straggler steps,
 integrity failures from :class:`repro_torch.comm.faults.HealthTracker`, or
 admission overload) it reports the escalation budget exhausted, which is
-the trainer's cue to checkpoint and restart (the trainer waits for ROADMAP
-A.4d).  A copy of the reference's ``runtime/watchdog.py``.
+the trainer's cue to checkpoint and restart
+(:class:`repro_torch.runtime.trainer.Trainer`).  A copy of the reference's
+``runtime/watchdog.py``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port on a CUDA GPU: the hand-written kernels against their plain
 versions, the exchange, SpMV and CG on the card against the same code on
-the CPU, and tiny serves (hymba, llama4-scout, deepseek-v2-lite's MLA,
-llama-3.2-vision, whisper) through the kernels against the plain route.
+the CPU, tiny serves (hymba, llama4-scout, deepseek-v2-lite's MLA,
+llama-3.2-vision, whisper) through the kernels against the plain route, and
+a tiny train step on the card against the same step on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode).  The file imports no JAX, so it runs on a GPU machine
@@ -499,3 +500,79 @@ def test_tiny_mla_vlm_enc_dec_kernel_vs_plain(dev, arch):
     want = generate(model, params, tokens, 4, impl="chunked", ctx=ctx)
     torch.testing.assert_close(got["logits"][0], want["logits"][0], rtol=1e-4, atol=1e-4)
     assert torch.equal(got["tokens"], want["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# training (no kernel: B3/B4 have no backward)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_train(dev, dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.presets import tiny
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import AdamWConfig
+
+    cfg = dataclasses.replace(tiny(get_config("stablelm-3b")), dtype=dtype)
+    model = LMModel(cfg)
+    params = model.init(torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=2, seq_len=64, seed=0, device="cpu")
+    return model, params, data, AdamWConfig(peak_lr=3e-3, warmup_steps=1, total_steps=4)
+
+
+def test_train_step_on_card_matches_cpu(dev, monkeypatch):
+    """One float32 step from the same masters and batch on the card and on
+    the CPU: loss within 1e-4, masters as ``compare_trajectories`` holds
+    them (1e-4 of each leaf's max abs but where gradient noise drives
+    Adam's step); no kernel."""
+    from repro_torch.checkpoint import flatten_state
+    from repro_torch.models.sharding import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import build_train_step
+    from repro_torch.testing.trajectory import compare_trajectories, noisy_steps
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model, params, data, opt = _tiny_train(dev)
+    on_card = tree_map(lambda t: t.to(dev, copy=True), params)  # the update writes in place
+    batch = data.batch_at(0)
+    n = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    cpu, m_cpu = build_train_step(model, opt)({"params": params, "opt": adamw_init(params)}, batch)
+    card, m_card = build_train_step(model, opt)({"params": on_card, "opt": adamw_init(on_card)},
+                                                {k: v.to(dev) for k, v in batch.items()})
+    assert (FA.flash_attention.launches, SSD.ssd_chunked.launches) == n
+    assert float(m_card["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-4)
+    flat = flatten_state
+    noisy = noisy_steps(None, flat(card["opt"].mu), flat(cpu["opt"].mu), flat(cpu["opt"].nu), 1)
+    cmp = compare_trajectories(flat(card["params"]), flat(cpu["params"]), noisy, float(m_cpu["lr"]))
+    print(f"{cmp['noise_driven']} of {cmp['elements']} marked, at most "
+          f"{cmp['max_marked_share']:.3e} of leaf {cmp['max_marked_leaf']}")  # shown by -rP
+    assert cmp["ok"], cmp
+
+
+def test_bf16_working_copy_equals_masters_on_card(dev):
+    from repro_torch.models.sharding import tree_items, tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import build_train_step
+
+    model, params, data, opt = _tiny_train(dev, "bfloat16")
+    params = tree_map(lambda t: t.to(dev), params)
+    state = {"params": params, "opt": adamw_init(params)}
+    step = build_train_step(model, opt)
+    for s in range(2):
+        state, metrics = step(state, {k: v.to(dev) for k, v in data.batch_at(s).items()})
+        assert torch.isfinite(metrics["loss"])
+        for (k, w), (_, m) in zip(tree_items(step.work), tree_items(state["params"])):
+            assert m.dtype == torch.float32 and w.dtype in (torch.bfloat16, torch.float32)
+            assert torch.equal(w.detach(), m.to(w.dtype)), k
+
+
+def test_trainer_refuses_the_kernel_route(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.presets import tiny
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    with pytest.raises(ValueError, match="no backward"):
+        Trainer(tiny(get_config("stablelm-3b")), TrainerConfig(impl="kernel"), device=dev)

@@ -46,7 +46,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.serving.request", "repro_torch.serving.queue",
                  "repro_torch.serving.batcher", "repro_torch.serving.sim",
                  "repro_torch.serving.executor", "repro_torch.runtime.watchdog",
-                 "repro_torch.testing.traces"):
+                 "repro_torch.testing.traces", "repro_torch.optim.adamw",
+                 "repro_torch.data.synthetic", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.runtime.trainer", "repro_torch.launch.train",
+                 "repro_torch.launch.mesh"):
         assert name in mods, name
     proc = _run(
         f"""
@@ -117,6 +120,36 @@ def test_entry_points_without_device_raise_when_no_cuda():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
+
+
+def test_train_entry_points_without_device_raise_when_no_cuda(tmp_path):
+    proc = _run(
+        f"""
+        import torch
+        assert not torch.cuda.is_available()
+        from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticTokens
+        from repro_torch.launch.presets import tiny
+        from repro_torch.launch.train import main
+        from repro_torch.runtime import Trainer, TrainerConfig
+        save_checkpoint({str(tmp_path)!r}, 1, {{"w": torch.zeros(2)}})
+        for make in (lambda: SyntheticTokens(vocab_size=16, batch=1, seq_len=4),
+                     lambda: Trainer(tiny(get_config("stablelm-3b")), TrainerConfig(steps=1)),
+                     lambda: load_checkpoint({str(tmp_path)!r}, {{"w": torch.zeros(2)}}),
+                     lambda: main(["--steps", "1"])):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+            else:
+                raise AssertionError("ran on the CPU without being asked to")
+        print("OK")
+        """,
+        CUDA_VISIBLE_DEVICES="",
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "OK"
 
 
 def _last_line(text: str) -> str:
