@@ -75,9 +75,10 @@ Phases, each of which fails the run on any error:
    phase gives it (hymba's, stablelm-3b's, llama4-scout's; MLA's q/k 192 /
    v 128; whisper's encoder, decoder self- and cross-attention; the vlm's
    self- and cross-attention), beside SDPA on its fastest backend that
-   takes the shapes; B3 beside SDPA at D = 128, S = 4096, causal; at hymba's
-   shapes (D = 64) the wgmma kernel beside the mma.sync kernel of the other
-   widths;
+   takes the shapes; B3 beside SDPA at D = 128, S = 4096, causal; at every
+   row the wgmma route serves (hymba's D 64, llama4-scout's and the vlm's
+   D 128, MLA's (192, 128)) the wgmma kernel beside the mma.sync kernel of
+   the other widths, both checked against the plain version;
 10. the serving path: in float32, the kernel route against the plain route
    (prefill logits, greedy tokens) and decode against the full forward;
    then the bfloat16 run, its prefill and decode times, peak memory, and the
@@ -95,8 +96,8 @@ Phases, each of which fails the run on any error:
    shipped, and one call's device time by class;
 13. llama4-scout serving: in float32 at 2 layers (2 x 1024, 8 tokens) the
    kernel route against the plain route; then the bfloat16 main path at 8
-   layers, B3 launched once per layer in the prefill and never in decode,
-   its times, memory, capacity drops, decode busy share and prefill device
+   layers, B3 launched once per layer in the prefill (every launch by the
+   wgmma route) and never in decode, its times, memory, capacity drops, decode busy share and prefill device
    time by class, and the dispatch advice, serving simulation and chaos
    storm on the served tokens;
 14.-16. this slice's serving paths (``serve_mla``, ``serve_whisper``,
@@ -105,7 +106,8 @@ Phases, each of which fails the run on any error:
    at 4 x 192, the vlm 4 + 1 layers at 2 x 512) the kernel route against the
    plain route and decode against the full forward; then the bfloat16 main
    path, B3 launched once per attention in the prefill (27, 96, 20), each
-   launch at a shape phase 9 checked and timed, and never in decode, finite
+   launch at a shape phase 9 checked and timed and by the wgmma route, and
+   never in decode, finite
    logits, times, peak memory, capacity drops
    (deepseek), the decode busy share and the prefill's device time by class;
 17. the training path (``train``): stablelm-3b at full width and depth,
@@ -141,7 +143,7 @@ exits non-zero and prints no result.  Details go to
 
 from __future__ import annotations
 
-import ctypes
+import gc
 import json
 import math
 import os
@@ -483,7 +485,7 @@ def phase_build(ctx) -> None:
     for name, info in built.items():
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] done in {seconds:.2f} s ({len(built)} compiled)")
     ctx["details"]["build_s"] = seconds
@@ -1630,36 +1632,40 @@ def phase_lm_kernels(ctx) -> None:
         del q32, k32, v32, q, k, v
         torch.cuda.empty_cache()
 
-    # ---- why B3 keeps two bf16 kernels: at hymba's path shapes (D = 64) the
-    # wgmma kernel the wrapper runs beside the mma.sync kernel that serves
-    # every other width, called through its own entry (not counted)
-    mma64 = FA._library().repro_flash_attention_bf16_mma64
-    cp, ci = ctypes.c_void_p, ctypes.c_int
-    mma64.argtypes = [cp, cp, cp, cp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, cp]
-    mma64.restype = ci
-    q, k, v = (randn(B, S, h, D).bfloat16() for h in (H, KV, KV))
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run_mma64():
-        err = mma64(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H, KV, 1, W,
-                    1.0 / D ** 0.5, stream)
-        if err != 0:
-            raise RuntimeError(f"mma.sync B3 at D = 64 failed with cudaError_t {err}")
-
-    run_mma64()
-    want = FA.attention_ref(q.float(), k.float(), v.float(), causal=True, window=W)
-    check(f"flash_attention mma.sync kernel at D = 64 path [{B},{S},{H},{D}] bfloat16", out, want, TOL_ATTN_BF16)
-    del want
-    t = {
-        "shape": [[B, S, H, D], [B, S, KV, D]], "dtype": "bfloat16", "window": W,
-        "wgmma_ms": timer(lambda: FA.flash_attention(q, k, v, causal=True, window=W)),
-        "mma_sync_ms": timer(run_mma64),
-    }
-    log("[lm_kernels] flash_attention bf16 kernels at D = 64, path shapes: " + json.dumps(t))
-    ctx["details"].setdefault("extra_timings", {})["flash_attention wgmma vs mma.sync D=64"] = t
-    del q, k, v, out
-    torch.cuda.empty_cache()
+    # ---- why B3 keeps two bf16 kernels: at each row the wgmma route serves
+    # (hymba's D 64, llama4-scout's and the vlm's D 128, deepseek's MLA
+    # (192, 128)) the wgmma kernel the wrapper runs beside the mma.sync
+    # kernel that serves every other width, called through its own entry
+    # (not counted), each checked against the float32 plain version
+    two_routes = [("path", *heads(B, S, S, H, KV, D), True, W),
+                  ("llama4-scout path", *heads(MOE_BATCH, MOE_PROMPT, MOE_PROMPT, *moe_heads), True, moe.window)]
+    two_routes += [(f"{phase} {line.removeprefix('flash_attention_')}", *case)
+                   for line, (phase, *case) in serve_b3_shapes().items() if phase in ("serve_mla", "serve_vlm")]
+    routes = ctx["details"].setdefault("flash_attention_routes", {})
+    for tag, qs, ks, vs, causal, win in two_routes:
+        if FA.kernel_route(qs[3], vs[3], torch.bfloat16) != "wgmma":
+            raise AssertionError(f"{tag}: bf16 at ({qs[3]}, {vs[3]}) does not take the wgmma route")
+        q, k, v = randn(*qs).bfloat16(), randn(*ks).bfloat16(), randn(*vs).bfloat16()
+        want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=win)
+        shape = f"{list(qs)}/{list(ks)}/{list(vs)}"
+        errs = {route: check(f"flash_attention {route} kernel {tag} {shape} bfloat16", fn(q, k, v, causal=causal,
+                                                                                            window=win), want,
+                             TOL_ATTN_BF16)
+                for route, fn in (("wgmma", FA.flash_attention), ("mma.sync", FA.flash_attention_mma))}
+        del want
+        torch.cuda.empty_cache()
+        t = {
+            "shape": [list(qs), list(ks), list(vs)], "dtype": "bfloat16", "causal": causal, "window": win,
+            "wgmma_ms": timer(lambda: FA.flash_attention(q, k, v, causal=causal, window=win)),
+            "mma_sync_ms": timer(lambda: FA.flash_attention_mma(q, k, v, causal=causal, window=win)),
+            "max_abs_err": errs,
+        }
+        log(f"[lm_kernels] flash_attention bf16 wgmma vs mma.sync, {tag}: " + json.dumps(t))
+        routes[tag] = t
+        if t["wgmma_ms"] >= t["mma_sync_ms"]:
+            log(f"[lm_kernels] NOTE {tag}: the wgmma route is not faster than mma.sync")
+        del q, k, v
+        torch.cuda.empty_cache()
 
     # ---- B3 at qwen3-32b's heads (64/8, D 128), S 4096, causal, no window,
     # beside SDPA (is_causal: its flash route), for the record
@@ -1705,8 +1711,13 @@ def phase_lm_kernels(ctx) -> None:
         "bound_by": b_by,
         "max_abs_err": err,
     }
-    # one call's CUDA launches and their device time (outside the main path's counts)
-    _, t["launch_profile"] = device_profile(lambda: SSD.ssd_chunked(x, loga, bb, cc, Q), 1, 8)
+    # one call's CUDA launches and their device time, averaged over three
+    # calls in one session (outside the main path's counts)
+    def three_calls():
+        for _ in range(3):
+            SSD.ssd_chunked(x, loga, bb, cc, Q)
+
+    _, t["launch_profile"] = device_profile(three_calls, 3, 8)
     log("[lm_kernels] ssd_chunked path float32: " + json.dumps(t))
     ctx["details"].setdefault("lm_kernel_timings", []).append(t)
     timings["ssd_chunked"] = t
@@ -2095,9 +2106,11 @@ def phase_serve_moe(ctx) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FA.flash_attention.launches = 0
+    FA.flash_attention.by_route.clear()
     moe.tally.reset()
     out = generate(model, p16, prompts, G, impl="kernel")
     launches = FA.flash_attention.launches
+    by_route = dict(FA.flash_attention.by_route)
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path ----
     served_tally = moe.tally.read()
@@ -2134,6 +2147,7 @@ def phase_serve_moe(ctx) -> None:
         "decode_tokens_per_s": B * (G - 1) / out["decode_s"],
         "max_memory_allocated": peak,
         "flash_attention_launches": launches,
+        "flash_attention_launches_by_route": by_route,
         "dropped": {"prefill": prefill_tally["dropped"], "decode": served_tally["dropped"] - prefill_tally["dropped"],
                     "routed_prefill": prefill_tally["routed"],
                     "routed_decode": served_tally["routed"] - prefill_tally["routed"]},
@@ -2159,6 +2173,8 @@ def phase_serve_moe(ctx) -> None:
             f32["logits_rel_err"] <= TOL_LOGITS,
         f"float32 greedy tokens equal up to the first top-2 gap under tol ({compared} steps)": tokens_ok,
         f"bfloat16 main path launched B3 {launches} = {L} (one prefill, none in decode)": launches == L,
+        f"every bfloat16 B3 launch at (128, 128) went by wgmma, none by mma.sync ({by_route})":
+            by_route == {"wgmma": launches},
         "every logit finite (float32 and bfloat16)": finite and f32["finite"],
     }
     for name, ok in checks.items():
@@ -2288,14 +2304,18 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
         tally.reset()
     FA.flash_attention.launches = 0
     FA.flash_attention.by_shape.clear()
+    FA.flash_attention.by_route.clear()
     out = generate(model, p16, prompts, gen, impl="kernel", ctx=cx)
     launches = FA.flash_attention.launches
     by_shape = dict(FA.flash_attention.by_shape)
+    by_route = dict(FA.flash_attention.by_route)
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path ----
     # B3's launches at each of this path's shapes in serve_b3_shapes
     per_shape = {line: by_shape.get(tuple(case), 0)
                  for line, (phase, *case) in serve_b3_shapes().items() if phase == tag}
+    # the route each of its width pairs takes in bf16 (all wgmma on these paths)
+    routes = {FA.kernel_route(qk, v, torch.bfloat16) for qk, v in model.attention_head_pairs}
     served_tally = tally.read() if tally is not None else None
     finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
 
@@ -2331,6 +2351,7 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
         "max_memory_allocated": peak,
         "flash_attention_launches": launches,
         "flash_attention_launches_by_shape": per_shape,
+        "flash_attention_launches_by_route": by_route,
         "decode_profile": {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
                            "device_busy_share": device_ms / wall_ms, "top_kernels": top},
         "prefill_split": split,
@@ -2356,6 +2377,8 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
         f"decode launches no B3 ({decode_extra})": decode_extra == 0,
         f"every B3 launch at a shape lm_kernels checked and timed, each of them launched ({per_shape})":
             sum(per_shape.values()) == launches and all(per_shape.values()),
+        f"every bfloat16 B3 launch at {sorted(model.attention_head_pairs)} went by wgmma, none by mma.sync "
+        f"({by_route})": routes == {"wgmma"} and by_route == {"wgmma": launches},
         "every logit finite (float32 and bfloat16)": finite and f32["finite"],
     }
     if tally is not None:
@@ -2664,6 +2687,33 @@ def kernels_line(ctx) -> dict:
     return {"kernels": out}
 
 
+#: the phases in the order ``main`` runs them
+PHASES = (
+    ("build", phase_build),
+    ("setup", phase_setup),
+    ("kernels", phase_kernels),
+    ("exchange", phase_exchange),
+    ("spmv", phase_spmv),
+    ("solve", phase_solve),
+    ("profile", phase_profile),
+    ("faults", phase_faults),
+    ("serving", phase_serving),
+    ("lm_kernels", phase_lm_kernels),
+    ("serve", phase_serve),
+    ("serve_stablelm", phase_serve_stablelm),
+    ("moe_dispatch", phase_moe_dispatch),
+    ("serve_moe", phase_serve_moe),
+    ("serve_mla", phase_serve_mla),
+    ("serve_whisper", phase_serve_whisper),
+    ("serve_vlm", phase_serve_vlm),
+    ("train", phase_train),
+    # last: after thousands of graph replays torch.profiler sessions in
+    # this process record no device activity (PERF.md), and the phases
+    # above gate on theirs
+    ("fused", phase_fused),
+)
+
+
 def main() -> int:
     import torch
 
@@ -2679,32 +2729,8 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     ctx = {"details": {"card": smi}}
-    phases = (
-        ("build", phase_build),
-        ("setup", phase_setup),
-        ("kernels", phase_kernels),
-        ("exchange", phase_exchange),
-        ("spmv", phase_spmv),
-        ("solve", phase_solve),
-        ("profile", phase_profile),
-        ("faults", phase_faults),
-        ("serving", phase_serving),
-        ("lm_kernels", phase_lm_kernels),
-        ("serve", phase_serve),
-        ("serve_stablelm", phase_serve_stablelm),
-        ("moe_dispatch", phase_moe_dispatch),
-        ("serve_moe", phase_serve_moe),
-        ("serve_mla", phase_serve_mla),
-        ("serve_whisper", phase_serve_whisper),
-        ("serve_vlm", phase_serve_vlm),
-        ("train", phase_train),
-        # last: after thousands of graph replays torch.profiler sessions in
-        # this process record no device activity (PERF.md), and the phases
-        # above gate on theirs
-        ("fused", phase_fused),
-    )
     t_all = time.perf_counter()
-    for name, fn in phases:
+    for name, fn in PHASES:
         t0 = time.perf_counter()
         try:
             fn(ctx)
@@ -2713,7 +2739,13 @@ def main() -> int:
             traceback.print_exc()
             log(f"chip_smoke: phase {name} FAILED")
             return 1
-        log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+        # what a reference cycle keeps outlives its phase until the collector
+        # runs (a caught fault's traceback once held serve_moe's 36.7 GiB of
+        # weights into serve_mla): collect here, and show what stays
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     line = kernels_line(ctx)
     ctx["details"]["kernels"] = line["kernels"]
     ctx["details"]["seconds"] = time.perf_counter() - t_all

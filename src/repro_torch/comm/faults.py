@@ -632,44 +632,49 @@ def run_ladder(
     """
     health = health if health is not None else HealthTracker()
     health.record_call()
-    if health.breaker_state(strategy, wire) == "half_open":
-        health.note_probe(strategy, wire)
     last: Optional[ExchangeIntegrityError] = None
-    for i in range(1 + max(0, max_retries)):
-        try:
-            out = attempt(strategy, wire)
-        except ExchangeIntegrityError as e:
-            last = e
-            health.record_failure(e)
-            continue
-        health.record_success(strategy, wire)
-        if i == 0:
-            return out, None
-        health.record_recovery("retry", strategy, wire)
-        return out, RecoveryPath("retry", strategy, wire)
-    if fallback and wire != "none":
-        try:
-            out = attempt(strategy, "none")
-        except ExchangeIntegrityError as e:
-            last = e
-            health.record_failure(e)
-        else:
-            health.record_success(strategy, "none")
-            health.record_recovery("demote", strategy, "none")
-            return out, RecoveryPath("demote", strategy, "none")
-    if fallback and choose_alternative is not None:
-        alt = choose_alternative(health, strategy)
-        if alt is not None and alt != strategy:
+    try:
+        if health.breaker_state(strategy, wire) == "half_open":
+            health.note_probe(strategy, wire)
+        for i in range(1 + max(0, max_retries)):
             try:
-                out = attempt(alt, "none")
+                out = attempt(strategy, wire)
             except ExchangeIntegrityError as e:
+                last = e
                 health.record_failure(e)
-                raise
-            health.record_success(alt, "none")
-            health.record_recovery("readvise", alt, "none")
-            return out, RecoveryPath("readvise", alt, "none")
-    assert last is not None
-    raise last
+                continue
+            health.record_success(strategy, wire)
+            if i == 0:
+                return out, None
+            health.record_recovery("retry", strategy, wire)
+            return out, RecoveryPath("retry", strategy, wire)
+        if fallback and wire != "none":
+            try:
+                out = attempt(strategy, "none")
+            except ExchangeIntegrityError as e:
+                last = e
+                health.record_failure(e)
+            else:
+                health.record_success(strategy, "none")
+                health.record_recovery("demote", strategy, "none")
+                return out, RecoveryPath("demote", strategy, "none")
+        if fallback and choose_alternative is not None:
+            alt = choose_alternative(health, strategy)
+            if alt is not None and alt != strategy:
+                try:
+                    out = attempt(alt, "none")
+                except ExchangeIntegrityError as e:
+                    health.record_failure(e)
+                    raise
+                health.record_success(alt, "none")
+                health.record_recovery("readvise", alt, "none")
+                return out, RecoveryPath("readvise", alt, "none")
+        assert last is not None
+        raise last
+    finally:
+        # a caught error's traceback holds this frame, and through it every
+        # caller's locals: drop it here, or they live until the collector runs
+        last = None
 
 
 def advise_alternative(

@@ -18,9 +18,16 @@
 // What bounds it on an H100: operations.  Each visible (query, key) pair
 // costs 2 * (DQK + DV) flops (QK^T and PV) against a few bytes of q/k/v/out, so the
 // least time is the visible band's flops over the peak rate of the input
-// type (989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32).
+// type (989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32).  The
+// bf16 kernels issue 2 * DQK + 4 * DV per pair (P V twice, below): at
+// (128, 128) 1.5x the bound's work, at (192, 128) 1.4x.
 //
-// Three kernels.  All three keep the band rules:
+// Three routes, by width pair and dtype (REPRO_WGMMA_PAIRS; the wrapper's
+// kernel_route says the same):
+//   bf16 at (64, 64), (128, 128), (192, 128)  flash_fwd_bf16_wgmma
+//   bf16 at every other compiled pair          flash_fwd_bf16 (mma.sync)
+//   f32 at every compiled pair                 flash_fwd_f32
+// All three keep the band rules:
 //  * only the key tiles inside the causal / window band are visited (the
 //    CTA walks from its first row's first visible key to its last row's
 //    last one; a warp or warpgroup skips the tiles its own rows cannot
@@ -37,16 +44,35 @@
 //    to 2^-9 of each term, more than the output check against float32
 //    allows; hi + lo leaves only the output's own bf16 rounding.
 //
-// bfloat16, D = 64 -- flash_fwd_bf16_wgmma, Hopper's shape: one CTA per
-// (128 query rows, query head, batch) of two consumer warpgroups (64 rows
-// each) and one producer warp.  The producer loads q once and keeps a ring
-// of two K/V tiles of 128 keys in flight by TMA (tensor maps from
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint: no
-// -lcuda), gated by full / empty mbarriers; TMA's 128-byte swizzle is the
-// layout wgmma reads and its zero fill covers rows past Sq / Sk.  Each
-// consumer computes S = Q K^T with wgmma m64n128k16 (both operands in
-// shared memory), then O += P V with wgmma m64n64k16, P from registers and
-// V read MN-major from shared memory.
+// bfloat16 at REPRO_WGMMA_PAIRS -- flash_fwd_bf16_wgmma<DQK, DV>, Hopper's
+// shape: one CTA per (128 query rows, query head, batch) of two consumer
+// warpgroups (64 rows each) and a producer warpgroup.  One producer thread
+// loads q once and keeps a ring of two K/V tiles of 128 keys in flight by
+// TMA (tensor maps from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: no -lcuda), gated by full / empty mbarriers;
+// TMA's 128-byte swizzle is the layout wgmma reads and its zero fill covers
+// rows past Sq / Sk.  A swizzle row holds 64 bf16, so q, k and v load as
+// boxes of 64 columns, one per sub-tile (q / k at 192: three, at 128: two;
+// v at 128: two), each its own 16 KB tile.  S = Q K^T is wgmma m64n128k16
+// with both operands in shared memory, four k-steps per sub-tile, each
+// sub-tile from its own descriptor.  O += P V takes P from registers and V
+// MN-major: at DV 64 one m64n64k16 per k-step; at DV 128 one m64n128k16
+// whose descriptor's leading byte offset is the 16 KB sub-tile stride
+// (chosen over two m64n64k16 on two halves of O: half the instructions per
+// k-step, and the same accumulator layout, flat).  Budget:
+// shared memory 80 KB at (64, 64), 160 KB at (128, 128), 208 KB at (192,
+// 128) (q 48 + K 2 x 48 + V 2 x 32), under the 227 KB a block may use.
+// Registers: a consumer thread holds O (DV / 2), S (64) and P hi + lo (64,
+// written as S dies) -- about 200 at DV 128 with addresses.  A block of 288
+// threads (one producer warp) is allocated as three warpgroups, 168
+// registers a thread, and spills at these widths; so the producer is a
+// whole warpgroup that setmaxnreg's down to 24 and the consumers up to 240
+// (ptxas -v at (64, 64), (128, 128) and (192, 128) alike: 168 registers at
+// entry, 0 bytes of spill stores and loads).  Each warpgroup waits on its Q K^T
+// before its softmax and on its P V before the next tile; the two
+// warpgroups overlap each other.  Issuing the next tile's Q K^T before this
+// tile's softmax would hold a second S (64 registers) beside O and P hi +
+// lo, at the edge of 240; it is not done.
 //
 // bfloat16, other widths -- flash_fwd_bf16: mma.sync.m16n8k16 (the
 // FlashAttention-2 shape).  One CTA per (128 query rows, query head,
@@ -54,10 +80,11 @@
 // tiles of 64 keys by cp.async into two shared stages, rows padded by 16
 // bytes so the ldmatrix reads (x4 for K, x4.trans for V) are free of bank
 // conflicts at every width.  A D = 80 row is 160 bytes, which no 128-byte
-// swizzle row holds; this kernel takes every width and every pair.  At
-// DQK 192 / DV 128 a thread holds 48 registers of q fragments, 64 of O and
-// 32 of S; the two stages of K and V tiles take 86,016 bytes of shared
-// memory (opt-in above 48 KB).
+// swizzle row holds; this kernel takes every width and every pair (and is
+// reachable at the wgmma pairs through repro_flash_attention_bf16_mma, for
+// timing the two).  At DQK 192 / DV 128 a thread holds 48 registers of q
+// fragments, 64 of O and 32 of S (244 registers, no spills); the two stages
+// of K and V tiles take 86,016 bytes of shared memory (opt-in above 48 KB).
 //
 // float32 -- flash_fwd_f32: exact fp32 on the CUDA cores (the tensor
 // cores' TF32 would cost the float32 checks their digits).  One CTA per
@@ -80,6 +107,8 @@
 #define REPRO_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 // (DQK, DV) with DQK != DV: deepseek-v2-lite-16b (full, 100m) and its tiny preset
 #define REPRO_HEAD_PAIRS(X) X(192, 128) X(48, 32)
+// the pairs whose bfloat16 runs flash_fwd_bf16_wgmma (the rest: flash_fwd_bf16)
+#define REPRO_WGMMA_PAIRS(X) X(64, 64) X(128, 128) X(192, 128)
 
 namespace {
 
@@ -378,23 +407,38 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 64: wgmma, TMA and a producer warp
+// bfloat16 at REPRO_WGMMA_PAIRS: wgmma, TMA and a producer warpgroup
 // ---------------------------------------------------------------------------
 
 namespace wg {
-constexpr int kD = 64;                       // one 128-byte swizzle row per key / query
+constexpr int kSw = 64;                      // bf16 of one 128-byte swizzle row: a sub-tile's width
 constexpr int kBM = 128;                     // query rows per CTA: two consumer warpgroups
 constexpr int kBN = 128;                     // keys per tile
 constexpr int kRing = 2;                     // K/V tiles in flight
 constexpr int kConsumers = 256;              // threads of the two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;    // + one producer warp
-constexpr uint32_t kQBytes = kBM * kD * 2;
-constexpr uint32_t kTileBytes = kBN * kD * 2;
-// shared layout from a 1024-byte aligned base (the 128-byte swizzle's period)
-constexpr uint32_t kOffK = kQBytes;
-constexpr uint32_t kOffV = kOffK + kRing * kTileBytes;
-constexpr uint32_t kOffBar = kOffV + kRing * kTileBytes;
-constexpr size_t kSmemBytes = kOffBar + 8 * (2 * kRing + 1) + 1024;
+constexpr int kThreads = kConsumers + 128;   // + one producer warpgroup
+// setmaxnreg: the producer gives back what the consumers take (the block
+// starts at 65,536 / 384 = 168 a thread), 128 x 24 + 256 x 240 <= 65,536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr uint32_t kSub = kBN * kSw * 2;     // bytes of a sub-tile: 128 rows of one swizzle row
+constexpr uint32_t kSubDesc = kSub >> 4;     // the same step in a wgmma descriptor's address
+// shared layout from a 1024-byte aligned base (the 128-byte swizzle's period):
+// q, then the ring of K tiles, then that of V tiles, each row DQK (DV) wide
+// as DQK / 64 (DV / 64) sub-tiles of 64 columns, then the barriers
+template <int DQK, int DV>
+struct Layout {
+  static_assert(DQK % kSw == 0 && (DV == 64 || DV == 128), "wgmma widths are whole swizzle rows");
+  static constexpr int kCQK = DQK / kSw;     // sub-tiles of a q / k row
+  static constexpr int kCV = DV / kSw;       // and of a v row
+  static constexpr uint32_t kQBytes = kCQK * kSub;
+  static constexpr uint32_t kKBytes = kCQK * kSub;
+  static constexpr uint32_t kVBytes = kCV * kSub;
+  static constexpr uint32_t kOffK = kQBytes;
+  static constexpr uint32_t kOffV = kOffK + kRing * kKBytes;
+  static constexpr uint32_t kOffBar = kOffV + kRing * kVBytes;
+  static constexpr size_t kSmemBytes = kOffBar + 8 * (2 * kRing + 1) + 1024;
+};
 }  // namespace wg
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -417,20 +461,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "r"(parity)
       : "memory");
 }
-// box of `map` at coordinates (0, c1, c2, c3) -> shared dst, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c1,
-                                         int c2, int c3) {
+// box of `map` at coordinates (c0, c1, c2, c3) -> shared dst, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(c1), "r"(c2), "r"(c3)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
 // wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle TMA writes: 8-row groups 1024 bytes apart (SBO), layout type 1
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  return ((uint64_t)(smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+// swizzle TMA writes: 8-row groups 1024 bytes apart (SBO), layout type 1.
+// lbo (in 16-byte units) is read only for an MN-major operand wider than
+// one swizzle row: the step from one 64-column sub-tile to the next
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo = 1) {
+  return ((uint64_t)(smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) | (64ull << 32) |
+         (1ull << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -440,6 +487,14 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // d (m64 x n128, fp32) = A (desc, K-major) * B (desc, K-major) + (scale_d ? d : 0)
@@ -481,17 +536,54 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// grid (ceil(Sq / 128), H, B), block wg::kThreads, dynamic smem wg::kSmemBytes.
-// Warpgroups 0 and 1 each own 64 query rows; warp 8 issues the TMA loads of
-// q (once) and of the K/V ring, gated by full / empty mbarriers.
+// d (m64 x n128, fp32) += A (registers, bf16 fragment) * B (desc, MN-major,
+// two 64-column sub-tiles LBO apart)
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V for one k-step of 16 keys: an m64n64 product at DV 64, one
+// m64n128 product over V's two sub-tiles at DV 128
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n64_rs(d, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n128_rs(d, a, db);
+}
+
+// grid (ceil(Sq / 128), H, B), block wg::kThreads, dynamic smem
+// Layout<DQK, DV>::kSmemBytes.  Warpgroups 0 and 1 each own 64 query rows;
+// warpgroup 2 gives up its registers and one of its threads issues the TMA
+// loads of q (once) and of the K/V ring, one box per 64-column sub-tile,
+// gated by full / empty mbarriers.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                      int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2) {
   using namespace wg;
+  using L = Layout<DQK, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + kOffBar);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kOffBar);
   uint64_t* empty = full + kRing;
   uint64_t* qbar = empty + kRing;
 
@@ -514,128 +606,145 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {  // the producer warp: one lane issues every copy
+  if (tid >= kConsumers) {  // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
     if (tid == kConsumers) {
       const int kvh = h / (H / KV);
-      mbar_expect_tx(qbar, kQBytes);
-      tma_load(base, &tq, qbar, h, q0, b);
+      mbar_expect_tx(qbar, L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < L::kCQK; ++c) tma_load(base + c * kSub, &tq, qbar, c * kSw, h, q0, b);
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % kRing;
+        const int k0 = kbeg + it * kBN;
         mbar_wait(&empty[s], ((it / kRing) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        tma_load(base + kOffK + s * kTileBytes, &tk, &full[s], kvh, kbeg + it * kBN, b);
-        tma_load(base + kOffV + s * kTileBytes, &tv, &full[s], kvh, kbeg + it * kBN, b);
+        mbar_expect_tx(&full[s], L::kKBytes + L::kVBytes);
+#pragma unroll
+        for (int c = 0; c < L::kCQK; ++c) {
+          tma_load(base + L::kOffK + s * L::kKBytes + c * kSub, &tk, &full[s], c * kSw, kvh, k0, b);
+        }
+#pragma unroll
+        for (int c = 0; c < L::kCV; ++c) {
+          tma_load(base + L::kOffV + s * L::kVBytes + c * kSub, &tv, &full[s], c * kSw, kvh, k0, b);
+        }
       }
     }
-    return;
-  }
+  } else {  // the two consumer warpgroups
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wgi = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int g0 = q0 + wgi * 64;  // this warpgroup's rows and the keys any of them sees
+    const int grows = min(64, Sq - g0);
+    const int glo = window > 0 ? max(0, g0 + off - window + 1) : 0;
+    const int ghi = causal ? min(Sk - 1, g0 + grows - 1 + off) : Sk - 1;
+    const int rows[2] = {g0 + warp * 16 + g, g0 + warp * 16 + g + 8};
 
-  const int wgi = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int g0 = q0 + wgi * 64;  // this warpgroup's rows and the keys any of them sees
-  const int grows = min(64, Sq - g0);
-  const int glo = window > 0 ? max(0, g0 + off - window + 1) : 0;
-  const int ghi = causal ? min(Sk - 1, g0 + grows - 1 + off) : Sk - 1;
-  const int rows[2] = {g0 + warp * 16 + g, g0 + warp * 16 + g + 8};
-
-  float o[32];
+    float o[DV / 2];  // the m64n64 (m64n128) accumulator of P V
 #pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  const uint64_t dq = desc_sw128(base + wgi * 64 * kD * 2);
+    for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    const uint64_t dq = desc_sw128(base + wgi * 64 * kSw * 2);
 
-  mbar_wait(qbar, 0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int s = it % kRing;
-    mbar_wait(&full[s], (it / kRing) & 1);
-    const int k0 = kbeg + it * kBN;
-    if (grows > 0 && k0 <= ghi && k0 + kBN - 1 >= glo) {
-      const uint64_t dk = desc_sw128(base + kOffK + s * kTileBytes);
-      const uint64_t dv = desc_sw128(base + kOffV + s * kTileBytes);
-      // S = Q K^T, four k-steps of 16 along D (32 bytes of the swizzled row)
-      float sc[64];
-      wgmma_fence();
+    mbar_wait(qbar, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % kRing;
+      mbar_wait(&full[s], (it / kRing) & 1);
+      const int k0 = kbeg + it * kBN;
+      if (grows > 0 && k0 <= ghi && k0 + kBN - 1 >= glo) {
+        const uint64_t dk = desc_sw128(base + L::kOffK + s * L::kKBytes);
+        const uint64_t dv = desc_sw128(base + L::kOffV + s * L::kVBytes, L::kCV == 2 ? kSubDesc : 1);
+        // S = Q K^T: per 64-column sub-tile of q and k, four k-steps of 16
+        // (32 bytes of the swizzled row); the next sub-tile is its own
+        // 16 KB tile, so its descriptor starts there, not 2 steps on
+        float sc[64];
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n128_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
-      wgmma_commit();
-      wgmma_wait0();
+        for (int c = 0; c < L::kCQK; ++c) {
+#pragma unroll
+          for (int kk = 0; kk < kSw / 16; ++kk) {
+            wgmma_m64n128_ss(sc, dq + c * kSubDesc + 2 * kk, dk + c * kSubDesc + 2 * kk, c + kk);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait0();
 
-      const bool edge = k0 + kBN > Sk || (causal && k0 + kBN - 1 > g0 + off) ||
-                        (window > 0 && k0 <= g0 + 63 + off - window);
-      if (edge) {
+        const bool edge = k0 + kBN > Sk || (causal && k0 + kBN - 1 > g0 + off) ||
+                          (window > 0 && k0 <= g0 + 63 + off - window);
+        if (edge) {
+#pragma unroll
+          for (int e = 0; e < 64; ++e) {
+            const int kp = k0 + (e / 4) * 8 + 2 * t + (e & 1);
+            if (!visible(kp, rows[(e >> 1) & 1] + off, Sk, causal, window)) sc[e] = -INFINITY;
+          }
+        }
+        // online softmax in the log2 domain, as in flash_fwd_bf16
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * nt], sc[4 * nt + 1]) * scale_log2);
+          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]) * scale_log2);
+        }
+        float msafe[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          msafe[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+          const float alpha = exp2f(m[r] - msafe[r]);
+          m[r] = mx[r];
+          l[r] *= alpha;
+#pragma unroll
+          for (int dt = 0; dt < DV / 8; ++dt) {
+            o[4 * dt + 2 * r] *= alpha;
+            o[4 * dt + 2 * r + 1] *= alpha;
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 64; ++e) {
-          const int kp = k0 + (e / 4) * 8 + 2 * t + (e & 1);
-          if (!visible(kp, rows[(e >> 1) & 1] + off, Sk, causal, window)) sc[e] = -INFINITY;
+          const float p = exp2f(fmaf(sc[e], scale_log2, -msafe[(e >> 1) & 1]));
+          sc[e] = p;
+          l[(e >> 1) & 1] += p;
         }
-      }
-      // online softmax in the log2 domain, as in flash_fwd_bf16
-      float mx[2] = {m[0], m[1]};
+        // P as wgmma A fragments (bf16 hi + lo), all written before the fence
+        uint32_t phi[kBN / 16][4], plo[kBN / 16][4];
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * nt], sc[4 * nt + 1]) * scale_log2);
-        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]) * scale_log2);
-      }
-      float msafe[2];
+        for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        msafe[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-        const float alpha = exp2f(m[r] - msafe[r]);
-        m[r] = mx[r];
-        l[r] *= alpha;
-#pragma unroll
-        for (int dt = 0; dt < kD / 8; ++dt) {
-          o[4 * dt + 2 * r] *= alpha;
-          o[4 * dt + 2 * r + 1] *= alpha;
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
+            split_bf16(sc[i], sc[i + 1], phi[kk][e], plo[kk][e]);
+          }
         }
-      }
+        // O += P V, eight k-steps of 16 keys (16 rows, 2048 bytes, of each V
+        // sub-tile), one product over all of v's columns
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 64; ++e) {
-        const float p = exp2f(fmaf(sc[e], scale_log2, -msafe[(e >> 1) & 1]));
-        sc[e] = p;
-        l[(e >> 1) & 1] += p;
-      }
-      // P as wgmma A fragments (bf16 hi + lo), all written before the fence
-      uint32_t phi[kBN / 16][4], plo[kBN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
-          split_bf16(sc[i], sc[i + 1], phi[kk][e], plo[kk][e]);
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          wgmma_pv(o, phi[kk], dv + 128 * kk);
+          wgmma_pv(o, plo[kk], dv + 128 * kk);
         }
+        wgmma_commit();
+        wgmma_wait0();
       }
-      // O += P V, eight k-steps of 16 keys (16 rows, 2048 bytes, of the V tile)
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        wgmma_m64n64_rs(o, phi[kk], dv + 128 * kk);
-        wgmma_m64n64_rs(o, plo[kk], dv + 128 * kk);
-      }
-      wgmma_commit();
-      wgmma_wait0();
+      mbar_arrive(&empty[s]);
     }
-    mbar_arrive(&empty[s]);
-  }
 
-  __nv_bfloat16* ob = out + (int64_t)b * Sq * H * kD + (int64_t)h * kD;
+    __nv_bfloat16* ob = out + (int64_t)b * Sq * H * DV + (int64_t)h * DV;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float den = l[r];
-    den += __shfl_xor_sync(0xffffffffu, den, 1);
-    den += __shfl_xor_sync(0xffffffffu, den, 2);
-    const float inv = 1.f / fmaxf(den, 1e-30f);
-    if (rows[r] >= Sq) continue;
+    for (int r = 0; r < 2; ++r) {
+      float den = l[r];
+      den += __shfl_xor_sync(0xffffffffu, den, 1);
+      den += __shfl_xor_sync(0xffffffffu, den, 2);
+      const float inv = 1.f / fmaxf(den, 1e-30f);
+      if (rows[r] >= Sq) continue;
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)rows[r] * H * kD + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[4 * dt + 2 * r] * inv, o[4 * dt + 2 * r + 1] * inv);
+      for (int dt = 0; dt < DV / 8; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)rows[r] * H * DV + dt * 8 + 2 * t) =
+            __floats2bfloat162_rn(o[4 * dt + 2 * r] * inv, o[4 * dt + 2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -833,16 +942,16 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// [B, rows, heads, 64] bf16 as a 4-d tensor map, boxes of 128 rows of one
-// head, 128-byte swizzle; rows past the end read as zeros
-bool head_rows_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+// [B, rows, heads, width] bf16 as a 4-d tensor map, boxes of 64 columns
+// (one 128-byte swizzle row) by 128 rows of one head; rows past the end
+// read as zeros
+bool head_rows_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads, int width) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)wg::kD, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)wg::kD * 2, (cuuint64_t)heads * wg::kD * 2,
-                                 (cuuint64_t)rows * heads * wg::kD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)wg::kD, 1, (cuuint32_t)wg::kBN, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)width * 2, (cuuint64_t)heads * width * 2,
+                                 (cuuint64_t)rows * heads * width * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)wg::kSw, 1, (cuuint32_t)wg::kBN, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -850,20 +959,22 @@ bool head_rows_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int DQK, int DV>
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                       int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
   static_assert(wg::kBM == wg::kBN, "q and K/V share the box of 128 rows");
+  constexpr size_t smem = wg::Layout<DQK, DV>::kSmemBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
   CUtensorMap tq, tk, tv;
-  if (!head_rows_map(&tq, q, B, Sq, H) || !head_rows_map(&tk, k, B, Sk, KV) ||
-      !head_rows_map(&tv, v, B, Sk, KV)) {
+  if (!head_rows_map(&tq, q, B, Sq, H, DQK) || !head_rows_map(&tk, k, B, Sk, KV, DQK) ||
+      !head_rows_map(&tv, v, B, Sk, KV, DV)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_wgmma,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)wg::kSmemBytes);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_wgmma<DQK, DV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + wg::kBM - 1) / wg::kBM, H, B);
-  flash_fwd_bf16_wgmma<<<grid, wg::kThreads, wg::kSmemBytes, s>>>(
+  flash_fwd_bf16_wgmma<DQK, DV><<<grid, wg::kThreads, smem, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal, window,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -883,12 +994,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// whether bf16 at (DQK, DV) runs the wgmma kernel (REPRO_WGMMA_PAIRS)
+template <int DQK, int DV>
+constexpr bool wgmma_pair() {
+#define REPRO_IS(dqk, dv) (DQK == dqk && DV == dv) ||
+  return REPRO_WGMMA_PAIRS(REPRO_IS) false;
+#undef REPRO_IS
+}
+
 template <int DQK, int DV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out, int B, int Sq,
            int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
   if (dtype == 0) return launch_f32<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-  if constexpr (DQK == wg::kD && DV == wg::kD) {
-    return launch_bf16_wgmma(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if constexpr (wgmma_pair<DQK, DV>()) {
+    return launch_bf16_wgmma<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   } else {
     return launch_bf16<DQK, DV>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   }
@@ -920,15 +1039,25 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The mma.sync bf16 kernel at D = 64, where repro_flash_attention runs the
-// wgmma kernel: for timing the two side by side (no wrapper calls it).
-// Arguments as above with Dqk = Dv = 64, bfloat16 only.
-extern "C" int repro_flash_attention_bf16_mma64(const void* q, const void* k, const void* v,
-                                                void* out, int B, int Sq, int Sk, int H, int KV,
-                                                int causal, int window, float scale,
-                                                void* stream) {
+// The mma.sync bf16 kernel at any compiled pair, also where
+// repro_flash_attention runs the wgmma kernel: for timing the two side by
+// side (no wrapper calls it).  Arguments as above, bfloat16 only.
+extern "C" int repro_flash_attention_bf16_mma(const void* q, const void* k, const void* v,
+                                              void* out, int B, int Sq, int Sk, int H, int KV,
+                                              int Dqk, int Dv, int causal, int window, float scale,
+                                              void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<64, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale,
-                             static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_EQUAL(d) \
+  if (Dqk == d && Dv == d) \
+    return launch_bf16<d, d>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+#define REPRO_PAIR(dqk, dv) \
+  if (Dqk == dqk && Dv == dv) \
+    return launch_bf16<dqk, dv>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  REPRO_HEAD_DIMS(REPRO_EQUAL)
+  REPRO_HEAD_PAIRS(REPRO_PAIR)
+#undef REPRO_EQUAL
+#undef REPRO_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }

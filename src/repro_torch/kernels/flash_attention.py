@@ -13,13 +13,17 @@ on an H100: bfloat16 runs on the tensor cores, float32 exactly on the CUDA
 cores.  The kernel is compiled for the width pairs in :data:`HEAD_PAIRS`:
 every multiple of 16 up to 128 for q, k and v alike, and the unequal pairs
 of the served MLA configs; :func:`head_dims_supported` is the predicate,
-pure Python, that the wrapper checks on a CUDA tensor.
+pure Python, that the wrapper checks on a CUDA tensor.  Three routes serve
+them (:func:`kernel_route`): bfloat16 at the pairs of :data:`WGMMA_PAIRS`
+runs Hopper's wgmma + TMA kernel, bfloat16 at every other pair the
+``mma.sync`` kernel, float32 the CUDA-core kernel.
 
 A tensor on the CPU goes to the plain PyTorch version
 (:func:`attention_ref`, the batched form of ``repro.kernels.ref.attention``);
 a CUDA tensor goes to the kernel, or the call raises.  The wrapper counts its
-kernel launches in ``flash_attention.launches``, and in
-``flash_attention.by_shape`` per (q, k, v shape, causal, window).
+kernel launches in ``flash_attention.launches``, in
+``flash_attention.by_shape`` per (q, k, v shape, causal, window), and in
+``flash_attention.by_route`` per route.
 
 Rows that see no key at all (causal with ``Sq > Sk``) are outside the
 contract: the plain version averages every value there, the kernel writes
@@ -42,6 +46,9 @@ from repro_torch.kernels import build as kbuild
 #: the MLA pairs of deepseek-v2-lite-16b at its full / 100m presets and at
 #: its tiny one (``REPRO_HEAD_PAIRS``)
 HEAD_PAIRS = tuple((d, d) for d in range(16, 129, 16)) + ((192, 128), (48, 32))
+#: the pairs whose bfloat16 runs the wgmma kernel (``REPRO_WGMMA_PAIRS``):
+#: widths of whole 128-byte swizzle rows that the served configs use
+WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,6 +58,19 @@ def head_dims_supported(qk_dim: int, v_dim: int) -> bool:
     """Whether the CUDA kernel takes q/k heads ``qk_dim`` wide with v heads
     ``v_dim`` wide."""
     return (qk_dim, v_dim) in HEAD_PAIRS
+
+
+def kernel_route(qk_dim: int, v_dim: int, dtype: torch.dtype) -> str:
+    """The CUDA kernel that runs ``(qk_dim, v_dim)`` in ``dtype``: "wgmma"
+    (bfloat16 at :data:`WGMMA_PAIRS`), "mma" (bfloat16 at the other pairs of
+    :data:`HEAD_PAIRS`) or "f32"."""
+    if not head_dims_supported(qk_dim, v_dim):
+        raise ValueError(f"flash_attention: ({qk_dim}, {v_dim}) is not a pair the kernel takes: {HEAD_PAIRS}")
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.bfloat16:
+        return "wgmma" if (qk_dim, v_dim) in WGMMA_PAIRS else "mma"
+    raise TypeError(f"flash_attention: no kernel for {dtype}")
 
 
 def attention_ref(
@@ -125,6 +145,8 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.repro_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.repro_flash_attention.restype = i
+        lib.repro_flash_attention_bf16_mma.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+        lib.repro_flash_attention_bf16_mma.restype = i
         _LIB = lib
     return _LIB
 
@@ -164,8 +186,40 @@ def flash_attention(
         raise RuntimeError(f"flash_attention: kernel launch failed with cudaError_t {err}")
     flash_attention.launches += 1
     flash_attention.by_shape[tuple(q.shape), tuple(k.shape), tuple(v.shape), bool(causal), window] += 1
+    flash_attention.by_route[kernel_route(D, Dv, q.dtype)] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.by_shape = collections.Counter()
+flash_attention.by_route = collections.Counter()
+
+
+def flash_attention_mma(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The bfloat16 ``mma.sync`` kernel at any pair of :data:`HEAD_PAIRS`,
+    also where :func:`flash_attention` runs the wgmma kernel: for holding
+    and timing the two routes side by side.  CUDA bfloat16 tensors only; no
+    serving or training path calls it, and it counts no launch."""
+    _check(q, k, v, window)
+    B, Sq, H, D = q.shape
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 or not head_dims_supported(D, Dv):
+        raise ValueError(f"flash_attention_mma: CUDA bfloat16 at a pair of {HEAD_PAIRS} only")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_mma: q, k and v must start on a 16-byte boundary")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    err = _library().repro_flash_attention_bf16_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV, D, Dv,
+        int(causal), int(window or 0), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_mma: kernel launch failed with cudaError_t {err}")
+    return out

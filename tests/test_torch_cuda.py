@@ -269,7 +269,11 @@ def test_measure_spmv_replay_parity_on_card(dev):
 #: heads, qwen3-32b's 128 over 64/8), S not a multiple of the 128-row query
 #: tile, Sq < Sk, windows smaller than a 64-key tile and edges inside one
 #: (rows that see nothing in the first key tile their CTA visits), and the
-#: other multiples of 16
+#: other multiples of 16; then the wgmma route at D 128: S ragged against
+#: the 128-row and 128-key tiles, a CTA whose second warpgroup has a few rows
+#: (Sq 70) or none (Sq 150), Sq < Sk causal, Sq > Sk non-causal (the vlm's
+#: cross-attention, small), a window edge inside a 128-key tile, and GQA at
+#: llama4-scout's 40/8 and the vlm's 64/8 heads, B 2
 ATTN_CASES = [
     (2, 64, 64, 4, 2, 32, True, None),
     (1, 48, 48, 4, 4, 16, True, 16),
@@ -287,6 +291,12 @@ ATTN_CASES = [
     (1, 257, 257, 4, 1, 96, False, 50),
     (1, 129, 129, 2, 2, 48, True, None),
     (1, 65, 65, 2, 1, 112, True, 33),
+    (1, 70, 70, 4, 2, 128, True, None),
+    (2, 150, 150, 40, 8, 128, True, None),
+    (2, 100, 333, 40, 8, 128, True, None),
+    (2, 260, 200, 64, 8, 128, False, None),
+    (1, 300, 300, 8, 2, 128, True, 77),
+    (2, 200, 200, 64, 8, 128, True, None),
 ]
 
 
@@ -297,11 +307,24 @@ ATTN_CASES = [
 ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-4)}
 
 
+def _route_launched(q, k, v, causal, window):
+    """One wrapper call and the route it went by: launches and that route's
+    count each rose by one; bf16 at ``WGMMA_PAIRS`` goes by wgmma."""
+    route = FA.kernel_route(q.shape[3], v.shape[3], q.dtype)
+    assert (route == "wgmma") == (q.dtype == torch.bfloat16 and (q.shape[3], v.shape[3]) in FA.WGMMA_PAIRS)
+    n0, r0 = FA.flash_attention.launches, FA.flash_attention.by_route[route]
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention.launches == n0 + 1
+    assert FA.flash_attention.by_route[route] == r0 + 1
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_flash_attention_matches_plain(dev, case, dtype):
     """B3 against ``attention_ref`` computed in float32 on the same
-    (for bf16: bf16-rounded) inputs, at ``ATTN_TOL``."""
+    (for bf16: bf16-rounded) inputs, at ``ATTN_TOL``, one launch counted on
+    its route."""
     B, Sq, Sk, H, KV, D, causal, window = case
     rtol, atol = ATTN_TOL[dtype]
     rng = np.random.default_rng(7)
@@ -309,20 +332,24 @@ def test_flash_attention_matches_plain(dev, case, dtype):
         torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
         for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D))
     )
-    n0 = FA.flash_attention.launches
-    got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    assert FA.flash_attention.launches == n0 + 1
+    got = _route_launched(q, k, v, causal, window)
     want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
 #: (B, Sq, Sk, H, KV, Dqk, Dv, causal, window): MLA's (192, 128) and its tiny
-#: preset's (48, 32), causal and not, ragged, GQA, Sq < Sk
+#: preset's (48, 32), causal and not, ragged, GQA, Sq < Sk; at (192, 128)
+#: also Sq 70, Sq > Sk non-causal, a window edge inside a 128-key tile and
+#: GQA at 40/8
 SPLIT_CASES = [
     (2, 300, 300, 16, 16, 192, 128, True, None),
     (1, 130, 130, 4, 4, 192, 128, False, None),
     (1, 70, 200, 4, 2, 192, 128, True, 100),
+    (1, 70, 70, 4, 4, 192, 128, True, None),
+    (2, 260, 200, 8, 2, 192, 128, False, None),
+    (2, 190, 190, 16, 16, 192, 128, True, 50),
+    (1, 100, 333, 40, 8, 192, 128, True, None),
     (2, 100, 100, 4, 4, 48, 32, True, None),
     (1, 65, 150, 4, 1, 48, 32, False, None),
 ]
@@ -332,7 +359,8 @@ SPLIT_CASES = [
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_flash_attention_value_width_of_its_own_matches_plain(dev, case, dtype):
     """B3 with v narrower than q/k (MLA) against ``attention_ref`` in float32
-    on the same inputs, at ``ATTN_TOL``, one launch, output ``Dv`` wide."""
+    on the same inputs, at ``ATTN_TOL``, one launch counted on its route,
+    output ``Dv`` wide."""
     B, Sq, Sk, H, KV, Dqk, Dv, causal, window = case
     rtol, atol = ATTN_TOL[dtype]
     rng = np.random.default_rng(11)
@@ -340,12 +368,36 @@ def test_flash_attention_value_width_of_its_own_matches_plain(dev, case, dtype):
         torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
         for shape in ((B, Sq, H, Dqk), (B, Sk, KV, Dqk), (B, Sk, KV, Dv))
     )
-    n0 = FA.flash_attention.launches
-    got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    assert FA.flash_attention.launches == n0 + 1
+    got = _route_launched(q, k, v, causal, window)
     assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
     want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [(1, 300, 300, 25, 5, 64, 64, True, 128), (2, 200, 200, 40, 8, 128, 128, True, None),
+     (2, 260, 200, 64, 8, 128, 128, False, None), (2, 190, 190, 16, 16, 192, 128, True, 50)],
+    ids=lambda c: "x".join(map(str, c)),
+)
+def test_flash_attention_wgmma_and_mma_routes_agree(dev, case):
+    """At each wgmma pair, the wgmma route (the wrapper) and the mma.sync
+    kernel (its own uncounted entry) on the same bf16 inputs, each within
+    ``ATTN_TOL`` of the float32 plain version."""
+    B, Sq, Sk, H, KV, Dqk, Dv, causal, window = case
+    rtol, atol = ATTN_TOL[torch.bfloat16]
+    rng = np.random.default_rng(12)
+    q, k, v = (
+        torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).bfloat16()
+        for shape in ((B, Sq, H, Dqk), (B, Sk, KV, Dqk), (B, Sk, KV, Dv))
+    )
+    n0 = FA.flash_attention.launches
+    mma = FA.flash_attention_mma(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention.launches == n0
+    wgmma = _route_launched(q, k, v, causal, window)
+    want = FA.attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    torch.testing.assert_close(wgmma.float(), want, rtol=rtol, atol=atol)
+    torch.testing.assert_close(mma.float(), want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,9 @@ through the port's own torch executor on the CPU:
   and names the recovery in its status.
 """
 
+import gc
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -291,6 +293,40 @@ def test_ladder_exhaustion_reraises():
     assert ex.health.failures == {("two_step", "bf16"): 2}  # the try and its retry
     with pytest.raises(F.ExchangeIntegrityError):
         ex.start(x).finish()
+
+
+@pytest.mark.parametrize("fails", [1, 3])  # recovered on the retry; exhausted
+def test_ladder_leaves_no_reference_cycle(fails):
+    """A caught integrity error must not keep the ladder's callers' locals
+    alive: they are freed when the call returns, not when the collector runs."""
+
+    class Sentinel:
+        pass
+
+    def attempt(strategy, wire):
+        calls.append((strategy, wire))
+        if len(calls) <= fails:
+            raise F.ExchangeIntegrityError(strategy=strategy, codec=wire, stage_kind="a2a_pod", op_index=0)
+        return "ok"
+
+    def caller():
+        held = Sentinel()  # a local of a frame above the ladder
+        try:
+            F.run_ladder(attempt, strategy="two_step", wire="none", max_retries=1, fallback=False)
+        except F.ExchangeIntegrityError:
+            pass
+        return weakref.ref(held)
+
+    calls = []
+    gc.collect()
+    gc.disable()
+    try:
+        ref = caller()
+        alive = ref() is not None
+    finally:
+        gc.enable()
+    assert len(calls) == min(fails + 1, 2)
+    assert not alive
 
 
 def test_health_penalty_biases_advisor():

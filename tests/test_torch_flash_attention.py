@@ -10,9 +10,11 @@ the sequence) and at the head widths of stablelm-3b (80) and qwen3-32b
 At a value width other than the query/key width (MLA's), where the Pallas
 kernel has no route, the wrapper and its plain version are held to the
 reference's ``attend_chunked``.  Every (q/k, v) width pair that a config
-sends to B3, at every preset, is one the kernel is compiled for, and the
-pairs of :data:`HEAD_PAIRS` are the CUDA source's.  The CUDA kernel itself
-is held to the plain version on a GPU by ``tests/test_torch_cuda.py``.
+sends to B3, at every preset, is one the kernel is compiled for, the
+pairs of :data:`HEAD_PAIRS` are the CUDA source's, and so is the route
+table :func:`kernel_route` (which kernel serves each pair and dtype).  The
+CUDA kernels themselves are held to the plain version on a GPU by
+``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
@@ -71,9 +73,10 @@ def test_flash_attention_matches_pallas_and_ref(case, dtype):
     oracle = np.stack(
         [np.asarray(ref_attention(jq[b], jk[b], jv[b], causal=causal, window=win), np.float32) for b in range(B)]
     )
-    n0 = FA.flash_attention.launches
+    n0, routes = FA.flash_attention.launches, dict(FA.flash_attention.by_route)
     got = FA.flash_attention(tq, tk, tv, causal=causal, window=win)
-    assert FA.flash_attention.launches == n0  # the CPU route launches nothing
+    # the CPU route launches nothing and counts no kernel route
+    assert FA.flash_attention.launches == n0 and dict(FA.flash_attention.by_route) == routes
     assert got.dtype == tdt and got.shape == (B, Sq, H, D)
     plain = FA.attention_ref(tq, tk, tv, causal=causal, window=win)
     np.testing.assert_allclose(got.float().numpy(), pallas, rtol=tol, atol=tol)
@@ -186,3 +189,38 @@ def test_head_pairs_are_the_cuda_sources():
     compiled = [(int(d), int(d)) for d in re.findall(r"X\((\d+)\)", equal)]
     compiled += [(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", pairs)]
     assert tuple(compiled) == FA.HEAD_PAIRS
+
+
+def test_kernel_route_is_the_cuda_sources():
+    """:func:`kernel_route` names the kernel that ``launch<>`` in the CUDA
+    source runs: bfloat16 goes to ``flash_fwd_bf16_wgmma`` at the pairs of
+    ``REPRO_WGMMA_PAIRS`` (which ``launch<>`` tests through
+    ``wgmma_pair<DQK, DV>()``) and to ``flash_fwd_bf16`` at every other
+    compiled pair; float32 goes to ``flash_fwd_f32``."""
+    src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    macro = re.search(r"#define REPRO_WGMMA_PAIRS\(X\) (.*)", src).group(1)
+    wgmma = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro)}
+    body = re.search(r"int launch\(int dtype,.*?\n}\n", src, re.S).group(0)
+    assert re.search(r"dtype == 0\) return launch_f32<DQK, DV>", body)
+    assert re.search(r"if constexpr \(wgmma_pair<DQK, DV>\(\)\) \{\s*return launch_bf16_wgmma<DQK, DV>", body)
+    assert re.search(r"\} else \{\s*return launch_bf16<DQK, DV>", body)
+    assert "REPRO_WGMMA_PAIRS(REPRO_IS)" in re.search(r"constexpr bool wgmma_pair\(\) \{.*?\n}\n", src, re.S).group(0)
+    assert wgmma == set(FA.WGMMA_PAIRS) and wgmma <= set(FA.HEAD_PAIRS)
+    for qk, v in FA.HEAD_PAIRS:
+        assert FA.kernel_route(qk, v, torch.float32) == "f32"
+        assert FA.kernel_route(qk, v, torch.bfloat16) == ("wgmma" if (qk, v) in wgmma else "mma"), (qk, v)
+    with pytest.raises(ValueError):
+        FA.kernel_route(72, 72, torch.bfloat16)
+    with pytest.raises(TypeError):
+        FA.kernel_route(64, 64, torch.float16)
+
+
+def test_served_wide_heads_take_the_wgmma_route():
+    """llama4-scout's and the vlm's heads of 128 and deepseek-v2-lite's MLA
+    pair (192, 128) run the wgmma kernel in bfloat16, as hymba's and
+    whisper's 64 do; stablelm-3b's 80 keeps ``mma.sync``."""
+    for arch, route in [("llama4-scout-17b-a16e", "wgmma"), ("llama-3.2-vision-90b", "wgmma"),
+                        ("deepseek-v2-lite-16b", "wgmma"), ("hymba-1.5b", "wgmma"),
+                        ("whisper-large-v3", "wgmma"), ("stablelm-3b", "mma")]:
+        model = LMModel(PRESETS["full"](get_config(arch)))
+        assert {FA.kernel_route(qk, v, torch.bfloat16) for qk, v in model.attention_head_pairs} == {route}, arch
