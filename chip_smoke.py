@@ -1571,7 +1571,8 @@ def phase_lm_kernels(ctx) -> None:
         ("qwen3-32b heads ragged S=1000 window=300", *heads(2, 1000, 1000, 64, 8, 128), True, 300),
     ]
     # tag -> its kernels-line name (None: timed, not in the line)
-    timed = {"path": "flash_attention", "stablelm-3b path": None, "llama4-scout path": "flash_attention_d128"}
+    timed = {"path": "flash_attention", "stablelm-3b path": "flash_attention_d80",
+             "llama4-scout path": "flash_attention_d128"}
     for line, (phase, *case) in serve_b3_shapes().items():
         tag = f"{phase} {line.removeprefix('flash_attention_')}"
         attn_cases.append((tag, *case))
@@ -1633,11 +1634,13 @@ def phase_lm_kernels(ctx) -> None:
         torch.cuda.empty_cache()
 
     # ---- why B3 keeps two bf16 kernels: at each row the wgmma route serves
-    # (hymba's D 64, llama4-scout's and the vlm's D 128, deepseek's MLA
-    # (192, 128)) the wgmma kernel the wrapper runs beside the mma.sync
-    # kernel that serves every other width, called through its own entry
-    # (not counted), each checked against the float32 plain version
+    # (hymba's D 64, stablelm-3b's D 80, llama4-scout's and the vlm's D 128,
+    # deepseek's MLA (192, 128)) the wgmma kernel the wrapper runs beside the
+    # mma.sync kernel that serves the tiny presets' widths, called through
+    # its own entry (not counted), each checked against the float32 plain
+    # version; the wgmma kernel must be the faster
     two_routes = [("path", *heads(B, S, S, H, KV, D), True, W),
+                  ("stablelm-3b path", *heads(SLM_BATCH, SLM_PROMPT, SLM_PROMPT, *slm_heads), True, slm.window),
                   ("llama4-scout path", *heads(MOE_BATCH, MOE_PROMPT, MOE_PROMPT, *moe_heads), True, moe.window)]
     two_routes += [(f"{phase} {line.removeprefix('flash_attention_')}", *case)
                    for line, (phase, *case) in serve_b3_shapes().items() if phase in ("serve_mla", "serve_vlm")]
@@ -1662,10 +1665,11 @@ def phase_lm_kernels(ctx) -> None:
         }
         log(f"[lm_kernels] flash_attention bf16 wgmma vs mma.sync, {tag}: " + json.dumps(t))
         routes[tag] = t
-        if t["wgmma_ms"] >= t["mma_sync_ms"]:
-            log(f"[lm_kernels] NOTE {tag}: the wgmma route is not faster than mma.sync")
         del q, k, v
         torch.cuda.empty_cache()
+    slower = [tag for tag, t in routes.items() if t["wgmma_ms"] >= t["mma_sync_ms"]]
+    if slower:
+        raise AssertionError(f"the wgmma route is not faster than mma.sync at {slower}")
 
     # ---- B3 at qwen3-32b's heads (64/8, D 128), S 4096, causal, no window,
     # beside SDPA (is_causal: its flash route), for the record
@@ -1849,8 +1853,10 @@ def phase_serve(ctx) -> None:
 
 def phase_serve_stablelm(ctx) -> None:
     """stablelm-3b (dense, 32 heads of 80) at full width and depth in
-    bfloat16 through the serving entry point: the head width B3 took no
-    earlier; counts reset just before, read just after."""
+    bfloat16 through the serving entry point: counts reset just before, read
+    just after; every B3 launch of the prefill by the wgmma route at the
+    shape ``lm_kernels`` checked and timed; the prefill's device time by
+    class."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
@@ -1860,29 +1866,49 @@ def phase_serve_stablelm(ctx) -> None:
     dev = torch.device("cuda")
     B, S, G = SLM_BATCH, SLM_PROMPT, SLM_GEN
     model, params = build(SLM_ARCH, "full", seed=SEED, device=dev)
-    L = model.cfg.n_layers
-    prompts = torch.as_tensor(make_prompts(model.cfg.vocab_size, B, S, SEED), device=dev)
+    cfg, L = model.cfg, model.cfg.n_layers
+    prompts = torch.as_tensor(make_prompts(cfg.vocab_size, B, S, SEED), device=dev)
+    generate(model, params, prompts[:, :256], 2, impl="kernel")  # warm: cuBLAS handles, allocator
     torch.cuda.synchronize()
     FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+    FA.flash_attention.by_route.clear()
+    FA.flash_attention.by_shape.clear()
     out = generate(model, params, prompts, G, impl="kernel")
     launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    by_route = dict(FA.flash_attention.by_route)
+    by_shape = {str(k): n for k, n in FA.flash_attention.by_shape.items()}
+    # ---- end of the main path ----
     finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
+    D = cfg.resolved_head_dim
+    row = str(((B, S, cfg.n_heads, D), (B, S, cfg.n_kv_heads, D), (B, S, cfg.n_kv_heads, D), True, cfg.window))
+    with torch.inference_mode():
+        split = device_split(lambda: model.prefill(params, prompts, impl="kernel"), OP_CLASSES,
+                             {"flash_attention": "flash_fwd"})
     summary = {
         "arch": SLM_ARCH, "parameters": model.param_count(), "layers": L,
         "head_pairs": sorted(model.attention_head_pairs), "batch": B, "prompt": S, "gen": G,
         "prefill_ms": out["prefill_s"] * 1e3, "decode_ms_per_token": out["decode_s"] / (G - 1) * 1e3,
-        "launches": launches, "tokens": out["tokens"].tolist(),
+        "launches": launches, "flash_attention_launches_by_route": by_route,
+        "flash_attention_launches_by_shape": by_shape, "prefill_split": split,
+        "tokens": out["tokens"].tolist(),
     }
     ctx["details"]["serve_stablelm"] = summary
     log("[serve_stablelm] " + json.dumps(summary))
+    log(f"[serve_stablelm] prefill device split: {split['device_ms']:.3f} ms, GEMMs "
+        f"{split['other_gemms'] + split['expert_gemms']:.3f}, B3 {split['flash_attention']:.3f}, "
+        f"elementwise and copies {split['other']:.3f}")
     checks = {
         f"B3/B4 launches {launches} = ({L}, 0)": launches == (L, 0),
+        f"every B3 launch at {sorted(model.attention_head_pairs)} went by wgmma, none by mma.sync ({by_route})":
+            by_route == {"wgmma": L},
+        f"every B3 launch at the shape lm_kernels checked and timed, {row} ({by_shape})": by_shape == {row: L},
         "every logit finite": finite,
     }
     for name, ok in checks.items():
         log(f"[serve_stablelm] {name}: {ok}")
     if not all(checks.values()):
         raise AssertionError("stablelm-3b serving failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+    ctx.setdefault("launches", {})["flash_attention_d80"] = launches[0]
 
 
 def phase_moe_dispatch(ctx) -> None:
@@ -2680,8 +2706,8 @@ def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     out = []
-    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked", "flash_attention_d128",
-                 *serve_b3_shapes()):
+    for name in ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked", "flash_attention_d80",
+                 "flash_attention_d128", *serve_b3_shapes()):
         t = {**ctx["timings"][name], "name": name, "route": "cuda", "launches": ctx["launches"][name]}
         out.append({k: t[k] for k in keys})
     return {"kernels": out}

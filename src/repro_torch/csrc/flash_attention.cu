@@ -20,13 +20,15 @@
 // least time is the visible band's flops over the peak rate of the input
 // type (989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32).  The
 // bf16 kernels issue 2 * DQK + 4 * DV per pair (P V twice, below): at
-// (128, 128) 1.5x the bound's work, at (192, 128) 1.4x.
+// (80, 80) and (128, 128) 1.5x the bound's work, at (192, 128) 1.4x.
 //
 // Three routes, by width pair and dtype (REPRO_WGMMA_PAIRS; the wrapper's
 // kernel_route says the same):
-//   bf16 at (64, 64), (128, 128), (192, 128)  flash_fwd_bf16_wgmma
-//   bf16 at every other compiled pair          flash_fwd_bf16 (mma.sync)
-//   f32 at every compiled pair                 flash_fwd_f32
+//   bf16 at (64, 64), (80, 80), (128, 128), (192, 128)  flash_fwd_bf16_wgmma
+//   bf16 at every other compiled pair                    flash_fwd_bf16 (mma.sync)
+//   f32 at every compiled pair                           flash_fwd_f32
+// so every bf16 width a served config uses at full size runs wgmma; only the
+// tiny presets' widths run mma.sync.
 // All three keep the band rules:
 //  * only the key tiles inside the causal / window band are visited (the
 //    CTA walks from its first row's first visible key to its last row's
@@ -59,16 +61,27 @@
 // MN-major: at DV 64 one m64n64k16 per k-step; at DV 128 one m64n128k16
 // whose descriptor's leading byte offset is the 16 KB sub-tile stride
 // (chosen over two m64n64k16 on two halves of O: half the instructions per
-// k-step, and the same accumulator layout, flat).  Budget:
-// shared memory 80 KB at (64, 64), 160 KB at (128, 128), 208 KB at (192,
-// 128) (q 48 + K 2 x 48 + V 2 x 32), under the 227 KB a block may use.
-// Registers: a consumer thread holds O (DV / 2), S (64) and P hi + lo (64,
-// written as S dies) -- about 200 at DV 128 with addresses.  A block of 288
-// threads (one producer warp) is allocated as three warpgroups, 168
-// registers a thread, and spills at these widths; so the producer is a
-// whole warpgroup that setmaxnreg's down to 24 and the consumers up to 240
-// (ptxas -v at (64, 64), (128, 128) and (192, 128) alike: 168 registers at
-// entry, 0 bytes of spill stores and loads).  Each warpgroup waits on its Q K^T
+// k-step, and the same accumulator layout, flat).
+// stablelm-3b's 80 is no whole number of swizzle rows (a row is 160 bytes).
+// It loads as two boxes, as 128 does: the tensor map is 80 columns wide, so
+// the second box reads columns 64..79 and TMA fills 80..127 with zeros (and
+// counts the whole box in the barrier's bytes, as for rows past Sk).  Q K^T
+// takes the five k-steps 80 needs (four on the first sub-tile, one on the
+// second), and P V one m64n80k16 whose descriptor spans the first sub-tile
+// and 16 columns of the second, LBO apart: every product exact.  Timed on
+// the H100 against two candidates (chip_b3_layouts.py): the same with P V
+// as m64n128 (48 columns of zeros) 13-15% slower, and 16-column boxes in
+// the 32-byte swizzle (five sub-tiles of 4 KB, every operand exact, 100 KB
+// of shared memory) 1-3% slower.  Budget: shared memory 80 KB at (64, 64), 160 KB at (80, 80) and
+// (128, 128), 208 KB at (192, 128) (q 48 + K 2 x 48 + V 2 x 32), under the
+// 227 KB a block may use.  Registers: a consumer thread holds O (DV / 2),
+// S (64) and P hi + lo (64, written as S dies) -- about 200 at DV 128 with
+// addresses.  A block of 288 threads (one producer warp) is allocated as
+// three warpgroups, 168 registers a thread, and spills at these widths; so
+// the producer is a whole warpgroup that setmaxnreg's down to 24 and the
+// consumers up to 240 (ptxas -v at (64, 64), (80, 80), (128, 128) and
+// (192, 128) alike: 168 registers at entry, 0 bytes of spill stores and
+// loads).  Each warpgroup waits on its Q K^T
 // before its softmax and on its P V before the next tile; the two
 // warpgroups overlap each other.  Issuing the next tile's Q K^T before this
 // tile's softmax would hold a second S (64 registers) beside O and P hi +
@@ -79,12 +92,12 @@
 // batch), eight warps of 16 rows; q loaded once into mma A fragments; K/V
 // tiles of 64 keys by cp.async into two shared stages, rows padded by 16
 // bytes so the ldmatrix reads (x4 for K, x4.trans for V) are free of bank
-// conflicts at every width.  A D = 80 row is 160 bytes, which no 128-byte
-// swizzle row holds; this kernel takes every width and every pair (and is
-// reachable at the wgmma pairs through repro_flash_attention_bf16_mma, for
-// timing the two).  At DQK 192 / DV 128 a thread holds 48 registers of q
-// fragments, 64 of O and 32 of S (244 registers, no spills); the two stages
-// of K and V tiles take 86,016 bytes of shared memory (opt-in above 48 KB).
+// conflicts at every width.  It serves the tiny presets' widths; it takes
+// every width and every pair, and is reachable at the wgmma pairs through
+// repro_flash_attention_bf16_mma, for timing the two.  At DQK 192 / DV 128
+// a thread holds 48 registers of q fragments, 64 of O and 32 of S (244
+// registers, no spills); the two stages of K and V tiles take 86,016 bytes
+// of shared memory (opt-in above 48 KB).
 //
 // float32 -- flash_fwd_f32: exact fp32 on the CUDA cores (the tensor
 // cores' TF32 would cost the float32 checks their digits).  One CTA per
@@ -108,7 +121,7 @@
 // (DQK, DV) with DQK != DV: deepseek-v2-lite-16b (full, 100m) and its tiny preset
 #define REPRO_HEAD_PAIRS(X) X(192, 128) X(48, 32)
 // the pairs whose bfloat16 runs flash_fwd_bf16_wgmma (the rest: flash_fwd_bf16)
-#define REPRO_WGMMA_PAIRS(X) X(64, 64) X(128, 128) X(192, 128)
+#define REPRO_WGMMA_PAIRS(X) X(64, 64) X(80, 80) X(128, 128) X(192, 128)
 
 namespace {
 
@@ -425,12 +438,14 @@ constexpr uint32_t kSub = kBN * kSw * 2;     // bytes of a sub-tile: 128 rows of
 constexpr uint32_t kSubDesc = kSub >> 4;     // the same step in a wgmma descriptor's address
 // shared layout from a 1024-byte aligned base (the 128-byte swizzle's period):
 // q, then the ring of K tiles, then that of V tiles, each row DQK (DV) wide
-// as DQK / 64 (DV / 64) sub-tiles of 64 columns, then the barriers
+// as ceil(DQK / 64) (ceil(DV / 64)) sub-tiles of 64 columns, then the
+// barriers.  A width of no whole number of swizzle rows (80) leaves the
+// columns of its last sub-tile past the width to TMA's zero fill
 template <int DQK, int DV>
 struct Layout {
-  static_assert(DQK % kSw == 0 && (DV == 64 || DV == 128), "wgmma widths are whole swizzle rows");
-  static constexpr int kCQK = DQK / kSw;     // sub-tiles of a q / k row
-  static constexpr int kCV = DV / kSw;       // and of a v row
+  static_assert(DQK % 16 == 0 && DV % 16 == 0 && DV <= 128, "wgmma widths: k-steps of 16, O up to n128");
+  static constexpr int kCQK = (DQK + kSw - 1) / kSw;  // sub-tiles of a q / k row
+  static constexpr int kCV = (DV + kSw - 1) / kSw;    // and of a v row
   static constexpr uint32_t kQBytes = kCQK * kSub;
   static constexpr uint32_t kKBytes = kCQK * kSub;
   static constexpr uint32_t kVBytes = kCV * kSub;
@@ -536,6 +551,25 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64 x n80, fp32) += A (registers, bf16 fragment) * B (desc, MN-major,
+// a 64-column sub-tile and the first 16 columns of the next, LBO apart)
+__device__ __forceinline__ void wgmma_m64n80_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (m64 x n128, fp32) += A (registers, bf16 fragment) * B (desc, MN-major,
 // two 64-column sub-tiles LBO apart)
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t (&a)[4],
@@ -561,9 +595,12 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t 
 }
 
 // O += P V for one k-step of 16 keys: an m64n64 product at DV 64, one
-// m64n128 product over V's two sub-tiles at DV 128
+// m64n80 or m64n128 product over V's two sub-tiles at DV 80 or 128
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n64_rs(d, a, db);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_m64n80_rs(d, a, db);
 }
 __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   wgmma_m64n128_rs(d, a, db);
@@ -641,7 +678,7 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int ghi = causal ? min(Sk - 1, g0 + grows - 1 + off) : Sk - 1;
     const int rows[2] = {g0 + warp * 16 + g, g0 + warp * 16 + g + 8};
 
-    float o[DV / 2];  // the m64n64 (m64n128) accumulator of P V
+    float o[DV / 2];  // the m64n64 (m64n80, m64n128) accumulator of P V
 #pragma unroll
     for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
@@ -656,17 +693,18 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
       if (grows > 0 && k0 <= ghi && k0 + kBN - 1 >= glo) {
         const uint64_t dk = desc_sw128(base + L::kOffK + s * L::kKBytes);
         const uint64_t dv = desc_sw128(base + L::kOffV + s * L::kVBytes, L::kCV == 2 ? kSubDesc : 1);
-        // S = Q K^T: per 64-column sub-tile of q and k, four k-steps of 16
-        // (32 bytes of the swizzled row); the next sub-tile is its own
-        // 16 KB tile, so its descriptor starts there, not 2 steps on
+        // S = Q K^T: DQK / 16 k-steps of 16 columns (32 bytes of the
+        // swizzled row), four per 64-column sub-tile of q and k (at DQK 80
+        // one on the second: its zero-filled columns are never read); the
+        // next sub-tile is its own 16 KB tile, so its descriptor starts
+        // there, not 2 steps on
         float sc[64];
         wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < L::kCQK; ++c) {
-#pragma unroll
-          for (int kk = 0; kk < kSw / 16; ++kk) {
-            wgmma_m64n128_ss(sc, dq + c * kSubDesc + 2 * kk, dk + c * kSubDesc + 2 * kk, c + kk);
-          }
+        for (int i = 0; i < DQK / 16; ++i) {
+          const int c = i / (kSw / 16);
+          const int kk = i % (kSw / 16);
+          wgmma_m64n128_ss(sc, dq + c * kSubDesc + 2 * kk, dk + c * kSubDesc + 2 * kk, c + kk);
         }
         wgmma_commit();
         wgmma_wait0();
@@ -943,8 +981,8 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // [B, rows, heads, width] bf16 as a 4-d tensor map, boxes of 64 columns
-// (one 128-byte swizzle row) by 128 rows of one head; rows past the end
-// read as zeros
+// (one 128-byte swizzle row) by 128 rows of one head; rows past the end,
+// and columns past the width (80), read as zeros
 bool head_rows_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads, int width) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;

@@ -47,8 +47,9 @@ from repro_torch.kernels import build as kbuild
 #: its tiny one (``REPRO_HEAD_PAIRS``)
 HEAD_PAIRS = tuple((d, d) for d in range(16, 129, 16)) + ((192, 128), (48, 32))
 #: the pairs whose bfloat16 runs the wgmma kernel (``REPRO_WGMMA_PAIRS``):
-#: widths of whole 128-byte swizzle rows that the served configs use
-WGMMA_PAIRS = ((64, 64), (128, 128), (192, 128))
+#: every pair the served configs use at full size -- widths of whole 128-byte
+#: swizzle rows, and stablelm-3b's 80 in 32-byte ones
+WGMMA_PAIRS = ((64, 64), (80, 80), (128, 128), (192, 128))
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

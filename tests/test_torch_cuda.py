@@ -273,7 +273,10 @@ def test_measure_spmv_replay_parity_on_card(dev):
 #: the 128-row and 128-key tiles, a CTA whose second warpgroup has a few rows
 #: (Sq 70) or none (Sq 150), Sq < Sk causal, Sq > Sk non-causal (the vlm's
 #: cross-attention, small), a window edge inside a 128-key tile, and GQA at
-#: llama4-scout's 40/8 and the vlm's 64/8 heads, B 2
+#: llama4-scout's 40/8 and the vlm's 64/8 heads, B 2; last the wgmma route at
+#: D 80 (five 16-column sub-tiles a row) where the 128-row tile is cut: Sq 70,
+#: whose CTA's second warpgroup has 6 rows, and Sq 150, whose second CTA's
+#: second warpgroup has none
 ATTN_CASES = [
     (2, 64, 64, 4, 2, 32, True, None),
     (1, 48, 48, 4, 4, 16, True, 16),
@@ -297,6 +300,8 @@ ATTN_CASES = [
     (2, 260, 200, 64, 8, 128, False, None),
     (1, 300, 300, 8, 2, 128, True, 77),
     (2, 200, 200, 64, 8, 128, True, None),
+    (1, 70, 70, 4, 2, 80, True, None),
+    (2, 150, 150, 32, 32, 80, True, None),
 ]
 
 
@@ -377,13 +382,18 @@ def test_flash_attention_value_width_of_its_own_matches_plain(dev, case, dtype):
 @pytest.mark.parametrize(
     "case",
     [(1, 300, 300, 25, 5, 64, 64, True, 128), (2, 200, 200, 40, 8, 128, 128, True, None),
-     (2, 260, 200, 64, 8, 128, 128, False, None), (2, 190, 190, 16, 16, 192, 128, True, 50)],
+     (2, 260, 200, 64, 8, 128, 128, False, None), (2, 190, 190, 16, 16, 192, 128, True, 50),
+     (2, 300, 300, 32, 32, 80, 80, True, None), (1, 300, 300, 8, 2, 80, 80, True, 77),
+     (2, 100, 333, 32, 32, 80, 80, True, None), (2, 260, 200, 32, 32, 80, 80, False, None),
+     (2, 200, 200, 32, 8, 80, 80, True, None)],
     ids=lambda c: "x".join(map(str, c)),
 )
 def test_flash_attention_wgmma_and_mma_routes_agree(dev, case):
     """At each wgmma pair, the wgmma route (the wrapper) and the mma.sync
     kernel (its own uncounted entry) on the same bf16 inputs, each within
-    ``ATTN_TOL`` of the float32 plain version."""
+    ``ATTN_TOL`` of the float32 plain version.  At stablelm-3b's (80, 80):
+    its 32/32 heads with S ragged against the 128-row tile, a window edge
+    inside a 128-key tile, Sq < Sk, non-causal Sq > Sk, and GQA 32/8."""
     B, Sq, Sk, H, KV, Dqk, Dv, causal, window = case
     rtol, atol = ATTN_TOL[torch.bfloat16]
     rng = np.random.default_rng(12)

@@ -216,11 +216,12 @@ def test_kernel_route_is_the_cuda_sources():
 
 
 def test_served_wide_heads_take_the_wgmma_route():
-    """llama4-scout's and the vlm's heads of 128 and deepseek-v2-lite's MLA
-    pair (192, 128) run the wgmma kernel in bfloat16, as hymba's and
-    whisper's 64 do; stablelm-3b's 80 keeps ``mma.sync``."""
+    """Every served family runs the wgmma kernel in bfloat16: llama4-scout's
+    and the vlm's heads of 128, deepseek-v2-lite's MLA pair (192, 128),
+    hymba's and whisper's 64, and stablelm-3b's 80 (in 32-byte swizzle
+    rows); only the tiny presets' widths keep ``mma.sync``."""
     for arch, route in [("llama4-scout-17b-a16e", "wgmma"), ("llama-3.2-vision-90b", "wgmma"),
                         ("deepseek-v2-lite-16b", "wgmma"), ("hymba-1.5b", "wgmma"),
-                        ("whisper-large-v3", "wgmma"), ("stablelm-3b", "mma")]:
+                        ("whisper-large-v3", "wgmma"), ("stablelm-3b", "wgmma")]:
         model = LMModel(PRESETS["full"](get_config(arch)))
         assert {FA.kernel_route(qk, v, torch.bfloat16) for qk, v in model.attention_head_pairs} == {route}, arch

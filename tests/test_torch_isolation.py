@@ -67,7 +67,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "chip_b3_layouts.py"])
 def test_no_jax_or_repro_import_lines(path):
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)")
     bad = [

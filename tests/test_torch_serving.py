@@ -13,7 +13,9 @@
   and shedding behave as the reference's.
 """
 
+import gc
 import importlib.util
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -415,6 +417,41 @@ def _family(pat, faults=None):
         return handler
 
     return make
+
+
+@pytest.mark.parametrize("error", [KeyError, F.ExchangeIntegrityError])
+def test_run_schedule_leaves_no_reference_cycle(error):
+    """An outcome that carries a handler's error (a ``KeyError``, or an
+    integrity error that exhausts the ladder) does not keep the schedule's
+    payloads alive: they are freed when the caller drops the outcomes, not
+    when the collector runs.  The error keeps its type, message and the
+    traceback's text."""
+    ex = BatchExecutor(max_retries=0, fallback=False)
+
+    def failing(payload):
+        if error is KeyError:
+            raise KeyError("no operator for this fingerprint")
+        raise F.ExchangeIntegrityError(strategy="two_step", codec="none", stage_kind="a2a_pod", op_index=0)
+
+    ex.register("t0", failing)
+
+    def caller():
+        payload = torch.zeros(8)
+        outs = ex.run_schedule([_batch("t0", (0,)), _batch("ghost", (1, 2))], [payload, payload])
+        assert [o.ok for o in outs] == [False, False]
+        assert isinstance(outs[0].error, error) and isinstance(outs[1].error, KeyError)
+        assert "failing" in "".join(outs[0].error.__notes__)
+        assert [o.shed_rids for o in outs] == [(0,), (1, 2)] and ex.shed_requests == 3
+        return weakref.ref(payload)
+
+    gc.collect()
+    gc.disable()
+    try:
+        ref = caller()
+        alive = ref() is not None
+    finally:
+        gc.enable()
+    assert not alive
 
 
 @pytest.mark.parametrize("case", ["keyerror-keeps-work", "handler-bug", "ladder-recovers",
