@@ -37,6 +37,10 @@ before it and read just after:
   of 128, d_ff 28672, 1600 stub image tokens), 20 of its 100 layers (16
   self + 4 cross, 19,281,551,360 parameters), batch 4 x 2048, 16 greedy
   tokens; kernel B3 in self- and cross-attention;
+* the dry-run's op analyser (``repro_torch.launch.dryrun``): stablelm-3b's
+  prefill at 2 x 2048 and its train step at 2 x 4096 analysed on meta
+  tensors and held to the card (the prefill also analysed on the card's
+  tensors, B3 32 times by wgmma);
 * training: stablelm-3b at full width and depth (2,795,276,800 parameters,
   bf16 compute on float32 masters), batch 2 x 4096, 10 AdamW steps through
   ``repro_torch.runtime.Trainer``; no kernel (B3 and B4 have no backward,
@@ -118,7 +122,13 @@ Phases, each of which fails the run on any error:
    and a failure at step 3 resumed from a checkpoint bitwise an
    uninterrupted run; before ``fused``, whose graph replays would leave the
    profiler blind;
-18. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
+18. the dry-run's op analyser (``dryrun``, no profiler): stablelm-3b's
+   prefill at 2 x 2048 analysed on meta tensors and on the card's tensors
+   (argument bytes, counted FLOPs chunked and kernel-vs-fused, B3 32 times by
+   wgmma, the predicted temp + output bytes within 10% of the card's peak),
+   and the train step at 2 x 4096 (the predicted peak within 10% of phase
+   ``train``'s); the roofline shares of both on 989 TFLOP/s;
+19. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
    on the case study): against the host loops (iterations, status, matvecs,
    histories within 1e-10, true residual), one fused-cache miss then a hit,
    graph replay bitwise the eager body, histories bitwise across strategies
@@ -130,7 +140,7 @@ Phases, each of which fails the run on any error:
    times the replays, held to the profiler's count of B1 kernels in a
    profiled solve); last, because after it ``torch.profiler`` records no
    device activity in this process;
-19. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
+20. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
     B3 entry's launches are its main path's launches at that shape), the
@@ -266,6 +276,9 @@ TOL_SSD = 2e-4
 TOL_SSD_SEQ = 5e-4
 TOL_LOGITS = 1e-3
 TOL_DECODE = 5e-2
+#: the dry-run's predicted bytes (meta tensors) against the card's
+#: max_memory_allocated (relative)
+TOL_DRYRUN_MEM = 0.10
 
 
 def log(*args) -> None:
@@ -2702,6 +2715,166 @@ def phase_train(ctx) -> None:
         raise AssertionError("training path failed: " + ", ".join(k for k, ok in checks.items() if not ok))
 
 
+def phase_dryrun(ctx) -> None:
+    """The dry-run's op analyser (``repro_torch.launch.op_analysis``, run by
+    ``repro_torch.launch.dryrun`` on meta tensors) held to the card:
+
+    1. stablelm-3b prefill at 2 x 2048 (serve_stablelm's shape), analysed on
+       meta tensors (``dryrun.analyse_cell``) and on the card's real tensors
+       (``op_analysis.analyze`` of ``model.prefill``).  Gates: (a) the
+       argument bytes, meta and card, equal the bytes of the parameters
+       ``build`` placed on the card plus the prompts', exactly; (b) with
+       ``impl="chunked"`` on both sides the counted FLOPs are equal; (c) the
+       FLOPs counted for ``impl="kernel"`` on the card equal those counted for
+       ``impl="fused"`` on meta (B3 and the stub are both invisible to the
+       counter), with B3 launched once per layer, all by wgmma; (d) the
+       predicted temp + output bytes (meta, chunked) within 10% of
+       ``max_memory_allocated`` minus what was allocated before one chunked
+       prefill on the card (not under the analyser).
+    2. stablelm-3b training at 2 x 4096, ``impl="dot"`` (phase ``train``'s
+       step): the predicted peak (arguments + temp + output, meta) within 10%
+       of the ``max_memory_allocated`` phase ``train`` recorded; the counted
+       FLOPs beside its 6·N·T.
+
+    It prints the roofline shares a benchmark reads: the prefill's counted +
+    analytic (B3) FLOPs over its CUDA-event time (median of 5) and 989
+    TFLOP/s, and the train step's counted FLOPs over phase ``train``'s ms per
+    step.  No profiler.
+    """
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.serve import build, make_prompts
+    from repro_torch.models.lm import LMModel
+    from repro_torch.models.sharding import tree_items
+
+    if "train" not in ctx["details"]:
+        raise RuntimeError("phase dryrun reads phase train's peak memory and step time: run train first")
+    card = ctx["details"]["card"]
+    dev = torch.device("cuda")
+    B, S = SLM_BATCH, SLM_PROMPT
+    cfg = get_config(SLM_ARCH)
+    L = cfg.n_layers
+    shape = ShapeConfig(f"prefill_{B}x{S}", S, B, "prefill")
+    meta = {impl: dryrun.analyse_cell(cfg, shape, impl) for impl in ("chunked", "fused")}
+    b3_terms = dryrun.attention_kernel_terms(cfg, LMModel(cfg), shape)
+
+    model, params = build(SLM_ARCH, "full", seed=SEED, device=dev)
+    prompts = torch.as_tensor(make_prompts(cfg.vocab_size, B, S, SEED), device=dev)
+    param_bytes = sum(t.nbytes for _, t in tree_items(params))
+    for impl in ("chunked", "kernel"):  # warm: cuBLAS handles and workspaces, the kernel library
+        model.prefill(params, prompts, impl=impl)
+    torch.cuda.synchronize()
+    on_card = {}
+    for impl in ("chunked", "kernel"):
+        FA.flash_attention.launches = 0
+        FA.flash_attention.by_route.clear()
+        t0 = time.perf_counter()
+        st = op_analysis.analyze(model.prefill, params, prompts, impl=impl)
+        torch.cuda.synchronize()
+        on_card[impl] = {"stats": st, "seconds": time.perf_counter() - t0,
+                         "launches": FA.flash_attention.launches, "by_route": dict(FA.flash_attention.by_route)}
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = model.prefill(params, prompts, impl="chunked")
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    del out
+    prefill_ms = median_ms(torch, lambda: model.prefill(params, prompts, impl="kernel"), reps=5)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mem = meta["chunked"]["memory"]
+    predicted = mem["temp_bytes"] + mem["output_bytes"]
+    chunked, kernel = on_card["chunked"]["stats"], on_card["kernel"]["stats"]
+    fused_traced = meta["fused"]["counted_flops_per_chip"] - meta["fused"]["analytic_kernel_flops_per_chip"]
+    prefill_flops = kernel.flops + b3_terms["flops"]
+    prefill = {
+        "arch": SLM_ARCH, "batch": B, "prompt": S, "parameter_bytes": param_bytes, "prompt_bytes": prompts.nbytes,
+        "meta": meta,
+        "card": {impl: {"flops": v["stats"].flops, "mem_bytes": v["stats"].mem_bytes,
+                        "argument_bytes": v["stats"].argument_bytes, "peak_bytes": v["stats"].peak_bytes,
+                        "output_bytes": v["stats"].output_bytes, "seconds": v["seconds"],
+                        "b3_launches": v["launches"], "b3_by_route": v["by_route"]} for impl, v in on_card.items()},
+        "predicted_temp_plus_output": predicted, "measured_peak_minus_before": measured,
+        "allocated_before": before, "memory_ratio": predicted / measured,
+        "b3_analytic_flops": b3_terms["flops"], "prefill_ms": prefill_ms,
+        "roofline_share": prefill_flops / (prefill_ms / 1e3) / BF16_TENSOR_FLOPS,
+    }
+    log(f"[dryrun] stablelm-3b prefill {B} x {S}: counted FLOPs chunked {chunked.flops:.6e} (meta "
+        f"{meta['chunked']['counted_flops_per_chip']:.6e}), kernel route {kernel.flops:.6e} + B3 analytic "
+        f"{b3_terms['flops']:.6e}; {prefill_ms:.3f} ms (CUDA events, median of 5): "
+        f"{prefill['roofline_share']:.4f} of 989 TFLOP/s ({card})")
+    log(f"[dryrun] prefill memory: predicted temp + output {predicted} B (meta, chunked), measured "
+        f"max_memory_allocated - before {measured} B (card, chunked): ratio {prefill['memory_ratio']:.4f}; the "
+        f"analyser on the card's tensors {chunked.peak_bytes} B ({card})")
+
+    train_run = ctx["details"]["train"]["stablelm_full"]
+    tshape = ShapeConfig(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    trec = dryrun.analyse_cell(cfg, tshape, "dot")
+    tmem = trec["memory"]
+    predicted_peak = tmem["argument_bytes"] + tmem["temp_bytes"] + tmem["output_bytes"]
+    measured_peak = train_run["max_memory_allocated"]
+    six_nt = 6 * train_run["parameters"] * TRAIN_BATCH * TRAIN_SEQ
+    train = {
+        "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "impl": "dot", "meta": trec,
+        "predicted_peak": predicted_peak, "measured_peak": measured_peak,
+        "memory_ratio": predicted_peak / measured_peak, "six_nt": six_nt,
+        "counted_over_six_nt": trec["counted_flops_per_chip"] / six_nt, "ms_per_step": train_run["ms_per_step"],
+        "roofline_share": trec["counted_flops_per_chip"] / (train_run["ms_per_step"] / 1e3) / BF16_TENSOR_FLOPS,
+    }
+    log(f"[dryrun] stablelm-3b train step {TRAIN_BATCH} x {TRAIN_SEQ} (dot, remat full): counted FLOPs "
+        f"{trec['counted_flops_per_chip']:.6e} beside 6·N·T {six_nt:.6e} (x{train['counted_over_six_nt']:.4f}); "
+        f"{train_run['ms_per_step']:.2f} ms per step (phase train): {train['roofline_share']:.4f} of 989 TFLOP/s "
+        f"({card})")
+    log(f"[dryrun] train memory: predicted peak {predicted_peak} B = arguments {tmem['argument_bytes']} + temp "
+        f"{tmem['temp_bytes']} + output {tmem['output_bytes']} (meta); measured {measured_peak} B "
+        f"(phase train's max_memory_allocated over its 10 steps): ratio {train['memory_ratio']:.4f} ({card})")
+    # what the analyser cannot see: an op's allocations inside its own kernel,
+    # here logsumexp over the train step's float32 logits (LMModel.loss)
+    logits = torch.empty(TRAIN_BATCH, TRAIN_SEQ, LMModel(cfg).vocab, dtype=torch.float32, device=dev)
+    seen = op_analysis.analyze(torch.logsumexp, logits, -1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lse = torch.logsumexp(logits, -1)
+    torch.cuda.synchronize()
+    inside = torch.cuda.max_memory_allocated() - before - lse.nbytes
+    train["logsumexp"] = {"logits_bytes": logits.nbytes, "analyser_peak": seen.peak_bytes,
+                          "output_bytes": lse.nbytes, "allocated_inside": inside}
+    del logits, lse
+    log(f"[dryrun] logsumexp over the step's f32 logits ({TRAIN_BATCH * TRAIN_SEQ * LMModel(cfg).vocab * 4} B): "
+        f"{inside} B allocated inside the op beyond its {train['logsumexp']['output_bytes']} B output, which "
+        f"the analyser (peak {seen.peak_bytes} B) cannot see ({card})")
+    ctx["details"]["dryrun"] = {"prefill": prefill, "train": train}
+
+    checks = {
+        f"(a) argument bytes meta {mem['argument_bytes']} = card {chunked.argument_bytes} = parameters "
+        f"{param_bytes} + prompts {prompts.nbytes}":
+            mem["argument_bytes"] == chunked.argument_bytes == kernel.argument_bytes == param_bytes + prompts.nbytes,
+        f"(b) chunked counted FLOPs meta {meta['chunked']['counted_flops_per_chip']:.0f} == card {chunked.flops:.0f}":
+            meta["chunked"]["counted_flops_per_chip"] == chunked.flops,
+        f"(c) kernel-route FLOPs on the card {kernel.flops:.0f} == fused on meta {fused_traced:.0f}":
+            kernel.flops == fused_traced,
+        f"(c) B3 launches {on_card['kernel']['launches']} = {L}, all by wgmma ({on_card['kernel']['by_route']})":
+            on_card["kernel"]["launches"] == L and on_card["kernel"]["by_route"] == {"wgmma": L},
+        f"(d) predicted temp + output {predicted} within {TOL_DRYRUN_MEM:.0%} of measured {measured}":
+            abs(predicted - measured) <= TOL_DRYRUN_MEM * measured,
+        f"train: predicted peak {predicted_peak} within {TOL_DRYRUN_MEM:.0%} of measured {measured_peak}":
+            abs(predicted_peak - measured_peak) <= TOL_DRYRUN_MEM * measured_peak,
+    }
+    for name, ok in checks.items():
+        log(f"[dryrun] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("dry-run check failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+
+
 def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
@@ -2733,6 +2906,7 @@ PHASES = (
     ("serve_whisper", phase_serve_whisper),
     ("serve_vlm", phase_serve_vlm),
     ("train", phase_train),
+    ("dryrun", phase_dryrun),
     # last: after thousands of graph replays torch.profiler sessions in
     # this process record no device activity (PERF.md), and the phases
     # above gate on theirs

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.errors import detached
 
 
 def _is_namedtuple(x) -> bool:
@@ -138,7 +139,9 @@ def load_checkpoint(directory: str, template, step: Optional[int] = None,
 class CheckpointManager:
     """Async checkpointing: the state is snapshot to host numpy on the
     caller's thread, then written on a worker thread.  A failed write is
-    raised by the next :meth:`wait` (and so by the next save)."""
+    raised by the next :meth:`wait` (and so by the next save), with its
+    traceback's text as a note: the traceback itself would hold the worker's
+    frames, and through them the whole host snapshot, until then."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -156,7 +159,7 @@ class CheckpointManager:
                 save_checkpoint(self.directory, step, snapshot, extra)
                 self._gc()
             except Exception as e:  # handed to the caller by wait()
-                self._error = e
+                self._error = detached(e)
 
         self._thread = threading.Thread(target=_work, daemon=True)
         self._thread.start()

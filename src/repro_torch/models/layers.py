@@ -13,9 +13,10 @@ Attention implementations (``impl``):
   (:func:`repro_torch.kernels.flash_attention.flash_attention`; its plain
   version on a CPU tensor).  The port's name for the reference's
   ``"pallas"``.
-
-The reference's ``"fused"`` stub serves its XLA dry-run only and waits for
-the port's analysis slice (ROADMAP A.5).
+* ``fused``   -- the reference's dry-run stand-in for the flash kernel
+  (:func:`attend_fused_stub`): shape-correct and cheap, with no matrix
+  product; :mod:`repro_torch.launch.dryrun` adds the kernel's FLOPs and
+  bytes analytically.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from repro_torch.kernels.flash_attention import attention_ref as attend_dot  # m
 from repro_torch.models.sharding import ParamSpec
 
 #: attention implementations the port runs
-ATTENTION_IMPLS = ("dot", "chunked", "kernel")
+ATTENTION_IMPLS = ("dot", "chunked", "kernel", "fused")
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +136,23 @@ def attend_chunked(q, k, v, causal: bool = True, window: Optional[int] = None,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def attend_fused_stub(q, k, v) -> torch.Tensor:
+    """Shape- and dependency-correct stand-in for the flash kernel.
+
+    Used only by the dry-run's fused-attention variant
+    (``REPRO_ATTN_IMPL=fused``): the trace carries this cheap stand-in,
+    which the op counter does not see as a matrix product, and the dry-run
+    adds the kernel's FLOPs and HBM bytes analytically
+    (:func:`repro_torch.launch.dryrun.attention_kernel_terms`).  On the
+    card, ``impl="kernel"`` runs the real kernel B3.
+    """
+    H = q.shape[-2]
+    Dv = v.shape[-1]  # MLA: value head dim < qk head dim
+    km = _repeat_kv(k.mean(dim=1, keepdim=True), H)
+    vm = _repeat_kv(v.mean(dim=1, keepdim=True), H)
+    return q[..., :Dv] * km[..., :Dv] + vm
+
+
 def attend(q, k, v, *, impl: str = "dot", causal: bool = True, window=None, scale=None) -> torch.Tensor:
     if impl == "dot":
         return attend_dot(q, k, v, causal=causal, window=window, scale=scale)
@@ -143,9 +161,7 @@ def attend(q, k, v, *, impl: str = "dot", causal: bool = True, window=None, scal
     if impl == "kernel":
         return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "fused":
-        raise NotImplementedError(
-            "attention impl 'fused' is the reference's dry-run stub; it waits for ROADMAP A.5"
-        )
+        return attend_fused_stub(q, k, v)
     raise ValueError(f"unknown attention impl {impl!r}; the port runs {ATTENTION_IMPLS}")
 
 

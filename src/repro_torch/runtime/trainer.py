@@ -25,7 +25,11 @@ the working copy is cast again.  After every step the working copy equals
 
 Attention runs ``impl="dot"`` (the reference trainer's) or ``"chunked"``:
 the kernels B3 and B4 have no backward, nor have the reference's Pallas
-kernels, so the trainer never launches a hand-written kernel.  The mesh
+kernels, so the trainer never launches a hand-written kernel.  ``"fused"``
+is the dry-run's stand-in for the flash kernel
+(:func:`repro_torch.models.layers.attend_fused_stub`, plain ops with a
+backward), which :mod:`repro_torch.launch.dryrun` traces a step with, as
+the reference's ``build_train_step`` takes any impl.  The mesh
 goes: one card holds the whole state (several cards: ROADMAP A.6).
 """
 
@@ -49,7 +53,7 @@ from repro_torch.runtime.watchdog import StragglerWatchdog
 log = logging.getLogger(__name__)
 
 #: attention implementations the trainer runs: those with a backward
-TRAIN_IMPLS = ("dot", "chunked")
+TRAIN_IMPLS = ("dot", "chunked", "fused")
 
 
 def _check_impl(impl: str) -> None:
@@ -115,6 +119,14 @@ def build_train_step(model: LMModel, opt_cfg: AdamWConfig, impl: str = "dot", re
     return TrainStep(model, opt_cfg, impl=impl, remat=remat)
 
 
+def state_template(model: LMModel) -> Dict[str, Any]:
+    """The train state's shapes and dtypes as meta tensors: float32 masters
+    and AdamW's state."""
+    meta = lambda spec: torch.empty(spec.shape, dtype=torch.float32, device="meta")
+    params = tree_map(meta, model.param_specs())
+    return {"params": params, "opt": adamw_init(params)}
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
@@ -161,10 +173,7 @@ class Trainer:
         return {"params": params, "opt": adamw_init(params)}
 
     def state_template(self) -> Dict[str, Any]:
-        """The train state's shapes and dtypes as meta tensors."""
-        meta = lambda spec: torch.empty(spec.shape, dtype=torch.float32, device="meta")
-        params = tree_map(meta, self.model.param_specs())
-        return {"params": params, "opt": adamw_init(params)}
+        return state_template(self.model)
 
     # ------------------------------------------------------------------
     def run(self, resume: bool = True) -> Dict[str, Any]:

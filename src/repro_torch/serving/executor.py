@@ -28,13 +28,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import traceback
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.comm.faults import ExchangeIntegrityError, HealthTracker, run_ladder
+from repro_torch.core.errors import detached
 
 from .batcher import Batch
 
@@ -294,7 +294,7 @@ class BatchExecutor:
         return BatchOutcome(
             batch=batch,
             ok=False,
-            error=_detached(error),
+            error=detached(error),
             attempts=attempts,
             shed_rids=rids,
             deadline_missed=deadline_missed,
@@ -327,26 +327,6 @@ class BatchExecutor:
                     self._shed(b, e, attempts=1, elapsed_s=0.0, backoff_s=0.0)
                 )
         return outcomes
-
-
-def _detached(error: BaseException) -> BaseException:
-    """``error``, and the errors it was raised from or while handling, with
-    each traceback's text kept as a note and the traceback itself dropped.
-    A traceback holds the frame that caught the error and, through
-    ``f_back``, every frame above it: an outcome that kept one would hold its
-    schedule's outcomes, batches and payloads in a reference cycle, freed
-    only when the collector ran."""
-    pending, seen = [error], set()
-    while pending:
-        e = pending.pop()
-        if e is None or id(e) in seen:
-            continue
-        seen.add(id(e))
-        if e.__traceback__ is not None:
-            e.add_note("".join(traceback.format_tb(e.__traceback__)).rstrip())
-            e.__traceback__ = None
-        pending += [e.__cause__, e.__context__]
-    return error
 
 
 def _timed(fn: Callable[[], object]) -> float:

@@ -638,3 +638,36 @@ def test_trainer_refuses_the_kernel_route(dev):
 
     with pytest.raises(ValueError, match="no backward"):
         Trainer(tiny(get_config("stablelm-3b")), TrainerConfig(impl="kernel"), device=dev)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "deepseek-v2-lite-16b"])
+def test_op_analysis_on_card_equals_meta(dev, arch):
+    """The dry-run's analyser counts a tiny prefill on the card's tensors as
+    it counts the same program on meta tensors (plain route: chunked
+    attention), and its peak is the card's ``max_memory_allocated`` above
+    what was allocated before, within 10%."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, op_analysis
+
+    model, params = build(arch, "tiny", seed=0, device=dev)
+    prompts = torch.randint(0, model.cfg.vocab_size, (2, 256), device=dev)
+    meta = dryrun.analyse_cell(model.cfg, ShapeConfig("p", 256, 2, "prefill"), "chunked")
+    # warm cuBLAS through another model object: the analysed one keeps its
+    # MoE tallies fresh, as the meta trace's model does
+    type(model)(model.cfg).prefill(params, prompts, impl="chunked")
+    st = op_analysis.analyze(model.prefill, params, prompts, impl="chunked")
+    assert st.flops == meta["counted_flops_per_chip"]
+    assert st.mem_bytes == meta["counted_bytes_per_chip"]
+    assert st.argument_bytes == meta["memory"]["argument_bytes"]
+    assert (st.temp_bytes, st.output_bytes) == (meta["memory"]["temp_bytes"], meta["memory"]["output_bytes"])
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = model.prefill(params, prompts, impl="chunked")
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    del out
+    assert abs(st.peak_bytes - measured) <= 0.1 * measured, (st.peak_bytes, measured)

@@ -49,7 +49,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.testing.traces", "repro_torch.optim.adamw",
                  "repro_torch.data.synthetic", "repro_torch.checkpoint.ckpt",
                  "repro_torch.runtime.trainer", "repro_torch.launch.train",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.op_analysis", "repro_torch.core.errors"):
         assert name in mods, name
     proc = _run(
         f"""

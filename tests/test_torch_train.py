@@ -253,6 +253,37 @@ def test_save_async_snapshots_on_the_callers_thread(tmp_path, monkeypatch):
     assert not np.array_equal(now["opt/.mu/w"], at_save["opt/.mu/w"])
 
 
+def test_failed_save_async_leaves_no_reference_to_the_snapshot(tmp_path, monkeypatch):
+    """A write that fails keeps its error for the next ``wait()`` but not the
+    host snapshot: once the writer thread has ended, the snapshot is freed
+    (with the collector off), and ``wait()`` raises the error's type and
+    message, its traceback's text kept as a note."""
+    import gc
+    import weakref
+
+    refs = []
+
+    def failing_write(directory, step, state, extra=None):
+        refs.append(weakref.ref(state["w"]))
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ckpt, "save_checkpoint", failing_write)
+    mgr = CheckpointManager(str(tmp_path))
+    gc.collect()
+    gc.disable()
+    try:
+        mgr.save_async(1, {"w": torch.ones(1024)})
+        thread = mgr._thread
+        thread.join(60)
+        alive = thread.is_alive(), refs[0]() is not None
+    finally:
+        gc.enable()
+    assert alive == (False, False)
+    with pytest.raises(OSError, match="disk full") as info:
+        mgr.wait()
+    assert "failing_write" in "".join(info.value.__notes__)
+
+
 def test_checkpoint_shape_mismatch_and_missing_leaf_rejected(tmp_path):
     save_checkpoint(str(tmp_path), 1, {"w": torch.zeros((2, 2))})
     with pytest.raises(ValueError, match=r"leaf w: shape \(2, 2\) != expected \(3, 3\)"):
