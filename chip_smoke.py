@@ -45,31 +45,44 @@ before it and read just after:
   bf16 compute on float32 masters), batch 2 x 4096, 10 AdamW steps through
   ``repro_torch.runtime.Trainer``; no kernel (B3 and B4 have no backward,
   and the trainer runs the plain attention and SSD under autograd, as the
-  reference trains with ``impl="dot"``): B3/B4 launch 0 times.
+  reference trains with ``impl="dot"``): B3/B4 launch 0 times;
+* the six examples of ``repro_torch.examples`` as users start them, each
+  in a process of its own with the reference's smoke arguments (and
+  krylov_solve without ``--fused``, serve_lm at its defaults and on
+  mamba2-780m, train_lm at its 300 steps and resumed); the counts each
+  reports cover its own process: B1/B2 in quickstart, B1 in krylov_solve,
+  B3 in serve_lm, B4 on mamba2-780m, none in train_lm.
 
 Phases, each of which fails the run on any error:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together; seconds, registers and spills printed);
-2. B1 (``spmv_ell``) and B2 (``spmm_ell``) at the solve path's shapes,
+2. the examples (``examples``): each of the ten runs above in a child
+   process on the card, its exit code, the reference's expected line and
+   its launch gate checked, its wall seconds recorded; then B1-B4 at the
+   shapes the examples give them against their plain versions; right
+   after the build (placed just before ``fused``, it left that phase's
+   profiler two B1 kernels short of the launches counted, in both full
+   runs);
+3. B1 (``spmv_ell``) and B2 (``spmm_ell``) at the solve path's shapes,
    masked and unmasked, f32 and bf16, against their plain PyTorch versions;
    kernel, plain and ``torch.sparse`` CSR times and the bound;
-3. the exchange of all four strategies, barrier and split-phase, on the card
+4. the exchange of all four strategies, barrier and split-phase, on the card
    against the host ``execute_numpy``, bitwise;
-4. the distributed SpMV of every strategy: overlap == barrier and
+5. the distributed SpMV of every strategy: overlap == barrier and
    ``matmat == matmat_looped`` bitwise, and agreement with a float64 host
    CSR product; then a small system solved on the card and on the CPU;
-5. the solve path: CG (strategy "auto", the advisor on ``lassen``), BiCGStab
+6. the solve path: CG (strategy "auto", the advisor on ``lassen``), BiCGStab
    on ``shifted_system`` of the same grid, and one ``matmat`` of 8 columns;
-6. a CG iteration's host wall time and its device time by kernel under
+7. a CG iteration's host wall time and its device time by kernel under
    ``torch.profiler``;
-7. the exchange's wire codecs, checks, injected faults and recovery ladder
+8. the exchange's wire codecs, checks, injected faults and recovery ladder
    at the case study's size against ``execute_numpy``, and CG through them;
-8. the serving executor: ``measure_spmv_replay`` (64 requests, width 8,
+9. the serving executor: ``measure_spmv_replay`` (64 requests, width 8,
    parity 0), a simulated schedule drained through ``matmat`` (B2) under
    seeded faults, each completed batch held to a float64 CSR product, and
    ``simulate()``'s trace hash against the reference's;
-9. B3 (``flash_attention``, f32 and bf16) and B4 (``ssd_chunked``, f32) at the
+10. B3 (``flash_attention``, f32 and bf16) and B4 (``ssd_chunked``, f32) at the
    serving path's shapes and at ragged / ``Sq < Sk`` / non-causal / no-window
    / other-chunk cases, and B3 at stablelm-3b's and qwen3-32b's head widths
    (80, 128), stablelm-3b's and llama4-scout's at their serve phases'
@@ -83,14 +96,14 @@ Phases, each of which fails the run on any error:
    row the wgmma route serves (hymba's D 64, llama4-scout's and the vlm's
    D 128, MLA's (192, 128)) the wgmma kernel beside the mma.sync kernel of
    the other widths, both checked against the plain version;
-10. the serving path: in float32, the kernel route against the plain route
+11. the serving path: in float32, the kernel route against the plain route
    (prefill logits, greedy tokens) and decode against the full forward;
    then the bfloat16 run, its prefill and decode times, peak memory, and the
    device's busy share over ten decode steps;
-11. a short bfloat16 serve of stablelm-3b at full width and depth (batch 2,
+12. a short bfloat16 serve of stablelm-3b at full width and depth (batch 2,
    prompts of 2048, 8 tokens; counts reset just before, read just after):
    B3 at head width 80, 32 launches, finite logits;
-12. one llama4-scout MoE layer at full width on 16 stacked ranks (one
+13. one llama4-scout MoE layer at full width on 16 stacked ranks (one
    expert each; batch 16 x 1024, uniform and skewed routing): the exchange
    dispatch bitwise the all-to-all for every strategy and ``auto``, the
    int8 wire's dispatch hop within its envelope, the exchange cache under a
@@ -98,23 +111,23 @@ Phases, each of which fails the run on any error:
    simulated MoE schedule drained through ``BatchExecutor.register_moe``
    bitwise the all-to-all; ms per layer call, slots routed / dropped /
    shipped, and one call's device time by class;
-13. llama4-scout serving: in float32 at 2 layers (2 x 1024, 8 tokens) the
+14. llama4-scout serving: in float32 at 2 layers (2 x 1024, 8 tokens) the
    kernel route against the plain route; then the bfloat16 main path at 8
    layers, B3 launched once per layer in the prefill (every launch by the
    wgmma route) and never in decode, its times, memory, capacity drops, decode busy share and prefill device
    time by class, and the dispatch advice, serving simulation and chaos
    storm on the served tokens;
-14.-16. this slice's serving paths (``serve_mla``, ``serve_whisper``,
+15.-17. this slice's serving paths (``serve_mla``, ``serve_whisper``,
    ``serve_vlm``): in float32 at a small depth (deepseek 2 layers at 2 x
    1024 with a capacity factor at which nothing drops, whisper 4 + 4 layers
    at 4 x 192, the vlm 4 + 1 layers at 2 x 512) the kernel route against the
    plain route and decode against the full forward; then the bfloat16 main
    path, B3 launched once per attention in the prefill (27, 96, 20), each
-   launch at a shape phase 9 checked and timed and by the wgmma route, and
+   launch at a shape phase 10 checked and timed and by the wgmma route, and
    never in decode, finite
    logits, times, peak memory, capacity drops
    (deepseek), the decode busy share and the prefill's device time by class;
-17. the training path (``train``): stablelm-3b at full width and depth,
+18. the training path (``train``): stablelm-3b at full width and depth,
    10 steps at 2 x 4096 (finite, falling losses; the working copy equal to
    the masters cast to bf16; no B3/B4 launch), ms per step, tokens/s, MFU,
    peak memory, and 2 profiled steps' busy share and device time by class;
@@ -122,13 +135,13 @@ Phases, each of which fails the run on any error:
    and a failure at step 3 resumed from a checkpoint bitwise an
    uninterrupted run; before ``fused``, whose graph replays would leave the
    profiler blind;
-18. the dry-run's op analyser (``dryrun``, no profiler): stablelm-3b's
+19. the dry-run's op analyser (``dryrun``, no profiler): stablelm-3b's
    prefill at 2 x 2048 analysed on meta tensors and on the card's tensors
    (argument bytes, counted FLOPs chunked and kernel-vs-fused, B3 32 times by
    wgmma, the predicted temp + output bytes within 10% of the card's peak),
    and the train step at 2 x 4096 (the predicted peak within 10% of phase
    ``train``'s); the roofline shares of both on 989 TFLOP/s;
-19. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
+20. the whole solve as replayed CUDA graphs (``fused_cg``/``fused_bicgstab``
    on the case study): against the host loops (iterations, status, matvecs,
    histories within 1e-10, true residual), one fused-cache miss then a hit,
    graph replay bitwise the eager body, histories bitwise across strategies
@@ -140,7 +153,7 @@ Phases, each of which fails the run on any error:
    times the replays, held to the profiler's count of B1 kernels in a
    profiled solve); last, because after it ``torch.profiler`` records no
    device activity in this process;
-20. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
+21. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
     B3 entry's launches are its main path's launches at that shape), the
@@ -2875,6 +2888,180 @@ def phase_dryrun(ctx) -> None:
         raise AssertionError("dry-run check failed: " + ", ".join(k for k, ok in checks.items() if not ok))
 
 
+#: B1-B4's counters as the examples report them (``repro_torch.examples.launch_counts``)
+EXAMPLE_KERNELS = ("spmv_ell", "spmm_ell", "flash_attention", "ssd_chunked")
+
+
+def _no_kernel(launches: dict) -> bool:
+    return not any(launches[k] for k in EXAMPLE_KERNELS)
+
+
+#: phase ``examples``: (example, arguments, the reference's expected line,
+#: launch gate).  The reference's smoke arguments first, then krylov_solve
+#: without ``--fused``, serve_lm at its defaults and on an ssm arch, and
+#: train_lm at its 300 steps and resumed; ``{ckpt}`` is a fresh directory
+EXAMPLE_RUNS = (
+    ("strategy_advisor", ["--messages", "32", "--nodes", "4", "--payload-width", "8"], "best strategy",
+     _no_kernel),
+    ("quickstart", [], "split", lambda n: n["spmv_ell"] > 0 and n["spmm_ell"] > 0),
+    ("krylov_solve", ["--fused"], "fused whole-solve",
+     lambda n: n["spmv_ell"] > 0 and n["spmv_ell_replayed"] > 0),
+    ("krylov_solve", [], "DEVICE EXECUTION", lambda n: n["spmv_ell"] > 0),
+    ("chaos_serving", [], "chaos serving", _no_kernel),
+    ("serve_lm", ["--arch", "deepseek-v2-lite-16b", "--batch", "1", "--prompt-len", "8", "--gen", "3",
+                  "--advise-dispatch"], "dispatch advice", lambda n: n["flash_attention"] > 0),
+    ("serve_lm", [], "sample:", lambda n: n["flash_attention"] > 0),
+    ("serve_lm", ["--arch", "mamba2-780m"], "sample:", lambda n: n["ssd_chunked"] > 0),
+    ("train_lm", ["--ckpt", "{ckpt}"], "loss:", _no_kernel),
+    ("train_lm", ["--ckpt", "{ckpt}", "--resume", "--steps", "320"], "over 320 steps", _no_kernel),
+)
+
+
+def phase_examples(ctx) -> None:
+    """The six examples of ``repro_torch.examples`` as users start them
+    (``python -m repro_torch.examples.<name>``, on the CUDA device), each in
+    a process of its own: the ``--fused`` solve's graph replays stay out of
+    this process, whose profiler phase ``fused`` still needs.  Each must exit
+    0 (its own asserts hold), print the reference's expected line, and pass
+    its launch gate on the counts it prints last (``REPRO_EXAMPLE_LAUNCHES``);
+    the resumed train_lm run must start from step 300.  Wall seconds per run
+    go to ``chip_smoke.json``, each run's output to ``chiprun_out/examples/``.
+    """
+    import shutil
+    import tempfile
+
+    out_dir = os.path.join(HERE, "chiprun_out", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"), "REPRO_EXAMPLE_LAUNCHES": "1"}
+    ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_examples_"), "ckpt")
+    runs = {}
+    try:
+        for name, args, expect, gate in EXAMPLE_RUNS:
+            args = [a.format(ckpt=ckpt) for a in args]
+            label = " ".join([name, *args]).replace(ckpt, "CKPT")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                                  capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
+            seconds = time.perf_counter() - t0
+            fname = label.replace(" ", "_").replace("-", "").replace("/", "")
+            with open(os.path.join(out_dir, f"{fname}.txt"), "w") as f:
+                f.write(f"$ {label}\n{proc.stdout}\n--- stderr ---\n{proc.stderr}")
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            lines = proc.stdout.strip().splitlines()
+            launches = json.loads(lines[-1])["launches"]
+            checks = {"expected line": expect in proc.stdout, "launch gate": gate(launches)}
+            if "--resume" in args:
+                checks["resumed from step 300"] = "resumed from step 300" in proc.stderr
+            runs[label] = {"seconds": seconds, "launches": launches, "checks": checks}
+            log(f"[examples] {label}: {seconds:.2f} s, launches {launches}, checks {checks}")
+            if not all(checks.values()):
+                raise AssertionError(f"{label}: " + ", ".join(k for k, ok in checks.items() if not ok)
+                                     + "\n" + "\n".join(lines[-20:]))
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+        ctx["details"]["examples"] = runs
+    example_kernel_checks(ctx)
+
+
+def example_kernel_checks(ctx) -> None:
+    """B1-B4 at the shapes the examples give them, each held to its plain
+    version on the same seeded inputs, in this process: B1 and B2 (masked
+    as the overlap path masks them) on quickstart's and krylov_solve's
+    partitions, B3 in float32 at the shapes serve_lm's tiny qwen3-32b and
+    deepseek-v2-lite prefills launch it with (read from ``by_shape``), B4 at
+    the tiny mamba2-780m's.  These launches count toward no gate: the counts
+    are set to 0 after them."""
+    import torch
+    from repro_torch.comm import IrregularExchange, PodTopology
+    from repro_torch.configs import get_config
+    from repro_torch.core.split_plan import split_rows
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import spmv_ell as K
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.presets import tiny
+    from repro_torch.launch.serve import build, make_context
+    from repro_torch.models.ssd import ssd_chunked as ssd_plain
+    from repro_torch.solve import spd_system
+    from repro_torch.sparse import audikw_like, partition_csr, thermal_like
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    checks = ctx["details"].setdefault("example_kernel_checks", [])
+
+    def check(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        checks.append({"case": name, "max_abs_err": err, "tol": tol, "ok": bool(ok)})
+        log(f"[examples] {name}: max_abs_err={err:.3e} (rtol=atol={tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+
+    topo = PodTopology(npods=2, ppn=4)
+    g = topo.nranks
+    for tag, matrix, cols in (("quickstart", audikw_like(128, np.random.default_rng(0)), 8),
+                              ("krylov_solve", spd_system(thermal_like(1024, np.random.default_rng(0))), 0)):
+        part = partition_csr(matrix, topo)
+        L = part.rows_per_rank
+
+        def t(a):
+            return torch.as_tensor(a, device=dev).contiguous()
+
+        blocks = {"diag": (t(part.diag.data.reshape(g, L, -1)), t(part.diag.cols.reshape(g, L, -1))),
+                  "off": (t(part.off.data.reshape(g, L, -1)), t(part.off.cols.reshape(g, L, -1)))}
+        halo_dep = part.off_row_nnz.reshape(g, L) > 0
+        v = torch.randn((g, L), generator=gen, device=dev)
+        xs = {"diag": v, "off": IrregularExchange(part.pattern, "two_step", device=dev)(v)}
+        bnd = t(split_rows(halo_dep, K.TILE_R).boundary_tiles.astype(np.int32))
+        for blk, (data, idx) in blocks.items():
+            check(f"spmv_ell {tag} {blk} {list(data.shape)}", K.spmv_ell(data, idx, xs[blk]),
+                  K.spmv_ell_ref(data, idx, xs[blk]), TOL_F32)
+        data, idx = blocks["off"]
+        check(f"spmv_ell {tag} off masked", K.spmv_ell(data, idx, xs["off"], bnd),
+              K.spmv_ell_masked_ref(data, idx, xs["off"], K.rows_of_tiles(bnd, K.TILE_R, L)), TOL_F32)
+        if not cols:
+            continue
+        V = torch.randn((g, L, cols), generator=gen, device=dev)
+        Xs = {"diag": V, "off": IrregularExchange(part.pattern, "two_step", device=dev)(V)}
+        bnd_mm = t(split_rows(halo_dep, K.TILE_R_MM).boundary_tiles.astype(np.int32))
+        for blk, (data, idx) in blocks.items():
+            check(f"spmm_ell {tag} {blk} C={cols}", K.spmm_ell(data, idx, Xs[blk]),
+                  K.spmm_ell_ref(data, idx, Xs[blk]), TOL_F32)
+        check(f"spmm_ell {tag} off masked C={cols}", K.spmm_ell(data, idx, Xs["off"], bnd_mm),
+              K.spmm_ell_masked_ref(data, idx, Xs["off"], K.rows_of_tiles(bnd_mm, K.TILE_R_MM, L)), TOL_F32)
+
+    # B3: the shapes the examples' tiny prefills launch it with
+    for arch, batch, prompt in (("qwen3-32b", 4, 64), ("deepseek-v2-lite-16b", 1, 8)):
+        model, params = build(arch, "tiny", seed=0, device=dev)
+        prompts, _ = make_context(model.cfg.vocab_size, batch, prompt, 0, model.cfg.d_model, seed=0)
+        FA.flash_attention.by_shape.clear()
+        with torch.inference_mode():
+            model.prefill(params, torch.as_tensor(prompts, device=dev), None, impl="kernel")
+        shapes = list(FA.flash_attention.by_shape)
+        if not shapes:
+            raise AssertionError(f"{arch}: the tiny prefill launched no B3")
+        for (qs, ks, vs, causal, window) in shapes:
+            q, k, v = (torch.randn(s, generator=gen, device=dev) for s in (qs, ks, vs))
+            check(f"flash_attention {arch} tiny {list(qs)}/{list(ks)}/{list(vs)} causal={causal} "
+                  f"window={window} float32", FA.flash_attention(q, k, v, causal=causal, window=window),
+                  FA.attention_ref(q, k, v, causal=causal, window=window), TOL_ATTN_F32)
+        del model, params
+    FA.flash_attention.by_shape.clear()
+    FA.flash_attention.by_route.clear()
+
+    # B4: the tiny mamba2-780m's SSD at serve_lm's default batch 4 x 64
+    cfg = tiny(get_config("mamba2-780m"))
+    H, P, N, Q = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim, cfg.ssm.state_dim, cfg.ssm.chunk
+    x = torch.randn((4, 64, H, P), generator=gen, device=dev)
+    loga = -torch.rand((4, 64, H), generator=gen, device=dev) * 0.2
+    bb, cc = (torch.randn((4, 64, N), generator=gen, device=dev) for _ in range(2))
+    check(f"ssd_chunked mamba2-780m tiny [4,64,{H},{P}] N={N} Q={Q}", SSD.ssd_chunked(x, loga, bb, cc, Q),
+          ssd_plain(x, loga, bb, cc, Q), TOL_SSD)
+    K.spmv_ell.launches = K.spmm_ell.launches = 0
+    FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+
+
 def kernels_line(ctx) -> dict:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
@@ -2889,6 +3076,7 @@ def kernels_line(ctx) -> dict:
 #: the phases in the order ``main`` runs them
 PHASES = (
     ("build", phase_build),
+    ("examples", phase_examples),
     ("setup", phase_setup),
     ("kernels", phase_kernels),
     ("exchange", phase_exchange),

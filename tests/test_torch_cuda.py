@@ -671,3 +671,28 @@ def test_op_analysis_on_card_equals_meta(dev, arch):
     measured = torch.cuda.max_memory_allocated() - before
     del out
     assert abs(st.peak_bytes - measured) <= 0.1 * measured, (st.peak_bytes, measured)
+
+
+@pytest.mark.parametrize("name,args", [("quickstart", []), ("krylov_solve", ["--fused"])])
+def test_examples_launch_the_spmv_kernels(dev, name, args):
+    """The quickstart and the fused Krylov example, started as users start
+    them on the card (each in a process of its own), pass their own checks
+    and launch B1 (and the quickstart B2); their launch counts come back as
+    the last line."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo / "src"), "REPRO_EXAMPLE_LAUNCHES": "1"}
+    proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                          capture_output=True, text=True, timeout=600, cwd=repo, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
+    assert launches["spmv_ell"] > 0
+    if name == "quickstart":
+        assert launches["spmm_ell"] > 0 and "split" in proc.stdout
+    else:
+        assert launches["spmv_ell_replayed"] > 0 and "fused whole-solve" in proc.stdout

@@ -112,6 +112,23 @@ def test_entry_points_without_device_raise_when_no_cuda():
                 raise AssertionError("ran on the CPU without being asked to")
         assert fused_cg(op, b, device="cpu").converged
         assert fused_cg(build(S, topo, strategy="two_step", device="cpu"), b).converged
+        # the examples, each started without --device
+        import contextlib, io
+        from repro_torch.examples import (chaos_serving, krylov_solve, quickstart, serve_lm,
+                                          strategy_advisor, train_lm)
+        for main, argv in ((strategy_advisor.main, ["--messages", "32"]), (quickstart.main, []),
+                           (krylov_solve.main, ["--fused"]), (chaos_serving.main, []),
+                           (serve_lm.main, ["--arch", "deepseek-v2-lite-16b", "--advise-dispatch"]),
+                           (train_lm.main, ["--steps", "1"])):
+            printed = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(printed):
+                    main(argv)
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+                assert not printed.getvalue(), printed.getvalue()
+            else:
+                raise AssertionError(f"{main.__module__} ran on the CPU without being asked to")
         # asking for the CPU works
         IrregularExchange(pat, "two_step", device="cpu")(np.ones((4, 4), np.float32))
         IrregularExchange(pat, "two_step", device="cpu", wire="int8", verify=True)(np.ones((4, 4), np.float32))
