@@ -46,6 +46,12 @@ before it and read just after:
   ``repro_torch.runtime.Trainer``; no kernel (B3 and B4 have no backward,
   and the trainer runs the plain attention and SSD under autograd, as the
   reference trains with ``impl="dot"``): B3/B4 launch 0 times;
+* the mesh (``repro_torch.launch.dryrun --mesh single|multi``): stablelm-3b's
+  train_4k, prefill_32k and decode_32k analysed per chip on the reference's
+  16x16 and 2x16x16 meshes (DTensor on meta shards, a fake process group
+  of 256 / 512 in a child process each), and rank 0's program of the
+  16x16 prefill_32k run on the card at full width over a fake group of 256;
+  no kernel (the dry-run runs ``chunked``), so no count is read;
 * the six examples of ``repro_torch.examples`` as users start them, each
   in a process of its own with the reference's smoke arguments (and
   krylov_solve without ``--fused``, serve_lm at its defaults and on
@@ -64,6 +70,9 @@ Phases, each of which fails the run on any error:
    after the build (placed just before ``fused``, it left that phase's
    profiler two B1 kernels short of the launches counted, in both full
    runs);
+2b. the mesh (``mesh``): the dry-run CLI on the two production meshes and
+   rank 0's prefill on the card (see ``phase_mesh``), each in a child
+   process because a process group is global;
 3. B1 (``spmv_ell``) and B2 (``spmm_ell``) at the solve path's shapes,
    masked and unmasked, f32 and bf16, against their plain PyTorch versions;
    kernel, plain and ``torch.sparse`` CSR times and the bound;
@@ -3073,10 +3082,126 @@ def kernels_line(ctx) -> dict:
     return {"kernels": out}
 
 
+#: phase ``mesh``'s cells: stablelm-3b at every shape it runs, on both meshes
+MESH_ARCH = "stablelm-3b"
+MESH_SIZES = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
+
+#: phase ``mesh``'s rank-0 program on the card, run as a child: its record on stdout's last line
+MESH_RANK0 = """
+import json, sys
+import torch
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.dryrun import run_on_card
+from repro_torch.launch.mesh import init_fake_world, make_production_mesh
+init_fake_world(256, rank=0)
+torch.cuda.set_device(0)
+mesh = make_production_mesh(multi_pod=False)
+out = run_on_card(get_config(sys.argv[1]), SHAPES["prefill_32k"], mesh, impl="chunked", seed=0)
+out["device"] = torch.cuda.get_device_name(0)
+print(json.dumps(out))
+"""
+
+
+def phase_mesh(ctx) -> None:
+    """The mesh half of the port (``repro_torch.models.sharding``,
+    ``launch.mesh``, the dry-run's ``--mesh single|multi``), in child
+    processes: a process group is global to its process.
+
+    1. On meta tensors: ``python -m repro_torch.launch.dryrun --arch
+       stablelm-3b --mesh single`` and ``--mesh multi``, the two at once,
+       each over a fake group of its mesh's size.  Gates: every cell OK
+       (train_4k, prefill_32k, decode_32k; long_500k skipped as in the
+       reference), each cell's per-chip ``argument_bytes`` equal to the sum
+       of its arguments' local shards from ``spec_for``
+       (``dryrun.spec_argument_bytes``), and every sharded cell issuing
+       collectives.
+    2. On the card: rank 0's program of stablelm-3b prefill_32k on the 16x16
+       mesh at full width (``dryrun.run_on_card``): a fake group of 256
+       standing at rank 0 on a CUDA mesh, its local shards drawn from a seed
+       on the card, ``impl="chunked"``.  A fake group leaves every gathered
+       buffer uninitialised, so the run is gated on memory and FLOPs, not on
+       values (``tests/test_torch_mesh.py`` holds the sharded programs'
+       values, on a real gloo group of 4 processes).  Gates: its argument
+       bytes equal the meta record's; the bytes it allocated at its peak
+       beyond its arguments within 10% of the record's temp + output; its
+       counted FLOPs equal the record's.  Its CUDA-event time is logged.
+    Nothing is caught: any failure fails the phase.
+    """
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import LMModel
+
+    card = ctx["details"]["card"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    meta = {kind: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MESH_ARCH, "--mesh", kind, "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE, env={**env, "CUDA_VISIBLE_DEVICES": ""})
+        for kind in MESH_SIZES}
+    outs = {kind: p.communicate(timeout=900) for kind, p in meta.items()}
+    meta_s = time.perf_counter() - t0
+    for kind, p in meta.items():
+        if p.returncode != 0:
+            raise AssertionError(f"dry-run --mesh {kind}: exit {p.returncode}\n{outs[kind][0][-3000:]}"
+                                 f"\n{outs[kind][1][-3000:]}")
+    checks, records = {}, {}
+    model = LMModel(get_config(MESH_ARCH), tp=16)
+    for kind, sizes in MESH_SIZES.items():
+        for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
+            with open(os.path.join(out_dir, f"{MESH_ARCH}__{shape_name}__{kind}.json")) as f:
+                rec = records[(kind, shape_name)] = json.load(f)
+            mem = rec["memory"]
+            want = dryrun.spec_argument_bytes(model, SHAPES[shape_name], sizes)
+            log(f"[mesh] {MESH_ARCH} x {shape_name} x {kind} ({rec['chips']} chips, meta): trace "
+                f"{rec['lower_s']:.1f} s, FLOPs/chip {rec['counted_flops_per_chip']:.6e} (x"
+                f"{rec['counted_flops_per_chip'] * rec['chips'] / rec['model_flops']:.4f} model_flops), arguments "
+                f"{mem['argument_bytes']} B (spec_for {want}), temp {mem['temp_bytes']} B, output "
+                f"{mem['output_bytes']} B, collectives {rec['collective_ops']} ops "
+                f"{ {k: int(v) for k, v in rec['collective_by_kind'].items()} } B")
+            checks[f"{shape_name} x {kind}: OK, {rec['chips']} chips"] = \
+                "error" not in rec and rec["chips"] == math.prod(sizes.values())
+            checks[f"{shape_name} x {kind}: argument bytes {mem['argument_bytes']} = spec_for's {want}"] = \
+                mem["argument_bytes"] == want
+            checks[f"{shape_name} x {kind}: {rec['collective_ops']} collectives > 0"] = rec["collective_ops"] > 0
+
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", MESH_RANK0, MESH_ARCH], capture_output=True, text=True,
+                          timeout=900, cwd=HERE, env=env)
+    card_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"rank 0's program: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec = records[("single", "prefill_32k")]
+    mem = rec["memory"]
+    predicted = mem["temp_bytes"] + mem["output_bytes"]
+    log(f"[mesh] rank 0 of 256, {MESH_ARCH} prefill_32k (32 x 32768, chunked) on the card: arguments "
+        f"{run['argument_bytes']} B, peak beyond them {run['peak_beyond_arguments']} B (predicted temp + output "
+        f"{predicted} B, ratio {predicted / run['peak_beyond_arguments']:.4f}), counted FLOPs {run['flops']:.6e}, "
+        f"collectives {run['collective_ops']} ops, {run['ms']:.3f} ms (CUDA events, median of 3) ({card})")
+    checks[f"card: argument bytes {run['argument_bytes']} = meta {mem['argument_bytes']}"] = \
+        run["argument_bytes"] == mem["argument_bytes"]
+    checks[f"card: peak beyond arguments {run['peak_beyond_arguments']} within {TOL_DRYRUN_MEM:.0%} of "
+           f"predicted {predicted}"] = \
+        abs(predicted - run["peak_beyond_arguments"]) <= TOL_DRYRUN_MEM * run["peak_beyond_arguments"]
+    checks[f"card: counted FLOPs {run['flops']:.0f} = meta {rec['counted_flops_per_chip']:.0f}"] = \
+        run["flops"] == rec["counted_flops_per_chip"]
+    ctx["details"]["mesh"] = {"records": {f"{k}|{s}": r for (k, s), r in records.items()}, "rank0": run,
+                              "meta_seconds": meta_s, "card_seconds": card_s}
+    log(f"[mesh] the two meta dry-runs took {meta_s:.1f} s (at once), rank 0's program {card_s:.1f} s")
+    for name, ok in checks.items():
+        log(f"[mesh] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("mesh check failed: " + ", ".join(k for k, ok in checks.items() if not ok))
+
+
 #: the phases in the order ``main`` runs them
 PHASES = (
     ("build", phase_build),
     ("examples", phase_examples),
+    ("mesh", phase_mesh),
     ("setup", phase_setup),
     ("kernels", phase_kernels),
     ("exchange", phase_exchange),

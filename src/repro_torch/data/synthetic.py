@@ -1,9 +1,9 @@
 """The port of ``repro.data.synthetic``: the reference's numpy recipe, the
 batch handed over as int64 tensors on one device.
 
-The reference's mesh arguments are gone: on one card the batch is whole
-(batch sharding waits for ROADMAP A.6).  The values equal the reference's
-int32 arrays.
+The reference's mesh arguments are gone: the batch is made whole, and a
+sharded step places it by ``repro_torch.runtime.trainer.batch_sharding``.
+The values equal the reference's int32 arrays.
 """
 
 from __future__ import annotations

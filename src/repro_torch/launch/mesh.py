@@ -1,19 +1,70 @@
-"""Mesh builder of the training launcher, for one card.
+"""Mesh builders: the reference's production meshes as ``DeviceMesh``, and the launchers' one card.
 
-The reference builds a ``jax`` mesh of ``DATA x MODEL`` devices.  The port
-holds the whole train state on one card, so the only mesh it takes is
-``1x1``; a mesh of several cards waits for the ``torch.distributed`` slice
-(ROADMAP A.6).
+``make_production_mesh`` is a function (not a module-level constant) so that
+importing this module touches no device or process-group state, as in the
+reference.  It builds over the default process group, which the caller
+initialises with the mesh's world size: a real one (NCCL on 256 or 512
+cards) or, for the dry-run, a fake group of that size in one process
+(:func:`init_fake_world`).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
+#: the reference's meshes: (shape, axis names)
+SINGLE_POD: Tuple[Tuple[int, ...], Tuple[str, ...]] = ((16, 16), ("data", "model"))
+MULTI_POD: Tuple[Tuple[int, ...], Tuple[str, ...]] = ((2, 16, 16), ("pod", "data", "model"))
+
+
+def production_shape(multi_pod: bool = False) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """``(shape, axis names)`` of the 16x16 pod or the 2x16x16 pair of pods."""
+    return MULTI_POD if multi_pod else SINGLE_POD
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """16x16 ``("data", "model")`` mesh, or 2 pods x 16 x 16 = 512 chips over
+    ``("pod", "data", "model")``, on the default process group, whose world
+    size must be the mesh's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = production_shape(multi_pod)
+    need = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"the {'x'.join(map(str, shape))} mesh needs a default process group of world size "
+            f"{need}; none is initialised"
+        )
+    if dist.get_world_size() != need:
+        raise RuntimeError(
+            f"the {'x'.join(map(str, shape))} mesh needs a default process group of world size "
+            f"{need}; this one has {dist.get_world_size()}"
+        )
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def init_fake_world(world_size: int, rank: int = 0) -> None:
+    """The default process group as a fake group of ``world_size`` in this
+    process, standing at ``rank``: collectives move no data (their outputs
+    are left uninitialised) but have their real shapes, so a program's
+    shapes, memory and FLOPs are those of that rank."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+
 
 def make_host_mesh(data: int = 1, model: int = 1) -> None:
-    """``None`` (one card, no mesh) for ``1x1``; anything else raises."""
+    """``None`` (one card, no mesh) for ``1x1``; anything else raises.
+
+    The train and serve launchers hold the whole model on one card; a mesh
+    of several cards for them needs a real several-card group (ROADMAP A.6.3).
+    """
     if (data, model) != (1, 1):
         raise ValueError(
-            f"mesh {data}x{model}: the port trains on one card (mesh 1x1); meshes of "
-            "several cards wait for ROADMAP A.6"
+            f"mesh {data}x{model}: the port's launchers run on one card (mesh 1x1); "
+            "a several-card group for them waits for ROADMAP A.6.3"
         )
     return None

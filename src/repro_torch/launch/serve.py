@@ -215,7 +215,7 @@ def dispatch_advice(params, cfg, tokens, npods: int, ppn: int, machine: str = "t
     histogram and the :class:`repro_torch.core.Advice` ranking for it, with
     byte terms scaled by ``d_model`` (each routed token ships a d_model-wide
     activation row).  ``machine`` defaults to the reference's, so the
-    rankings are its own (the port has no H100 constants yet, ROADMAP A.6).
+    rankings are its own (the port has no H100 constants, ROADMAP A.6.1).
     """
     nranks = npods * ppn
     counts = routing_counts(params, cfg, tokens, nranks)

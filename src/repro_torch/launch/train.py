@@ -4,7 +4,7 @@ The port of ``repro.launch.train``: the same options, presets (``tiny``
 reduced width, ``100m``, ``full``) and closing line, plus ``--device``
 (the CUDA device by default; ``cpu`` when asked).  Supports
 checkpoint/restart (``--resume``) and fault injection (``--fail-at``);
-``--mesh`` takes ``1x1`` only (ROADMAP A.6).
+``--mesh`` takes ``1x1`` only (a several-card group: ROADMAP A.6.3).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --preset tiny \\
         --device cpu --steps 50 --ckpt /tmp/run1

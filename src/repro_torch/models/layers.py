@@ -27,10 +27,20 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.kernels.flash_attention import attention_ref as attend_dot  # materialized scores
-from repro_torch.models.sharding import ParamSpec
+from repro_torch.models.sharding import (
+    PartitionSpec,
+    ParamSpec,
+    block_index,
+    placements,
+    rules_for_mesh,
+    spec_for,
+    whole_dim,
+)
 
 #: attention implementations the port runs
 ATTENTION_IMPLS = ("dot", "chunked", "kernel", "fused")
@@ -154,6 +164,8 @@ def attend_fused_stub(q, k, v) -> torch.Tensor:
 
 
 def attend(q, k, v, *, impl: str = "dot", causal: bool = True, window=None, scale=None) -> torch.Tensor:
+    if isinstance(q, DTensor):
+        return _attend_on_mesh(q, k, v, impl=impl, causal=causal, window=window, scale=scale)
     if impl == "dot":
         return attend_dot(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "chunked":
@@ -165,15 +177,86 @@ def attend(q, k, v, *, impl: str = "dot", causal: bool = True, window=None, scal
     raise ValueError(f"unknown attention impl {impl!r}; the port runs {ATTENTION_IMPLS}")
 
 
+def _attend_on_mesh(q, k, v, **kw) -> torch.Tensor:
+    """:func:`attend` on DTensors: each chip attends over its own batch rows
+    and heads (``local_map``), as GSPMD partitions the reference's attention.
+
+    q is split as ``("batch", None, "heads", None)`` and k/v as ``("batch",
+    None, "kv_heads", None)``, each where it divides.  Where the query heads
+    are split and the key/value heads are not (fewer of them than chips), each
+    chip picks the key/value head of each of its query heads.
+    """
+    mesh = q.device_mesh
+    rules = rules_for_mesh(mesh)
+    q_spec = spec_for(mesh, rules, ("batch", None, "heads", None), q.shape)
+    kv_spec = spec_for(mesh, rules, ("batch", None, "kv_heads", None), k.shape)
+    if q_spec[2] is None or kv_spec[2] != q_spec[2]:
+        kv_spec = PartitionSpec(*kv_spec[:2], None, None)
+    H, KV = q.shape[2], k.shape[2]
+    q_place, kv_place = placements(mesh, q_spec), placements(mesh, kv_spec)
+
+    def local(ql, kl, vl):
+        if kv_spec[2] is None and q_spec[2] is not None:
+            Hl = ql.shape[2]
+            idx = (block_index(mesh, q_place, 2) * Hl + torch.arange(Hl, device=ql.device)) // (H // KV)
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return attend(ql, kl, vl, **kw)
+
+    return local_map(local, out_placements=list(q_place), in_placements=(q_place, kv_place, kv_place),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D weight ``w``; ``x @ w`` itself off a mesh.
+
+    Under a mesh the residual stream arrives split on its sequence (dim 1,
+    ``seq_sp``).  Where the weight's columns are split on a mesh dim that
+    splits the sequence (a tensor-parallel projection), ``x`` is gathered on
+    its sequence first, as Megatron's sequence parallelism does.  Where they
+    are whole there (the weight replicated on it: key/value heads or SSM
+    heads that do not divide the axis, the router, the small SSM
+    projections), each chip projects its own rows of the sequence
+    (``local_map``) and the output stays split, so no chip repeats another's
+    product.  DTensor's own product of a tensor split on two leading dims
+    cannot flatten them in every release.
+    """
+    if not isinstance(x, DTensor) or x.ndim != 3 or not any(p.is_shard(1) for p in x.placements):
+        return x @ w
+    if any(not w.placements[i].is_replicate() for i, p in enumerate(x.placements) if p.is_shard()):
+        return whole_dim(x, 1) @ w
+    out = [p if p.is_shard() else Shard(2) if q.is_shard(1) else Replicate()
+           for p, q in zip(x.placements, w.placements)]
+    return local_map(torch.matmul, out_placements=out, in_placements=(x.placements, w.placements),
+                     device_mesh=x.device_mesh)(x, w)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsm,m...->bs...", x, w)`` as one matrix product."""
     M = w.shape[0]
-    return (x @ w.reshape(M, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    y = dot(x, w.reshape(M, -1))
+    if len(w.shape) > 2 and isinstance(y, DTensor):
+        y = _split_as_weight(y, w)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _split_as_weight(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The flattened ``[..., H*D]`` product of :func:`_proj` under a mesh,
+    its last dim split only on the mesh dims that split the weight's heads.
+
+    DTensor may split the product's columns on any mesh dim (a free local
+    slice), but the reshape into ``[..., H, D]`` needs each shard to hold
+    whole heads, which is what ``spec_for``'s divisibility rule guarantees for
+    the weight.
+    """
+    last = y.ndim - 1
+    want = [Replicate() if p.is_shard(last) and not q.is_shard(1) else p
+            for p, q in zip(y.placements, w.placements)]
+    return y if want == list(y.placements) else y.redistribute(y.device_mesh, want)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,7 +304,7 @@ class AttentionLayer:
     def out(self, params, attn_out):
         wo = params["wo"]
         B, S = attn_out.shape[:2]
-        return attn_out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        return dot(attn_out.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
 
     def __call__(self, params, x, positions, impl="dot", kv_x=None, causal: Optional[bool] = None):
         q, k, v = self.qkv(params, x, positions, kv_x=kv_x)
@@ -251,10 +334,10 @@ class MLP:
         return p
 
     def __call__(self, params, x):
-        h = x @ params["w_in"]
+        h = dot(x, params["w_in"])
         if self.act == "silu":
-            h = F.silu(x @ params["w_gate"]) * h
+            h = F.silu(dot(x, params["w_gate"])) * h
         else:
             # jax.nn.gelu defaults to the tanh approximation
             h = F.gelu(h, approximate="tanh")
-        return h @ params["w_out"]
+        return dot(h, params["w_out"])

@@ -19,12 +19,30 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked as ssd_kernel
-from repro_torch.models.layers import _proj, rmsnorm, rmsnorm_params
-from repro_torch.models.sharding import ParamSpec
+from repro_torch.models.layers import _proj, dot, rmsnorm, rmsnorm_params
+from repro_torch.models.sharding import ParamSpec, PartitionSpec, placements, rules_for_mesh, spec_for
 from repro_torch.models.ssd import ssd_chunked as ssd_plain
+
+
+def _ssd_on_mesh(ssd_fn):
+    """``ssd_fn`` on DTensors: each chip scans its own batch rows and heads
+    (``local_map``); the scan never crosses either."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def run(xdt, loga, b, c, chunk):
+        mesh = xdt.device_mesh
+        x_spec = spec_for(mesh, rules_for_mesh(mesh), ("batch", None, "ssm_heads", None), xdt.shape)
+        px = placements(mesh, x_spec)
+        pl = placements(mesh, PartitionSpec(*x_spec[:3]))
+        pb = placements(mesh, PartitionSpec(x_spec[0], None, None))
+        return local_map(lambda x, la, bb, cc: ssd_fn(x, la, bb, cc, chunk), out_placements=list(px),
+                         in_placements=(px, pl, pb, pb), device_mesh=mesh, redistribute_inputs=True)(xdt, loga, b, c)
+
+    return run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +81,9 @@ class Mamba2Mixer:
         """x [B,S,M] -> (xh [B,S,H,P], z, b [B,S,N], c [B,S,N], dt [B,S,H] f32)."""
         xh = _proj(x, params["w_x"])
         z = _proj(x, params["w_z"])
-        b = x @ params["w_b"]
-        c = x @ params["w_c"]
-        dt = F.softplus((x @ params["w_dt"]).float() + params["dt_bias"].float())
+        b = dot(x, params["w_b"])
+        c = dot(x, params["w_c"])
+        dt = F.softplus(dot(x, params["w_dt"]).float() + params["dt_bias"].float())
         return xh, z, b, c, dt
 
     def _conv(self, params, xh, conv_state=None):
@@ -87,7 +105,7 @@ class Mamba2Mixer:
         B, S, H, P = y.shape
         y = y * F.silu(z)
         y = rmsnorm(params["norm"], y.reshape(B, S, H * P))
-        return y @ params["w_out"].reshape(H * P, -1)
+        return dot(y, params["w_out"].reshape(H * P, -1))
 
     # ------------------------------------------------------------------
     def __call__(self, params, x, impl: str = "chunked"):
@@ -98,6 +116,8 @@ class Mamba2Mixer:
         loga = (a[None, None, :] * dt).contiguous()  # [B,S,H]  log decay
         xdt = (xh.float() * dt[..., None]).contiguous()
         ssd_fn = ssd_kernel if impl == "kernel" else ssd_plain
+        if isinstance(xdt, DTensor):
+            ssd_fn = _ssd_on_mesh(ssd_fn)
         y = ssd_fn(xdt, loga, b.float().contiguous(), c.float().contiguous(), self.cfg.chunk)
         y = y + xh.float() * params["d_skip"].float()[None, None, :, None]
         return self._gate_out(params, y.to(x.dtype), z)

@@ -20,10 +20,11 @@ import math
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import MLAConfig
-from repro_torch.models.layers import _proj, attend, rmsnorm, rmsnorm_params, rope
-from repro_torch.models.sharding import ParamSpec
+from repro_torch.models.layers import _proj, attend, dot, rmsnorm, rmsnorm_params, rope
+from repro_torch.models.sharding import ParamSpec, constrain, rules_for_mesh, whole_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +53,7 @@ class MLAttention:
     def latent(self, params, x, positions) -> Tuple[torch.Tensor, torch.Tensor]:
         """x -> (c_kv [B,S,lora], k_rope [B,S,rope_dim]) -- the cache entry."""
         r = self.cfg.kv_lora_rank
-        kv_a = x @ params["w_kv_a"]
+        kv_a = dot(x, params["w_kv_a"])
         c_kv = rmsnorm(params["kv_norm"], kv_a[..., :r])
         k_rope = rope(kv_a[..., r:][:, :, None, :], positions, self.rope_theta)[:, :, 0, :]
         return c_kv, k_rope
@@ -73,7 +74,7 @@ class MLAttention:
     def out(self, params, o):
         wo = params["wo"]
         B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        return dot(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
 
     # ------------------------------------------------------------------
     def __call__(self, params, x, positions, impl="dot", latent=None):
@@ -99,8 +100,16 @@ class MLAttention:
         as in the reference.  Returns (out, update dict).
         """
         q_nope, q_rope = self.queries(params, x, positions)  # [B,1,H,*]
+        if isinstance(q_nope, DTensor):
+            # whole heads for the one query token; the latent cache keeps its
+            # sequence split (the layout of CachedAttention._decode_attend)
+            q_nope, q_rope = whole_dim(q_nope, 2), whole_dim(q_rope, 2)
         c_new, kr_new = self.latent(params, x, positions)  # [B,1,lora],[B,1,rope]
-        c_kv, k_rope = cache["c_kv"].float(), cache["k_rope"].float()
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        if isinstance(c_kv, DTensor):  # the reference's decode layout: batch rows, the sequence split
+            rules = rules_for_mesh(c_kv.device_mesh)
+            c_kv, k_rope = (constrain(t, t.device_mesh, rules, ("batch", "cache_seq", None)) for t in (c_kv, k_rope))
+        c_kv, k_rope = c_kv.float(), k_rope.float()
         c_new32, kr_new32 = c_new.float(), kr_new.float()
         # absorb: q' = q_nope @ W_uk -> latent space
         q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, params["w_uk"].to(x.dtype)).float()

@@ -11,6 +11,10 @@ passes the topology at call time in place of the reference's mesh:
 
 * ``topo=None`` (or one rank): :meth:`MoELayer._dispatch_local`, the
   reference's single-device path -- what ``LMModel`` serves on one card;
+* ``mesh=`` a ``DeviceMesh`` whose expert-parallel axis has more than one
+  chip: :meth:`MoELayer._dispatch_shard_map`, the reference's
+  ``_dispatch_shard_map`` itself, one rank per chip under ``local_map`` with
+  the all-to-alls as ``torch.distributed`` collectives;
 * ``dispatch="all_to_all"``: :meth:`MoELayer._dispatch_all_to_all`, the
   reference's ``_dispatch_shard_map``: the batch is block-sharded over the
   ranks, expert ``e`` lives on rank ``e // (n_experts / nranks)``, and each
@@ -41,10 +45,11 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.comm.topology import PodTopology
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import MLP
+from repro_torch.models.layers import MLP, dot
 from repro_torch.models.moe_dispatch import MoEDispatcher
 from repro_torch.models.sharding import ParamSpec
 
@@ -113,6 +118,8 @@ class MoELayer:
     d_model: int
     cfg: MoEConfig
     act: str = "silu"
+    #: expert-parallel mesh axis of a ``mesh`` call (the reference's default)
+    ep_axis: str = "data"
     #: sharded path: "all_to_all" (the block-transpose baseline) or
     #: "exchange" (node-aware IrregularExchange hops, planned per measured
     #: routing pattern -- see repro_torch.models.moe_dispatch)
@@ -151,19 +158,34 @@ class MoELayer:
     def route(self, params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(top_p, top_e)``, each ``[B, S, k]``: the router's softmax in
         float32, its top-k experts and their renormalised weights."""
-        logits = x @ params["router"].to(x.dtype)
+        logits = dot(x, params["router"].to(x.dtype))
         probs = torch.softmax(logits.float(), dim=-1)
         top_p, top_e = torch.topk(probs, self.cfg.top_k, dim=-1)
         return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
 
-    def __call__(self, params, x: torch.Tensor, topo: Optional[PodTopology] = None) -> torch.Tensor:
+    def _ep_size(self, mesh) -> int:
+        """Expert-parallel degree of ``mesh``; 1 when its ep axis is absent."""
+        if mesh is None or self.ep_axis not in mesh.mesh_dim_names:
+            return 1
+        return mesh.size(mesh.mesh_dim_names.index(self.ep_axis))
+
+    def __call__(self, params, x: torch.Tensor, topo: Optional[PodTopology] = None, mesh=None) -> torch.Tensor:
         """x: [B, S, M].  Routed experts + optional shared experts.
 
         ``topo`` places the experts and the batch on its stacked ranks; with
-        ``None`` or one rank the layer runs the single-device path.
+        ``None`` or one rank the layer runs the single-device path.  ``mesh``
+        (parameters and ``x`` DTensors on it) runs the expert-parallel
+        all-to-all over its ``ep_axis``, as the reference does on its mesh.
         """
         top_p, top_e = self.route(params, x)
-        if topo is None or topo.nranks == 1:
+        if self._ep_size(mesh) > 1:
+            if self.dispatch == "exchange":
+                raise NotImplementedError(
+                    "dispatch='exchange' on a DeviceMesh needs the several-card exchange backend "
+                    "(ROADMAP A.6.3); on one device pass topo="
+                )
+            routed = self._dispatch_shard_map(params, x, top_p, top_e, mesh)
+        elif topo is None or topo.nranks == 1:
             routed = self._dispatch_local(params, x, top_p, top_e)
         elif self.dispatch == "exchange":
             routed = self._dispatch_exchange(params, x, top_p, top_e, topo)
@@ -243,30 +265,31 @@ class MoELayer:
         # keeps decode-time (tiny t) routing essentially drop-free
         return n, cfg.n_experts // n, t, max(int(t / n * cfg.capacity_factor), 8)
 
-    def _stage_send(self, x, top_p, top_e, n: int, e_local: int, t: int, cap: int):
+    def _stage_send(self, x, top_p, top_e, n: int, e_local: int, t: int, cap: int, ranks: Optional[int] = None):
         """Per rank: the ``[n * cap]`` send slots (token rows and local expert
         ids, dead slots zero / ``e_local``), each assignment's slot, its
-        weight, and the ``[n, n]`` count matrix of assignments by (src, dst)."""
+        weight, and its destination rank.  ``ranks`` (default ``n``) is how
+        many of the ``n`` ranks are stacked here: one under a mesh, where each
+        chip runs its own."""
+        ranks = n if ranks is None else ranks
         M, k = x.shape[-1], self.cfg.top_k
-        xt = x.reshape(n, -1, M)
-        xt = xt.repeat_interleave(k, dim=1) if k > 1 else xt  # [n, t, M]
-        eid = top_e.reshape(n, t)
-        w = top_p.reshape(n, t).to(x.dtype)
+        xt = x.reshape(ranks, -1, M)
+        xt = xt.repeat_interleave(k, dim=1) if k > 1 else xt  # [ranks, t, M]
+        eid = top_e.reshape(ranks, t)
+        w = top_p.reshape(ranks, t).to(x.dtype)
         dst = eid // e_local
         pos, keep = self._fill_capacity(dst, cap)
         slot = torch.where(keep, dst * cap + pos, n * cap)
         inv = _inverse(slot, n * cap, t)
         send = _take(_pad_row(xt), inv)
         send_e = _take(_pad_row((eid % e_local).to(torch.int32), e_local), inv)
-        rank = torch.arange(n, device=x.device)[:, None]
-        counts = torch.bincount((rank * n + dst).reshape(-1), minlength=n * n).view(n, n)
-        return send, send_e, slot, w, counts, (~keep).sum()
+        return send, send_e, slot, w, dst, (~keep).sum()
 
     def _stage_expert(self, params, recv, recv_e, n: int, e_local: int, cap: int):
         """Bin the received slots into the local experts (the second capacity
         stage), run them, and lay their outputs back out in the received
         slot order (the return hop's send buffer).  Returns ``(back, dropped)``."""
-        M = recv.shape[-1]
+        M, ranks = recv.shape[-1], recv.shape[0]
         cap2 = max(int(n * cap / e_local), 1)
         bin_id = torch.clamp(recv_e, max=e_local)  # dead slots -> drop bin
         pos2, keep2 = self._fill_capacity(bin_id, cap2)
@@ -275,7 +298,7 @@ class MoELayer:
         slot2 = torch.where(keep2, bin_id.long() * cap2 + pos2, e_local * cap2)
         buf = _take(_pad_row(recv), _inverse(slot2, e_local * cap2, n * cap))
         ye = self._expert_ffn(params["w_in"], params["w_gate"], params["w_out"],
-                              buf.view(n * e_local, cap2, M)).view(n, e_local * cap2, M)
+                              buf.view(ranks * e_local, cap2, M)).view(ranks, e_local * cap2, M)
         return _take(_pad_row(ye), slot2), (live & ~keep2).sum()
 
     @staticmethod
@@ -300,6 +323,68 @@ class MoELayer:
         out = self._stage_combine(self._all_to_all(back, n), slot, w, B, S, self.cfg.top_k)
         self.tally.add(n * t, drop1 + drop2)
         return out.to(x.dtype)
+
+    # -- expert-parallel all-to-all on a DeviceMesh -------------------------
+    def _dispatch_shard_map(self, params, x, top_p, top_e, mesh) -> torch.Tensor:
+        """The reference's ``_dispatch_shard_map``: one rank per chip, under
+        ``local_map`` (the counterpart of ``shard_map``).
+
+        Tokens are sharded over ``("pod", ep)`` where present, experts over
+        ``ep`` and each expert's FFN dim over ``model``.  Each chip runs the
+        two capacity stages of the stacked path on its own tokens
+        (:meth:`_stage_send`, :meth:`_stage_expert` with one stacked rank);
+        the hops are ``all_to_all_single`` over the ``ep`` axis, and the
+        expert outputs, partial sums over the ``model`` shards of F, are
+        summed once on the combined ``[b, S, M]`` output, as in the
+        reference.
+        """
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor.experimental import local_map
+
+        cfg = self.cfg
+        ep = self.ep_axis
+        nd = self._ep_size(mesh)
+        if cfg.n_experts % nd:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} is not divisible by the "
+                f"expert-parallel degree {nd} (mesh axis {ep!r}); choose "
+                f"n_experts as a multiple of {nd}, or drop ep_axis from the "
+                "mesh to run the replicated local path"
+            )
+        e_local = cfg.n_experts // nd
+        names = mesh.mesh_dim_names
+        ep_group, k = mesh[ep], cfg.top_k
+        model = mesh["model"] if "model" in names and mesh.size(names.index("model")) > 1 else None
+
+        def a2a(t):
+            out = funcol.all_to_all_single(t.contiguous(), None, None, ep_group)
+            return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+        def body(xl, pl, el, w_in, w_gate, w_out):
+            b, S, M = xl.shape
+            t = b * S * k
+            # capacity per (src shard -> dst shard) slot; the floor of 8 keeps
+            # decode-time (tiny t) routing essentially drop-free
+            cap = max(int(t / nd * cfg.capacity_factor), 8)
+            send, send_e, slot, w, _, drop1 = self._stage_send(xl, pl, el, nd, e_local, t, cap, ranks=1)
+            recv, recv_e = a2a(send[0])[None], a2a(send_e[0])[None]
+            back, drop2 = self._stage_expert({"w_in": w_in, "w_gate": w_gate, "w_out": w_out},
+                                             recv, recv_e, nd, e_local, cap)
+            out = self._stage_combine(a2a(back[0])[None], slot, w, b, S, k)
+            self.tally.add(t, drop1 + drop2)
+            if model is not None:
+                out = funcol.all_reduce(out, "sum", model)
+                out = out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+            return out.to(xl.dtype)
+
+        x_place = tuple(Shard(0) if a in ("pod", ep) else Replicate() for a in names)
+        w_place = tuple(Shard(0) if a == ep else Shard(2) if a == "model" else Replicate() for a in names)
+        wo_place = tuple(Shard(0) if a == ep else Shard(1) if a == "model" else Replicate() for a in names)
+        return local_map(
+            body, out_placements=list(x_place),
+            in_placements=(x_place, x_place, x_place, w_place, w_place, wo_place),
+            device_mesh=mesh, redistribute_inputs=True,
+        )(x, top_p, top_e, params["w_in"], params["w_gate"], params["w_out"])
 
     # -- node-aware exchange dispatch ----------------------------------------
     def _get_dispatcher(self, topo: PodTopology, device) -> MoEDispatcher:
@@ -340,7 +425,10 @@ class MoELayer:
         """
         B, S, M = x.shape
         n, e_local, t, cap = self._shard_shapes(B, S, topo)
-        send, send_e, slot, w, counts, drop1 = self._stage_send(x, top_p, top_e, n, e_local, t, cap)
+        send, send_e, slot, w, dst, drop1 = self._stage_send(x, top_p, top_e, n, e_local, t, cap)
+        # the [n, n] count matrix of assignments by (src, dst)
+        rank = torch.arange(n, device=x.device)[:, None]
+        counts = torch.bincount((rank * n + dst).reshape(-1), minlength=n * n).view(n, n)
 
         # host read of the measured [n, n] histogram: the price of planning
         # communication for the traffic we actually have

@@ -32,7 +32,7 @@ between that dynamic traffic and the static exchange planner:
 Everything but the exchanges is numpy and bitwise the reference's.
 ``strategy="auto"`` ranks on the reference's default machine,
 ``tpu_v5e_pod``, so the port picks what the reference picks: the port has
-no H100 constants yet (ROADMAP A.6).
+no H100 constants (ROADMAP A.6.1, after the port).
 """
 
 from __future__ import annotations

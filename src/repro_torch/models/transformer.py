@@ -44,13 +44,22 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import Mamba2Mixer
 from repro_torch.models.mla import MLAttention
 from repro_torch.models.moe import MoELayer
-from repro_torch.models.sharding import ParamSpec, tree_map
+from repro_torch.models.sharding import (
+    ParamSpec,
+    block_index,
+    constrain,
+    gather_fsdp,
+    rules_for_mesh,
+    tree_map,
+    whole_dim,
+)
 
 #: block kinds (the reference's)
 BLOCK_KINDS = ("dense", "ssm", "hybrid", "cross", "decoder", "encoder")
@@ -102,13 +111,11 @@ class CachedAttention:
             W = self.window
             S = ks.shape[1]
             if S >= W:
-                # ring holds the last W keys at slot = pos % W
-                idx = torch.arange(S - W, S, device=ks.device) % W
-                ring_k = torch.zeros((ks.shape[0], W, *ks.shape[2:]), dtype=ks.dtype, device=ks.device)
-                ring_v = torch.zeros_like(ring_k)
-                ring_k[:, idx] = ks[:, -W:]
-                ring_v[:, idx] = vs[:, -W:]
-                ks, vs = ring_k, ring_v
+                # ring holds the last W keys at slot = pos % W: the last W
+                # rotated by (S - W) % W (slices and a cat, which DTensor shards)
+                r = (S - W) % W
+                ks = torch.cat([ks[:, S - r:], ks[:, S - W:S - r]], dim=1)
+                vs = torch.cat([vs[:, S - r:], vs[:, S - W:S - r]], dim=1)
             else:
                 pad = (0, 0, 0, 0, 0, W - S)
                 ks = torch.nn.functional.pad(ks, pad)
@@ -122,7 +129,7 @@ class CachedAttention:
         the new entries once per step after every layer has run."""
         q, k, v = self.attn.qkv(params, x, positions)  # S == 1
         k, v = self._store(k), self._store(v)
-        ks, vs = cache["k"], cache["v"]
+        ks, vs = (_decode_layout(cache[n], ("batch", "cache_seq", None, None)) for n in ("k", "v"))
         if self.window is not None:
             W = self.window
             slots = torch.arange(W, device=ks.device)
@@ -136,7 +143,15 @@ class CachedAttention:
 
     def _decode_attend(self, q, k_new, v_new, ks, vs, valid):
         """Grouped-GQA single-query attention over cache + current token;
-        dots in the cache dtype, softmax in float32."""
+        dots in the cache dtype, softmax in float32.
+
+        Under a mesh the one query token and the new key/value are taken
+        whole on their heads, so the grouping reshape never splits a head
+        group across chips; the cache keeps its sequence split, so the
+        scores are split on the sequence and only the softmax's reductions
+        and the output's sum cross chips (the reference's decode layout)."""
+        if isinstance(q, DTensor):
+            q, k_new, v_new = (whole_dim(t, 2) for t in (q, k_new, v_new))
         B, _, H, D = q.shape
         KV = ks.shape[-2]
         rep = H // KV
@@ -248,14 +263,18 @@ class Block:
             pairs.add((self.mla.qk_dim, self.mla.cfg.v_head_dim))
         return pairs
 
+    def _norm(self, p, x):
+        """The pre-norm of a sub-layer (under a mesh still split on the
+        sequence: :func:`layers.dot` gathers it where a projection needs it)."""
+        return L.rmsnorm(p, x, self.cfg.norm_eps)
+
     # -- mixing sub-layer (attention and/or SSM) ---------------------------
     def _mix(self, p, x, positions, impl, mode, cache=None, pos=None):
         """Returns (delta, new_cache_pieces)."""
         new_cache: Dict[str, Any] = {}
         parts = []
-        eps = self.cfg.norm_eps
         if self.mla is not None:
-            h = L.rmsnorm(p["attn_norm"], x, eps)
+            h = self._norm(p["attn_norm"], x)
             if mode == "decode":
                 o, new_cache["mla"] = self.mla.decode(p["attn"], h, positions, cache["mla"], pos)
             else:
@@ -267,7 +286,7 @@ class Block:
                     new_cache["mla"] = {"c_kv": c_kv, "k_rope": k_rope}
             parts.append(o)
         if self.self_attn is not None:
-            h = L.rmsnorm(p["attn_norm"], x, eps)
+            h = self._norm(p["attn_norm"], x)
             if mode == "apply":
                 o = self.self_attn.attn(p["attn"], h, positions, impl=impl, causal=self.causal)
             elif mode == "prefill":
@@ -276,7 +295,7 @@ class Block:
                 o, new_cache["attn"] = self.self_attn.decode(p["attn"], h, positions, cache["attn"], pos)
             parts.append(o)
         if self.ssm is not None:
-            hs = L.rmsnorm(p.get("ssm_norm", p.get("attn_norm")), x, eps)
+            hs = self._norm(p.get("ssm_norm", p.get("attn_norm")), x)
             if mode == "decode":
                 o, new_cache["ssm"] = self.ssm.decode(p["ssm"], hs, cache["ssm"])
             else:
@@ -305,19 +324,20 @@ class Block:
         loga = a[None, None, :] * dt
         xdt = xh.float() * dt[..., None]
         # state = sum_j exp(sum_{k>j} loga_k) b_j xdt_j
-        after = torch.flip(torch.cumsum(torch.flip(loga[:, 1:], [1]), dim=1), [1])
-        w = torch.exp(torch.nn.functional.pad(after, (0, 0, 0, 1)))  # [B,S,H]
+        w = _decay_to_end(loga)  # [B,S,H]
+        if isinstance(xdt, DTensor):  # whole sequences for the sum over it
+            b, xdt = whole_dim(b, 1), whole_dim(xdt, 1)
         h = torch.einsum("bsn,bsh,bshp->bhnp", b.float(), w, xdt)
         return {"ssm": h, "conv": conv_state[:, -(m.cfg.conv_width - 1):]}
 
-    def run(self, p, x, positions, *, impl, mode, cache=None, pos=None, ctx=None):
+    def run(self, p, x, positions, *, impl, mode, cache=None, pos=None, ctx=None, mesh=None):
         """mode: apply | prefill | decode. Returns (x, new_cache)."""
         new_cache: Dict[str, Any] = {}
         if self.self_attn is not None or self.mla is not None or self.ssm is not None:
             delta, new_cache = self._mix(p, x, positions, impl, mode, cache, pos)
-            x = x + delta
+            x = _residual(x, delta)
         if self.cross is not None:
-            h = L.rmsnorm(p["cross_norm"], x, self.cfg.norm_eps)
+            h = self._norm(p["cross_norm"], x)
             if mode == "decode":
                 # cross K/V are immutable after prefill: read, never re-emit
                 q = L._proj(h, p["cross"]["wq"])
@@ -327,10 +347,10 @@ class Block:
                 o = L.attend(q, k, v, impl=impl, causal=False)
                 if mode == "prefill":
                     new_cache["cross_k"], new_cache["cross_v"] = k, v
-            x = x + self.cross.out(p["cross"], o)
+            x = _residual(x, self.cross.out(p["cross"], o))
         if self.mlp is not None or self.moe is not None:
-            h = L.rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
-            x = x + (self.moe(p["moe"], h) if self.moe is not None else self.mlp(p["mlp"], h))
+            h = self._norm(p["mlp_norm"], x)
+            x = _residual(x, self.moe(p["moe"], h, mesh=mesh) if self.moe is not None else self.mlp(p["mlp"], h))
         return x, new_cache
 
     def init_cache(self, batch, max_len, dtype, device, ctx_len: int = 0):
@@ -384,6 +404,68 @@ def _stack(trees):
     }
 
 
+def _decode_layout(t: torch.Tensor, logical) -> torch.Tensor:
+    """A decode cache leaf (one layer's) in the reference's decode layout,
+    ``cache_shardings``' (batch rows, the sequence split); ``t`` itself off
+    a mesh or where it is already so placed."""
+    if not isinstance(t, DTensor):
+        return t
+    return constrain(t, t.device_mesh, rules_for_mesh(t.device_mesh), logical)
+
+
+def _decay_to_end(loga: torch.Tensor) -> torch.Tensor:
+    """``exp(sum_{k > j} loga[:, k])`` for every step ``j`` (``loga [B, S, H]``),
+    summed from the end; under a mesh each chip takes its own rows and heads
+    with the sequence whole (``local_map``): DTensor has no sharding rule for
+    ``flip`` in every release."""
+    def plain(t):
+        after = torch.flip(torch.cumsum(torch.flip(t[:, 1:], [1]), dim=1), [1])
+        return torch.exp(torch.nn.functional.pad(after, (0, 0, 0, 1)))
+
+    if not isinstance(loga, DTensor):
+        return plain(loga)
+    from torch.distributed.tensor.experimental import local_map
+
+    loga = whole_dim(loga, 1)
+    return local_map(plain, out_placements=list(loga.placements), in_placements=(loga.placements,),
+                     device_mesh=loga.device_mesh)(loga)
+
+
+def _residual(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``x + delta``.  Under a mesh the sub-layer's output (a pending sum over
+    the tensor-parallel chips) is first redistributed to the residual
+    stream's placement (a reduce-scatter onto its sequence split) by a
+    redistribution of its own, whose backward hands the gradient back
+    gathered on the sequence: left to the add, DTensor would hand it back
+    split on the sequence, and the output projection's backward could not
+    flatten it."""
+    if isinstance(delta, DTensor):
+        delta = delta.redistribute(x.device_mesh, x.placements)
+    return x + delta
+
+
+def _write_slot(old: torch.Tensor, new: torch.Tensor, slot: int, mesh) -> None:
+    """``old[:, :, slot] = new[:, :, 0]`` in place (``old [count, B, S, ...]``,
+    ``new [count, B, 1, ...]``).
+
+    Under a mesh, ``new`` is first constrained to ``("layers", "batch")``
+    (the reference's ``_append``), and each chip writes the slot into its own
+    shard of ``old``: the chip whose block of the (``cache_seq``-sharded)
+    sequence holds ``slot`` writes it, the others nothing.
+    """
+    if not isinstance(old, DTensor):
+        old[:, :, slot] = new[:, :, 0].to(old.dtype)
+        return
+
+    new = constrain(new, mesh, rules_for_mesh(mesh), ("layers", "batch") + (None,) * (new.ndim - 2))
+    want = [Replicate() if p.is_shard(2) else p for p in old.placements]
+    new_l, old_l = new.redistribute(mesh, want).to_local(), old.to_local()
+    block = block_index(mesh, old.placements, 2)
+    S = old_l.shape[2]
+    if block * S <= slot < (block + 1) * S:
+        old_l[:, :, slot - block * S] = new_l[:, :, 0].to(old_l.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
@@ -416,13 +498,25 @@ class Segment:
             )
         return functools.partial(torch.utils.checkpoint.checkpoint, body, use_reentrant=False, **kw)
 
-    def apply(self, params, x, positions, *, impl, ctx=None, remat: bool = True):
+    @staticmethod
+    def _anchor(x, mesh):
+        """Each layer's input at the canonical activation sharding, as the
+        reference anchors its scan carry; ``x`` itself with no mesh."""
+        if mesh is None:
+            return x
+        return constrain(x, mesh, rules_for_mesh(mesh), ("batch", "seq_sp", "embed"))
+
+    def apply(self, params, x, positions, *, impl, ctx=None, remat: bool = True, mesh=None):
         """Every layer over the full sequence.  ``remat`` recomputes each
         layer in the backward (:meth:`_checkpoint`); it is a no-op when
         autograd is off, as in serving."""
 
+        specs = self.block.params()
+
         def body(layer_p, carry):
-            return self.block.run(layer_p, carry, positions, impl=impl, mode="apply", ctx=ctx)[0]
+            carry = Segment._anchor(carry, mesh)
+            layer_p = gather_fsdp(layer_p, specs, mesh)
+            return self.block.run(layer_p, carry, positions, impl=impl, mode="apply", ctx=ctx, mesh=mesh)[0]
 
         if remat and torch.is_grad_enabled():
             body = Segment._checkpoint(body)
@@ -430,17 +524,18 @@ class Segment:
             x = body(layer_p, x)
         return x
 
-    def prefill(self, params, x, positions, *, impl, ctx=None):
+    def prefill(self, params, x, positions, *, impl, ctx=None, mesh=None):
         if self.count == 0:  # e.g. a vlm cut below one cross layer: empty stacked leaves
             return x, self.init_cache(x.shape[0], x.shape[1], x.dtype, x.device,
                                       0 if ctx is None else ctx.shape[1])
-        caches = []
+        caches, specs = [], self.block.params()
         for i in range(self.count):
-            x, cache = self.block.run(_layer(params, i), x, positions, impl=impl, mode="prefill", ctx=ctx)
+            x, cache = self.block.run(gather_fsdp(_layer(params, i), specs, mesh), Segment._anchor(x, mesh),
+                                      positions, impl=impl, mode="prefill", ctx=ctx, mesh=mesh)
             caches.append(cache)
         return x, _stack(caches)  # cache leaves stacked [count, ...]
 
-    def decode(self, params, x, positions, caches, pos: int):
+    def decode(self, params, x, positions, caches, pos: int, mesh=None):
         """One decode step for all layers of this segment.
 
         Blocks never return updated cache tensors, only the new entries; they
@@ -451,11 +546,12 @@ class Segment:
         """
         if self.count == 0:
             return x, caches
-        updates = []
+        updates, specs = [], self.block.params()
         for i in range(self.count):
             x, upd = self.block.run(
-                _layer(params, i), x, positions, impl="dot", mode="decode",
-                cache=_layer(caches, i), pos=pos,
+                gather_fsdp(_layer(params, i), specs, mesh), Segment._anchor(x, mesh), positions,
+                impl="dot", mode="decode",
+                cache=_layer(caches, i), pos=pos, mesh=mesh,
             )
             updates.append(upd)
         updates = _stack(updates)
@@ -465,12 +561,10 @@ class Segment:
             W = self.block.self_attn.window
             slot = pos % W if W is not None else pos
             for name in ("k", "v"):
-                old = caches["attn"][name]
-                old[:, :, slot] = updates["attn"][f"{name}_new"][:, :, 0].to(old.dtype)
+                _write_slot(caches["attn"][name], updates["attn"][f"{name}_new"], slot, mesh)
         if "mla" in updates:
             for name in ("c_kv", "k_rope"):
-                old = caches["mla"][name]
-                old[:, :, pos] = updates["mla"][f"{name}_new"][:, :, 0].to(old.dtype)
+                _write_slot(caches["mla"][name], updates["mla"][f"{name}_new"], pos, mesh)
         if "ssm" in updates:
             new_caches["ssm"] = updates["ssm"]  # full replacement (O(1) state)
         return x, new_caches

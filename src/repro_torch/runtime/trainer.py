@@ -29,8 +29,15 @@ kernels, so the trainer never launches a hand-written kernel.  ``"fused"``
 is the dry-run's stand-in for the flash kernel
 (:func:`repro_torch.models.layers.attend_fused_stub`, plain ops with a
 backward), which :mod:`repro_torch.launch.dryrun` traces a step with, as
-the reference's ``build_train_step`` takes any impl.  The mesh
-goes: one card holds the whole state (several cards: ROADMAP A.6).
+the reference's ``build_train_step`` takes any impl.
+
+**On a mesh** (``mesh=`` a ``DeviceMesh``; the reference's
+``build_train_step`` shardings): the masters, both moments (which follow
+the parameters, as the reference's ``OptState`` shardings do), the working
+copy and its gradients are DTensors placed by
+:func:`~repro_torch.models.sharding.param_shardings`, and the batch by
+:func:`batch_sharding`.  The loss, clip's global norm and AdamW run on the
+DTensors; :class:`Trainer` itself runs on one card.
 """
 
 from __future__ import annotations
@@ -40,13 +47,21 @@ import logging
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.data import SyntheticTokens
-from repro_torch.models.lm import LMModel
-from repro_torch.models.sharding import tree_items, tree_map
+from repro_torch.models.lm import LMModel, on_mesh
+from repro_torch.models.sharding import (
+    meta_dtensor,
+    named_sharding,
+    param_shardings,
+    rules_for_mesh,
+    tree_items,
+    tree_map,
+)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime.watchdog import StragglerWatchdog
 
@@ -77,9 +92,9 @@ class TrainStep:
     first time a state is seen, and cast again after every update.
     """
 
-    def __init__(self, model: LMModel, opt_cfg: AdamWConfig, impl: str = "dot", remat: bool = True):
+    def __init__(self, model: LMModel, opt_cfg: AdamWConfig, impl: str = "dot", remat: bool = True, mesh=None):
         _check_impl(impl)
-        self.model, self.opt_cfg, self.impl, self.remat = model, opt_cfg, impl, remat
+        self.model, self.opt_cfg, self.impl, self.remat, self.mesh = model, opt_cfg, impl, remat, mesh
         self.dtypes = {
             key: torch.float32 if spec.keep_f32 else model.dtype
             for key, spec in tree_items(model.param_specs())
@@ -103,27 +118,41 @@ class TrainStep:
         if self._masters is not state["params"]:
             self.cast(state["params"])
         leaves = [w for _, w in tree_items(self.work)]
-        loss = self.model.loss(self.work, batch, impl=self.impl, remat=self.remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        params, opt, metrics = adamw_update(
-            self.opt_cfg, state["params"], _refill(self.work, iter(grads)), state["opt"]
-        )
+        loss = self.model.loss(self.work, batch, impl=self.impl, remat=self.remat, mesh=self.mesh)
+        with on_mesh(self.mesh):
+            if isinstance(loss, DTensor):  # the whole sum, before autograd seeds it with ones
+                loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            params, opt, metrics = adamw_update(
+                self.opt_cfg, state["params"], _refill(self.work, iter(grads)), state["opt"]
+            )
         del grads
         self.cast(params)
         metrics["loss"] = loss.detach()
         return {"params": params, "opt": opt}, metrics
 
 
-def build_train_step(model: LMModel, opt_cfg: AdamWConfig, impl: str = "dot", remat: bool = True) -> Callable:
+def build_train_step(model: LMModel, opt_cfg: AdamWConfig, impl: str = "dot", remat: bool = True,
+                     mesh=None) -> Callable:
     """An eager ``(state, batch) -> (state, metrics)`` (:class:`TrainStep`)."""
-    return TrainStep(model, opt_cfg, impl=impl, remat=remat)
+    return TrainStep(model, opt_cfg, impl=impl, remat=remat, mesh=mesh)
 
 
-def state_template(model: LMModel) -> Dict[str, Any]:
+def batch_sharding(mesh, rules, batch: int, seq: int) -> tuple:
+    """The placements of the ``[batch, seq]`` token ids (the reference's)."""
+    return named_sharding(mesh, rules, ("batch", "seq"), (batch, seq))
+
+
+def state_template(model: LMModel, mesh=None) -> Dict[str, Any]:
     """The train state's shapes and dtypes as meta tensors: float32 masters
-    and AdamW's state."""
-    meta = lambda spec: torch.empty(spec.shape, dtype=torch.float32, device="meta")
-    params = tree_map(meta, model.param_specs())
+    and AdamW's state; on ``mesh``, each a DTensor placed by the parameter
+    rules (the moments follow the parameters)."""
+    specs = model.param_specs()
+    if mesh is None:
+        params = tree_map(lambda spec: torch.empty(spec.shape, dtype=torch.float32, device="meta"), specs)
+    else:
+        params = tree_map(lambda spec, place: meta_dtensor(spec.shape, torch.float32, mesh, place),
+                          specs, param_shardings(specs, mesh, rules_for_mesh(mesh)))
     return {"params": params, "opt": adamw_init(params)}
 
 

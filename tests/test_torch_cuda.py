@@ -2,7 +2,8 @@
 versions, the exchange, SpMV and CG on the card against the same code on
 the CPU, tiny serves (hymba, llama4-scout, deepseek-v2-lite's MLA,
 llama-3.2-vision, whisper) through the kernels against the plain route, and
-a tiny train step on the card against the same step on the CPU.
+a tiny train step on the card against the same step on the CPU, and rank 0 of a
+sharded tiny prefill over a fake process group against its meta record.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode).  The file imports no JAX, so it runs on a GPU machine
@@ -696,3 +697,49 @@ def test_examples_launch_the_spmv_kernels(dev, name, args):
         assert launches["spmm_ell"] > 0 and "split" in proc.stdout
     else:
         assert launches["spmv_ell_replayed"] > 0 and "fused whole-solve" in proc.stdout
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen3-32b"])
+def test_rank0_program_on_a_fake_group_counts_as_on_meta(dev, arch):
+    """Rank 0's program of a tiny prefill on a 2 x 4 CUDA mesh over a fake
+    group of 8 (``dryrun.run_on_card``, in a process of its own: a process
+    group is global) has the argument bytes and counted FLOPs of the same cell
+    on meta shards, and allocates at its peak the predicted temp + output
+    within 10%.  Dense archs only: a fake group leaves what a collective
+    receives uninitialised, and the MoE dispatch indexes with the expert ids
+    it receives."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = f"""
+import dataclasses, json
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_world
+from repro_torch.launch.presets import tiny
+init_fake_world(8)
+torch.cuda.set_device(0)
+cfg = dataclasses.replace(tiny(get_config({arch!r})), dtype="bfloat16")
+shape = ShapeConfig("p", 256, 8, "prefill")
+meta = dryrun.analyse_cell(cfg, shape, "chunked", init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model")))
+card = dryrun.run_on_card(cfg, shape, init_device_mesh("cuda", (2, 4), mesh_dim_names=("data", "model")))
+print(json.dumps({{"meta": meta, "card": card}}))
+"""
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600, cwd=repo,
+                          env={**os.environ, "PYTHONPATH": str(repo / "src")})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    meta, card = got["meta"], got["card"]
+    mem = meta["memory"]
+    assert card["argument_bytes"] == mem["argument_bytes"]
+    assert card["flops"] == meta["counted_flops_per_chip"]
+    assert card["collective_ops"] == meta["collective_ops"] > 0
+    predicted = mem["temp_bytes"] + mem["output_bytes"]
+    assert abs(predicted - card["peak_beyond_arguments"]) <= 0.1 * card["peak_beyond_arguments"]

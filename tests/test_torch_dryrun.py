@@ -94,7 +94,7 @@ def test_skipped_cells_match_the_reference(reference, arch, tmp_path):
         want = reference[f"{arch}|{name}"]
         assert list(shape_applicable(get_config(arch), shape)) == [want["ok"], want["why"]], name
         if not want["ok"]:
-            rec = dryrun.run_cell(arch, name, "single", str(tmp_path))
+            rec = dryrun.run_cell(arch, name, "one_card", str(tmp_path))
             assert rec == {"arch": arch, "shape": name, "mesh": "one_card", "skipped": want["why"]}
     assert set(reference) == {f"{a}|{n}" for a in ARCH_IDS for n in SHAPES}
 
@@ -286,7 +286,7 @@ def test_cli_writes_records_without_initialising_cuda(tmp_path):
         import json, os, torch
         from repro_torch.launch.dryrun import main
         main(["--arch", "stablelm-3b", "--shape", "decode_32k", "--out", {str(tmp_path)!r}])
-        main(["--arch", "stablelm-3b", "--shape", "long_500k", "--mesh", "single", "--out", {str(tmp_path)!r}])
+        main(["--arch", "stablelm-3b", "--shape", "long_500k", "--mesh", "one_card", "--out", {str(tmp_path)!r}])
         assert not torch.cuda.is_initialized()
         print("OK", sorted(os.listdir({str(tmp_path)!r})))
         """,
@@ -311,9 +311,186 @@ def test_cli_writes_records_without_initialising_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("mesh", ["multi", "both"])
-def test_cli_mesh_of_several_cards_raises(mesh):
-    with pytest.raises(ValueError, match="A.6"):
-        dryrun.main(["--arch", "stablelm-3b", "--mesh", mesh])
+def test_cli_mesh_of_several_cards_raises(mesh, tmp_path):
+    """Kept in name, rewritten: ``--mesh multi`` and ``both`` no longer raise;
+    they write per-chip records of the reference's meshes (here mamba2-780m's
+    500k-token decode, the cheapest cell to trace), each in a fake world of
+    its size, never touching CUDA."""
+    proc = _child(
+        f"""
+        import torch
+        from repro_torch.launch.dryrun import main
+        main(["--arch", "mamba2-780m", "--shape", "long_500k", "--mesh", {mesh!r}, "--out", {str(tmp_path)!r}])
+        assert not torch.cuda.is_initialized()
+        """,
+        CUDA_VISIBLE_DEVICES="",
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    kinds = ["single", "multi"] if mesh == "both" else [mesh]
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(f"mamba2-780m__long_500k__{k}.json" for k in kinds)
+    sizes = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}
+    model, shape = LMModel(get_config("mamba2-780m"), tp=16), SHAPES["long_500k"]
+    for kind in kinds:
+        assert f"[ OK ] mamba2-780m x long_500k x {kind}" in proc.stdout
+        rec = json.loads((tmp_path / f"mamba2-780m__long_500k__{kind}.json").read_text())
+        assert (rec["mesh"], rec["chips"]) == (kind, math.prod(sizes[kind].values()))
+        assert rec["memory"]["argument_bytes"] == dryrun.spec_argument_bytes(model, shape, sizes[kind])
+        assert [rec["model_flops"], rec["params_total"], rec["params_active"]] == \
+            list(dryrun.model_flops(model.cfg, model, shape))
+
+
+# ---------------------------------------------------------------------------
+# per-chip records on a mesh: a fake world of 8 (2 x 4), the tiny presets
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = {"prefill": ShapeConfig("prefill", 64, 8, "prefill"),
+               "decode": ShapeConfig("decode", 64, 8, "decode"),
+               "train": ShapeConfig("train", 64, 8, "train")}
+
+
+@pytest.fixture(scope="module")
+def mesh_cells():
+    """``"arch|kind"`` -> the port's per-chip record on a 2x4 mesh, its one-card
+    record and ``spec_argument_bytes``, and the reference's compiled
+    ``argument_size_in_bytes`` of the same cell on a 2x4 mesh of 8 host
+    devices: its ``lower_cell`` with ``get_config`` and ``SHAPES`` patched in
+    the child to these tiny cells, the mesh's axes ``Auto`` (this jax's
+    ``jax.make_mesh`` makes ``Explicit`` axes, which the reference's
+    ``with_sharding_constraint`` anchors reject).  The two children run at once."""
+    shapes = {k: (v.seq_len, v.global_batch, v.kind) for k, v in MESH_SHAPES.items()}
+    port = f"""
+        import dataclasses, json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import ARCH_IDS, get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import init_fake_world
+        from repro_torch.launch.presets import tiny
+        from repro_torch.models.lm import LMModel
+        init_fake_world(8)
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        out = {{}}
+        for arch in ARCH_IDS:
+            cfg = dataclasses.replace(tiny(get_config(arch)), dtype="bfloat16")
+            for kind, (seq, batch, k) in {shapes!r}.items():
+                shape = ShapeConfig(kind, seq, batch, k)
+                out[arch + "|" + kind] = {{
+                    "mesh": dryrun.analyse_cell(cfg, shape, "chunked", mesh=mesh, mesh_kind="host"),
+                    "one_card": dryrun.analyse_cell(cfg, shape, "chunked"),
+                    "spec_bytes": dryrun.spec_argument_bytes(LMModel(cfg, tp=4), shape, {{"data": 2, "model": 4}}),
+                }}
+        print(json.dumps(out))
+        """
+    ref = f"""
+        import json
+        import jax
+        from jax.sharding import AxisType
+        import repro.launch.dryrun as rd
+        from repro.configs import ARCH_IDS
+        from repro.configs.base import ShapeConfig
+        from repro.launch.train import tiny
+        full = rd.get_config
+        rd.get_config = lambda arch: tiny(full(arch))
+        rd.SHAPES = {{kind: ShapeConfig(kind, *v) for kind, v in {shapes!r}.items()}}
+        mesh = jax.make_mesh((2, 4), ("data", "model"), devices=jax.devices()[:8], axis_types=(AxisType.Auto,) * 2)
+        out = {{}}
+        for arch in ARCH_IDS:
+            for kind in rd.SHAPES:
+                lowered, _ = rd.lower_cell(arch, kind, mesh)
+                out[arch + "|" + kind] = lowered.compile().memory_analysis().argument_size_in_bytes
+        print(json.dumps(out))
+        """
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    env.pop("XLA_FLAGS", None)
+    procs = [subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env={**env, **extra}, cwd=REPO)
+             for code, extra in ((port, {"CUDA_VISIBLE_DEVICES": ""}), (ref, {"JAX_PLATFORMS": "cpu"}))]
+    outs = [p.communicate(timeout=900) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    got, want = (json.loads(out.strip().splitlines()[-1]) for out, _ in outs)
+    for key, cell in got.items():
+        cell["reference_argument_bytes"] = want[key]
+    return got
+
+
+def _dtype_terms(arch: str, kind: str) -> int:
+    """The bytes by which the port's per-chip arguments exceed the reference
+    dry-run's, each from its local shard on the 2x4 mesh: the ``keep_f32``
+    leaves in float32 where the reference declares every parameter bf16
+    (prefill, decode; the train state is float32 in both), and the token ids
+    in int64 where the reference's are int32; less the reference's int32
+    ``pos`` of decode, an argument that the port's ``decode_step`` takes as
+    a Python int.  Beside the dtypes, ``jax.jit`` drops the arguments a
+    program never reads: decode's encoder and adapter weights (whisper, the
+    vlm), its cross-attention key and value projections (the cross K/V come
+    from the cache), and ``pos`` where no cache reads it (mamba2); the port
+    passes them all."""
+    from repro_torch.models import sharding as sh
+
+    sizes = {"data": 2, "model": 4}
+    rules = sh.rules_for_mesh(sizes)
+    model = LMModel(_tiny(arch), tp=4)
+    shape = MESH_SHAPES[kind]
+    local = lambda ps: math.prod(sh.local_shape(sizes, sh.spec_for(sizes, rules, ps.logical, ps.shape), ps.shape))
+    unread = lambda key: kind == "decode" and (key.startswith(("enc_", "adapter")) or ".cross.w" in key
+                                               and key.endswith((".wk", ".wv")))
+    params = dict(tree_items(model.param_specs()))
+    f32 = 0 if kind == "train" else sum(2 * local(ps) for key, ps in params.items() if ps.keep_f32 and not unread(key))
+    f32 += sum(local(ps) * (4 if ps.keep_f32 else 2) for key, ps in params.items() if unread(key))
+    ids = {"train": 2 * shape.seq_len, "prefill": shape.seq_len, "decode": 1}[kind] * shape.global_batch // 2
+    cache = model.init_cache(1, 1, device="meta")
+    reads_pos = any(k.rsplit(".", 1)[-1] in ("k", "c_kv") for k, _ in tree_items(cache))
+    return f32 + 4 * ids - (4 if kind == "decode" and reads_pos else 0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_mesh_argument_bytes_are_the_local_shards(mesh_cells, arch, kind):
+    cell = mesh_cells[f"{arch}|{kind}"]
+    rec = cell["mesh"]
+    assert (rec["mesh"], rec["chips"]) == ("host", 8)
+    assert rec["memory"]["argument_bytes"] == cell["spec_bytes"]
+    assert rec["memory"]["argument_bytes"] - _dtype_terms(arch, kind) == cell["reference_argument_bytes"]
+    assert rec["collective_ops"] > 0 and rec["collective_bytes_per_chip"] > 0
+    assert set(rec["collective_by_kind"]) <= {"all-gather", "all-reduce", "reduce-scatter", "all-to-all"}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_mesh_flops_per_chip_cover_the_one_card_count(mesh_cells, arch, kind):
+    cell = mesh_cells[f"{arch}|{kind}"]
+    rec, one = cell["mesh"], cell["one_card"]
+    assert rec["counted_flops_per_chip"] * rec["chips"] >= one["counted_flops_per_chip"]
+    assert rec["counted_flops_per_chip"] < one["counted_flops_per_chip"]
+
+
+def test_one_device_mesh_gives_the_one_card_record():
+    proc = _child(
+        """
+        import dataclasses, json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import init_fake_world
+        from repro_torch.launch.presets import tiny
+        init_fake_world(1)
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(tiny(get_config("hymba-1.5b")), dtype="bfloat16")
+        out = []
+        for kind in ("train", "prefill", "decode"):
+            shape = ShapeConfig(kind, 64, 2, kind)
+            out.append([dryrun.analyse_cell(cfg, shape, "chunked", mesh=mesh),
+                        dryrun.analyse_cell(cfg, shape, "chunked")])
+        print(json.dumps(out))
+        """,
+        CUDA_VISIBLE_DEVICES="",
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for on_mesh, one in json.loads(proc.stdout.strip().splitlines()[-1]):
+        del on_mesh["lower_s"], one["lower_s"]
+        assert on_mesh == one
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "whisper-large-v3", "hymba-1.5b"])
