@@ -11,6 +11,10 @@ before it and read just after:
   nonzeros, the size class of thermal2) row-partitioned over
   ``PodTopology(npods=4, ppn=4)`` -- 16 ranks of 65,536 rows, four per node
   as on Lassen -- all held on one card; kernels B1/B2;
+* the same case study on a real process group (``repro_torch.launch.world``):
+  16 processes of one rank each, all on this card, joined by gloo and
+  staged through host memory; kernels B1/B2 at ``g = 1`` in every rank,
+  counted per rank in the child processes against a predicted count;
 * the same case study solved whole on the device: CG and BiCGStab as
   replayed CUDA graphs (``repro_torch.solve.fused``); kernel B1;
 * the serving executor draining coalesced batches of the case study's
@@ -160,9 +164,13 @@ Phases, each of which fails the run on any error:
    sweep on the converging solves and the 200-iteration horizon, and the
    fused solve's busy share (B1's launches there are the captured launches
    times the replays, held to the profiler's count of B1 kernels in a
-   profiled solve); last, because after it ``torch.profiler`` records no
-   device activity in this process;
-21. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
+   profiled solve); the last phase in this process, because after it
+   ``torch.profiler`` records no device activity here;
+21. the world (``world``): the case study on 16 processes over gloo in one
+    child process (see ``phase_world``): every rank's halos, SpMV and solves
+    bitwise the stacked run's rows, its launches as predicted, the guards;
+    after ``fused``, which it would otherwise cost two profiler records;
+22. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
     B3 entry's launches are its main path's launches at that shape), the
@@ -3197,6 +3205,106 @@ def phase_mesh(ctx) -> None:
         raise AssertionError("mesh check failed: " + ", ".join(k for k, ok in checks.items() if not ok))
 
 
+#: phase ``world``: the case study on a gloo world of one process per rank
+WORLD_TOPO = "4x4"
+WORLD_TIMEOUT_S = 600
+
+
+def phase_world(ctx) -> None:
+    """The case study on a real process group (``repro_torch.launch.world``):
+    ``spd_system(thermal_like(1 << 20))`` on ``PodTopology(4, 4)``, 16
+    processes of 65,536 rows each, all on this card, joined by gloo (NCCL
+    refuses two ranks of one communicator on one card, so every hop stages
+    through host memory).  One child process (``python -m
+    repro_torch.launch.world``) spawns the ranks; every rank builds the
+    matrix and its plans from the seed.  The child checks, and this phase
+    re-reads, every gate of every rank (``chiprun_out/world/world.json``):
+
+    * each rank's halo, for the four strategies x barrier/split-phase x
+      codecs none/bf16/int8 on a ``[1, L, 3]`` payload, bitwise row ``r``
+      of the stacked exchange on the card (gathered on rank 0), and the
+      stacked exchange bitwise ``execute_numpy``;
+    * ``DistributedSpMV(group=)``: overlap == barrier, ``matmat`` (k = 8) ==
+      ``matmat_looped``, ``w`` equal across strategies and bitwise the
+      stacked operator's row, and within 1e-5 of a float64 CSR product;
+    * CG and BiCGStab (``shifted_system``) with each strategy and ``auto``,
+      barrier and overlap: converged to 1e-6, histories bitwise across them
+      and across ranks, true residual under 1e-5, and the stacked host loop's
+      status, iterations within one and ``x`` within 1e-4;
+    * each rank's B1/B2 launches equal to the count predicted from its calls
+      (2 B1 per matvec, 2 B2 per ``matmat``);
+    * the guards (NCCL, ``verify``, ``faults``, the fused solve, a rank with
+      another strategy) raise.
+
+    Logged beside the card's name and power limit: ms per staged exchange
+    per strategy, ms per CG iteration (the slowest rank's host wall), the
+    world's start and total seconds, memory per rank.  It runs last, after
+    ``fused``: placed right after ``mesh`` it cost ``fused``'s profiler two
+    B1 records (ROADMAP §C).  The child runs in a session of its own, so a
+    timeout kills every rank with it.
+    """
+    import signal
+
+    card = ctx["details"]["card"]
+    out_dir = os.path.join(HERE, "chiprun_out", "world")
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.world", "--topo", WORLD_TOPO, "--rows", str(SIDE * SIDE),
+           "--seed", str(SEED), "--mm-cols", str(MM_COLS), "--timeout", str(WORLD_TIMEOUT_S - 60), "--out", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE, env=env,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=WORLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        raise AssertionError(f"world: no end within {WORLD_TIMEOUT_S} s\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"world: exit {proc.returncode}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    with open(os.path.join(out_dir, "world.json")) as f:
+        rec = json.load(f)
+    ranks = rec["ranks"]
+    r0 = ranks[0]
+    log(f"[world] {stdout.strip().splitlines()[-1]}")
+    log(f"[world] {len(ranks)} processes on one card over gloo, n={r0['n']} nnz={r0['nnz']} L={r0['rows_per_rank']} "
+        f"H={r0['halo_width']}: start {rec['start_s']:.2f} s, world {rec['total_s']:.2f} s, phase {seconds:.2f} s "
+        f"({card})")
+    for key, ms in r0["exchange_ms"].items():
+        log(f"[world] staged exchange {key}: {ms:.4f} ms (slowest rank, host wall, mean of 10) ({card})")
+    for key, res in r0["solves"].items():
+        if "ms_per_iteration" in res:
+            log(f"[world] {key} ({res['strategy']}): {res['status']} in {res['iterations']} iterations, "
+                f"{res['ms_per_iteration']:.4f} ms/iteration (slowest rank) ({card})")
+        else:
+            log(f"[world] {key}: {json.dumps(res)}")
+    mem = [x["memory"] for x in ranks]
+    log(f"[world] memory per rank: device peak allocated {[m['device_peak_allocated_bytes'] for m in mem]} B, "
+        f"reserved {[m['device_reserved_bytes'] for m in mem]} B, host max RSS "
+        f"{[m['host_max_rss_bytes'] for m in mem]} B (shared library pages included), private at the end "
+        f"{[m.get('host_private_bytes') for m in mem]} B ({card})")
+    log(f"[world] launches per rank {[x['launches'] for x in ranks]}, predicted "
+        f"{[x['predicted_launches'] for x in ranks]}")
+    checks = {
+        f"{sum(len(x['gates']) for x in ranks)} gates on {len(ranks)} ranks, none failed": not rec["failed_gates"],
+        "16 ranks": len(ranks) == 16,
+        "every rank launched B1 and B2 as predicted": all(
+            x["launches"] == x["predicted_launches"] and x["launches"]["spmv_ell"] > 0 and x["launches"]["spmm_ell"] > 0
+            for x in ranks),
+    }
+    ctx["details"]["world"] = {
+        "seconds": seconds, "start_s": rec["start_s"], "total_s": rec["total_s"],
+        "exchange_ms": r0["exchange_ms"], "solves": r0["solves"], "memory": mem,
+        "launches": [x["launches"] for x in ranks], "setup_s": [x["setup_s"] for x in ranks],
+        "phase_s": [x["phase_s"] for x in ranks], "spmv_rel_err": r0["spmv_rel_err"],
+    }
+    for name, ok in checks.items():
+        log(f"[world] {name}: {ok}")
+    if not all(checks.values()):
+        raise AssertionError("world check failed: " + ", ".join(k for k, ok in checks.items() if not ok)
+                             + "\n" + "\n".join(rec["failed_gates"][:20]))
+
+
 #: the phases in the order ``main`` runs them
 PHASES = (
     ("build", phase_build),
@@ -3220,10 +3328,14 @@ PHASES = (
     ("serve_vlm", phase_serve_vlm),
     ("train", phase_train),
     ("dryrun", phase_dryrun),
-    # last: after thousands of graph replays torch.profiler sessions in
-    # this process record no device activity (PERF.md), and the phases
-    # above gate on theirs
+    # after thousands of graph replays torch.profiler sessions in this
+    # process record no device activity (PERF.md), and the phases above
+    # gate on theirs
     ("fused", phase_fused),
+    # after fused: with the 16 processes of phase world on the card earlier
+    # in the run (right after mesh), fused's profiler saw 400 of its 402 B1
+    # launches (PERF.md §6, the world); its children use nothing of this process
+    ("world", phase_world),
 )
 
 

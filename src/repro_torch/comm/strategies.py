@@ -49,6 +49,14 @@ sub-exchange (with its codec, checks and faults) on a side CUDA stream
 while the on-pod one runs on the current stream;
 :meth:`ExchangeHandle.finish` makes the current stream wait, settles the
 checks and merges the two, bitwise equal to the barrier call.
+
+``IrregularExchange(group=...)`` runs the same program with one rank per
+process (:class:`~repro_torch.comm.topology.ExchangeGroup`): ``local [1, L,
+*feat] -> [1, H, *feat]``, its hops real gloo collectives staged through
+host memory (:class:`_RankProgram`), bitwise this rank's row of the stacked
+call.  Its split phase leaves the inter-pod program's first hop in flight
+(``async_op=True``) while the on-pod program runs, and ``finish()`` runs the
+inter-pod program's other hops.
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ from repro_torch.comm.exchange import (
     split_phase,
 )
 from repro_torch.comm.fusion import fuse
-from repro_torch.core.device import DeviceLike, as_device_tensor, resolve_device
+from repro_torch.core.device import DeviceLike, as_device_tensor, device_for_rank, resolve_device
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -364,6 +372,209 @@ class _Program:
         return out, torch.stack(viols)
 
 
+def _bytes_of(parts) -> torch.Tensor:
+    """``[rows, ...]`` tensors as one ``[rows, nbytes]`` uint8 host tensor
+    (each row's bytes in ``parts`` order): what a gloo hop carries."""
+    rows = [p.reshape(p.shape[0], -1).view(torch.uint8) for p in parts]
+    return (rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)).cpu()
+
+
+def _from_bytes(raw: torch.Tensor, like, device: torch.device) -> list:
+    """Inverse of :func:`_bytes_of` for tensors shaped and typed as ``like``
+    (each ``(shape, dtype)``), copied to ``device``."""
+    raw = raw.to(device)
+    if len(like) == 1:  # the whole buffer: fresh, so aligned for any dtype
+        (shape, dtype), = like
+        return [raw.view(dtype).reshape(shape)]
+    out, at = [], 0
+    for shape, dtype in like:
+        n = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+        # a fresh buffer, so the view starts aligned for its dtype
+        part = torch.empty((raw.shape[0], n), dtype=torch.uint8, device=device)
+        out.append(part.copy_(raw[:, at : at + n]).view(dtype).reshape(shape))
+        at += n
+    return out
+
+
+class _RankProgram:
+    """:class:`_Program` for the one rank this process holds, over an
+    :class:`~repro_torch.comm.topology.ExchangeGroup`.
+
+    The scratch is ``[E, *feat]`` (this rank's ``local`` block, the buffer
+    region and the zero PAD slot) and every index array is this rank's row
+    of :func:`lower_program`'s.  The hops are real collectives over gloo,
+    staged through host memory: the send blocks are gathered (and encoded)
+    on the device, copied to the host as bytes, moved, copied back and
+    decoded.
+
+    * ``a2a_local`` / ``a2a_pod``: one ``all_to_all_single`` of equal splits
+      of ``[groups, blk, *feat]`` on the rank's ``local`` / ``pod`` group;
+      under a lossy codec the own-pod block keeps the sender's full
+      precision;
+    * a ``permute`` round: one ``batch_isend_irecv`` on the world, tagged
+      with the program's ``tag``, the op and the round (so a split-phase
+      exchange's two programs never match each other's messages); a rank
+      that receives nothing in a round gets zeros, as ``ppermute`` gives.
+
+    :meth:`steps` issues each hop asynchronously and yields its pending
+    work, so :meth:`IrregularExchange.start` can leave the inter-pod
+    program's first hop in flight while the on-pod program runs.
+    """
+
+    def __init__(self, sp: StagePlan, device: torch.device, group, tag: int):
+        lp = lower_program(sp)
+        self.sp = sp
+        self.device = device
+        self.group = group
+        self.topo = sp.pattern.topo
+        self.L = lp.local_size
+        self.out_size = lp.out_size
+        self.E = lp.local_size + lp.w_max + 1
+        r = group.rank
+
+        def row(idx: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(idx[r].astype(np.int64), device=device)
+
+        self.ops: List[tuple] = []
+        ai = 0
+        for op_i, op in enumerate(lp.ops):
+            kind = op[0]
+            if kind == "gather":
+                self.ops.append(("gather", op[1], row(lp.arrays[ai])))
+                ai += 1
+            elif kind in ("a2a_local", "a2a_pod"):
+                _, buflen, has_idx = op
+                idx = None
+                if has_idx:
+                    idx = row(lp.arrays[ai])
+                    ai += 1
+                self.ops.append((kind, buflen, idx))
+            else:  # permute
+                _, rounds, blks, inters = op
+                rnds = []
+                for ri, (perm, blk, inter) in enumerate(zip(rounds, blks, inters)):
+                    dst = next((d for s, d in perm if s == r), None)
+                    src = next((s for s, d in perm if d == r), None)
+                    rnds.append((blk, row(lp.arrays[ai]), dst, src, bool(inter),
+                                 (tag << 24) | (op_i << 12) | ri))
+                    ai += 1
+                self.ops.append(("permute", sum(blks), rnds))
+
+    def steps(self, local: torch.Tensor, codec: str):
+        """Generator over the program's hops: yields each hop's pending
+        works once issued, resumes after the caller waited on them, and
+        returns ``[1, out_size, *feat]``."""
+        import torch.distributed as dist
+
+        topo, L, E, device = self.topo, self.L, self.E, self.device
+        feat = tuple(local.shape[2:])
+        nfeat = int(np.prod(feat, dtype=np.int64))
+        encoded = _codec_applies(codec, local.dtype)
+        ext = local.new_zeros((E,) + feat)
+        ext[:L] = local[0]
+
+        def take(idx: torch.Tensor, width: int) -> torch.Tensor:
+            return ext.index_select(0, idx).view((width,) + feat)
+
+        def encode(blocks: torch.Tensor, wire: bool) -> list:
+            """``[n, blk * nfeat]`` blocks -> the tensors that cross the hop."""
+            if not (wire and encoded):
+                return [blocks]
+            payload, scale = _encode_blocks(blocks, codec)
+            return [payload] if scale is None else [payload, scale]
+
+        def decode(raw: torch.Tensor, parts: list, dtype) -> torch.Tensor:
+            """Received bytes laid out as ``parts`` (the encoded tensors), decoded."""
+            got = _from_bytes(raw, [(tuple(p.shape), p.dtype) for p in parts], device)
+            return _decode_blocks(got[0], got[1] if len(got) > 1 else None, dtype)
+
+        def land(dest: torch.Tensor, raw: torch.Tensor) -> None:
+            """Received bytes of an unencoded hop, copied straight into ``dest``."""
+            dest.view(-1).view(torch.uint8).copy_(raw.view(-1))
+
+        for kind, width, arg in self.ops:
+            if kind == "gather":
+                ext[L : L + width] = take(arg, width)
+            elif kind in ("a2a_local", "a2a_pod"):
+                seg = take(arg, width) if arg is not None else ext[L : L + width]
+                if not width:
+                    continue
+                wire = kind == "a2a_pod" and encoded
+                groups = topo.npods if kind == "a2a_pod" else topo.ppn
+                blocks = seg.reshape(groups, (width // groups) * nfeat)
+                parts = encode(blocks, wire)
+                send = _bytes_of(parts)
+                recv = torch.empty_like(send)
+                work = dist.all_to_all_single(
+                    recv, send, group=self.group.pod if kind == "a2a_pod" else self.group.local,
+                    async_op=True,
+                )
+                yield [work]
+                if not wire:
+                    land(ext[L : L + width], recv)
+                    continue
+                got = decode(recv, parts, blocks.dtype)
+                # the own-pod block never crossed pods: full precision
+                me = self.group.pod_index
+                got[me] = blocks[me]
+                ext[L : L + width] = got.view((width,) + feat)
+            else:  # permute
+                works, pending, at = [], [], L
+                for blk, sel, dst, src, inter, tag in arg:
+                    dest, at = ext[at : at + blk], at + blk
+                    if not blk:
+                        continue
+                    if dst is None and src is None:
+                        pending.append((dest, None, None, None))
+                        continue
+                    send = take(sel, blk)
+                    if dst == self.group.rank:  # a pair of one rank: no hop
+                        pending.append((dest, send, None, None))
+                        continue
+                    parts = encode(send.reshape(1, blk * nfeat), inter)
+                    ops, recv = [], None
+                    if dst is not None:
+                        ops.append(dist.P2POp(dist.isend, _bytes_of(parts), dst, tag=tag))
+                    if src is not None:
+                        nbytes = sum(p[0].numel() * p.dtype.itemsize for p in parts)
+                        recv = torch.empty((1, nbytes), dtype=torch.uint8)
+                        ops.append(dist.P2POp(dist.irecv, recv, src, tag=tag))
+                    if ops:
+                        works += dist.batch_isend_irecv(ops)
+                    pending.append((dest, None, recv, parts if inter and encoded else None))
+                yield works
+                for dest, own, recv, parts in pending:
+                    if own is not None:
+                        dest.copy_(own)
+                    elif recv is None:  # nothing arrives: zeros, as ppermute gives
+                        dest.zero_()
+                    elif parts is None:
+                        land(dest, recv)
+                    else:
+                        dest.copy_(decode(recv, parts, dest.dtype).view(dest.shape))
+        # a view of this call's own scratch: contiguous, as the kernels want
+        return ext[L : L + self.out_size].unsqueeze(0)
+
+    def run(self, local: torch.Tensor, codec: str = "none"):
+        """``local [1, L, *feat] -> ([1, out_size, *feat], None)``, each hop
+        waited on before the next."""
+        return _drive(self.steps(local, codec)), None
+
+
+def _drive(steps, works=None) -> torch.Tensor:
+    """Run a :meth:`_RankProgram.steps` generator to its end; ``works`` are
+    the pending works of a hop it already yielded."""
+    try:
+        if works is None:
+            works = next(steps)
+        while True:
+            for w in works:
+                w.wait()
+            works = steps.send(None)
+    except StopIteration as stop:
+        return stop.value
+
+
 # ---------------------------------------------------------------------------
 # Plan / program caches
 # ---------------------------------------------------------------------------
@@ -534,6 +745,36 @@ def _program(sp: StagePlan, plan_key: tuple, device: torch.device) -> _Program:
     )
 
 
+def _rank_program(sp: StagePlan, plan_key: tuple, device: torch.device, group, tag: int) -> _RankProgram:
+    return _lru_get(
+        _EXEC_CACHE, plan_key + (str(device), id(group), group.rank, tag), EXEC_CACHE_MAX,
+        lambda: _RankProgram(sp, device, group, tag), "exec",
+    )
+
+
+def _check_plans_agree(group, key: tuple) -> None:
+    """Every rank of ``group``'s world must run the same plan, or the ranks'
+    collectives would not match and the world would hang: all-gather a hash
+    of ``key`` and raise on every rank, naming the ranks that differ."""
+    import hashlib
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    mine = int.from_bytes(hashlib.sha1(repr(key).encode()).digest()[:8], "little", signed=True)
+    got = [torch.zeros(1, dtype=torch.int64) for _ in range(group.topo.nranks)]
+    dist.all_gather(got, torch.tensor([mine], dtype=torch.int64))
+    hashes = [int(t) for t in got]
+    common = Counter(hashes).most_common(1)[0][0]
+    odd = [r for r, h in enumerate(hashes) if h != common]
+    if odd:
+        raise RuntimeError(
+            f"the ranks' exchange plans differ: ranks {odd} planned another exchange than ranks "
+            f"{[r for r, h in enumerate(hashes) if h == common]} (pattern, strategy, cap, "
+            f"element bytes, fusion and codec must agree on every rank)"
+        )
+
+
 # ---------------------------------------------------------------------------
 # Split-phase merge
 # ---------------------------------------------------------------------------
@@ -559,8 +800,14 @@ class _Merge:
             )
         return maps
 
-    def __call__(self, local_out: torch.Tensor, remote_out: torch.Tensor) -> torch.Tensor:
-        mask, valid, li, ri = self._on(local_out.device)
+    def __call__(self, local_out: torch.Tensor, remote_out: torch.Tensor,
+                 rank: Optional[int] = None) -> torch.Tensor:
+        """Merge ``[nranks, H, *feat]`` phase outputs, or under a process
+        group ``[1, H, *feat]`` ones with world rank ``rank``'s maps."""
+        maps = self._on(local_out.device)
+        if rank is not None:
+            maps = tuple(m[rank : rank + 1] for m in maps)
+        mask, valid, li, ri = maps
         feat = tuple(local_out.shape[2:])
         expand = mask.shape + (1,) * len(feat)
 
@@ -587,14 +834,16 @@ class ExchangeHandle:
 
     ``local_halo`` is the on-pod phase result, queued on the current stream;
     the inter-pod phase runs on ``stream`` (a side CUDA stream, or ``None``
-    on the CPU, where it already ran).  :meth:`finish` settles the inter-pod
+    on the CPU, where it already ran).  Under a process group
+    ``remote_halo`` is ``None`` until :meth:`finish` has run the inter-pod
+    program's remaining hops.  :meth:`finish` settles the inter-pod
     phase's checks (through the recovery ladder, when it has any) and merges
     both phases into the full canonical recv buffer -- bitwise the barrier
     result.
     """
 
     local_halo: torch.Tensor
-    remote_halo: torch.Tensor
+    remote_halo: Optional[torch.Tensor]
     _merge: object
     stream: Optional["torch.cuda.Stream"] = None
     _settle: Optional[Callable[[], torch.Tensor]] = None
@@ -645,6 +894,12 @@ class IrregularExchange:
         records into (created when ``verify`` or ``faults`` is set).
       max_retries, fallback: the ladder's retries of the configured pair, and
         whether it may then demote the codec and re-advise the strategy.
+      group: an :class:`~repro_torch.comm.topology.ExchangeGroup`: this
+        process holds one rank, ``local [1, L, *feat] -> [1, H, *feat]``,
+        on ``device`` (left out, ``cuda:(rank % device_count)``), and the
+        hops are gloo collectives.  Every rank constructs the exchange at
+        once; a rank whose plan differs raises on every rank.  ``verify``,
+        ``faults`` and ``health`` raise under a group (ROADMAP A.6.3b).
 
     Example::
 
@@ -673,19 +928,38 @@ class IrregularExchange:
     health: Optional[faults_mod.HealthTracker] = None
     max_retries: int = 1
     fallback: bool = True
+    group: Optional[object] = None
 
     def __post_init__(self) -> None:
         wire_mod.check_codec(self.wire)
-        self.device = resolve_device(self.device)
         key = _plan_key(
             self.pattern, self.strategy, self.message_cap_bytes,
             self.elem_bytes, self.fuse_program,
         )
+        if self.group is not None:
+            if self.verify or self.faults is not None or self.health is not None:
+                raise NotImplementedError(
+                    "wire checks, faults and the recovery ladder under a process group are "
+                    "ROADMAP A.6.3b (the ranks must agree on a violation before a retry)"
+                )
+            if self.group.topo != self.pattern.topo:
+                raise ValueError(f"the group is {self.group.topo}, the pattern {self.pattern.topo}")
+            self.device = (device_for_rank(self.group.rank) if self.device is None
+                           else resolve_device(self.device))
+            _check_plans_agree(self.group, key + (self.wire,))
+        else:
+            self.device = resolve_device(self.device)
         self.plan: StagePlan = planned(
             self.pattern, self.strategy, self.message_cap_bytes,
             self.elem_bytes, self.fuse_program,
         )
-        self._program = _program(self.plan, key, self.device)
+        if self.group is None:
+            self._program = _program(self.plan, key, self.device)
+        else:
+            # the on-pod phase of a split exchange overlaps the inter-pod
+            # one: its messages carry a tag of their own
+            self._program = _rank_program(self.plan, key, self.device, self.group,
+                                          tag=int(self.strategy == "local"))
         if self.health is None and (self.verify or self.faults is not None):
             self.health = faults_mod.HealthTracker()
         self._two_phase: Optional[tuple] = None
@@ -716,7 +990,8 @@ class IrregularExchange:
 
     def _checked(self, local) -> torch.Tensor:
         local = as_device_tensor(local, self.device)
-        n, L = self.pattern.topo.nranks, self.pattern.local_size
+        n = 1 if self.group is not None else self.pattern.topo.nranks
+        L = self.pattern.local_size
         if local.ndim < 2 or tuple(local.shape[:2]) != (n, L):
             raise ValueError(f"expected [{n}, {L}, *feat], got {tuple(local.shape)}")
         return local
@@ -818,7 +1093,7 @@ class IrregularExchange:
         if self._two_phase is None:
             sp, merge = _split_phase_cached(self.pattern)
             common = dict(device=self.device, elem_bytes=self.elem_bytes,
-                          fuse_program=self.fuse_program)
+                          fuse_program=self.fuse_program, group=self.group)
             self._two_phase = (
                 # faults only ever hit inter-pod segments, so the guard
                 # rails ride on the inter-pod phase alone
@@ -832,6 +1107,19 @@ class IrregularExchange:
             )
         remote_ex, local_ex, merge = self._two_phase
         local = self._checked(local)
+        if self.group is not None:
+            # the inter-pod program's first hop goes in flight, the on-pod
+            # program runs to its end, and finish() runs the rest
+            steps = remote_ex._program.steps(local, remote_ex.wire)
+            try:
+                first = next(steps)
+            except StopIteration as stop:
+                remote, first = stop.value, None
+            rank = self.group.rank
+            return ExchangeHandle(
+                local_ex(local), None, lambda lo, ro: merge(lo, ro, rank),
+                _settle=(lambda: _drive(steps, first)) if first is not None else (lambda: remote),
+            )
 
         def launch_remote() -> tuple:
             if not remote_ex.guarded:

@@ -4,7 +4,8 @@ A :class:`PodTopology` describes a machine as ``npods`` pods of ``ppn``
 ranks (the paper's nodes of PPN processes).  World rank ``r`` lives on pod
 ``r // ppn`` with pod-local rank ``r % ppn``.  In the port every rank is one
 row of a stacked ``[nranks, ...]`` tensor on one device, laid out row-major
-over ``("pod", "local")``.
+over ``("pod", "local")``, or, under an :class:`ExchangeGroup`, one process
+of a ``torch.distributed`` world.
 """
 
 from __future__ import annotations
@@ -50,3 +51,74 @@ class PodTopology:
         """Inter-pod exchange rounds: pod shifts ``1 .. npods-1``."""
         return list(range(1, self.npods))
 
+
+
+# ---------------------------------------------------------------------------
+# A real process group: one process per rank
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeGroup:
+    """This process's place in a ``torch.distributed`` world of one rank per
+    process: the counterpart of the reference's ``("pod", "local")`` mesh
+    (``make_exchange_mesh``), built by :func:`make_exchange_group`.
+
+    ``local`` joins the ``ppn`` ranks of this rank's pod (the ``a2a_local``
+    hops), ``pod`` the ``npods`` ranks of its pod-local index (the
+    ``a2a_pod`` hops); world rank ``r`` is ``topo.rank_of(pod, local)``,
+    pod-major.  Every group is gloo: its collectives take host tensors.
+    """
+
+    topo: PodTopology
+    rank: int
+    local: object  # torch.distributed.ProcessGroup
+    pod: object
+    backend: str = "gloo"
+
+    @property
+    def pod_index(self) -> int:
+        return self.topo.pod_of(self.rank)
+
+    @property
+    def local_index(self) -> int:
+        return self.topo.local_of(self.rank)
+
+
+def check_backend(backend: str) -> None:
+    """Only gloo runs: NCCL raises, naming its ROADMAP item."""
+    if backend == "nccl":
+        raise NotImplementedError(
+            "the NCCL transport is ROADMAP A.6.3b: one card cannot hold a NCCL world of two "
+            "ranks, so only backend='gloo' (staged through host memory) runs"
+        )
+    if backend != "gloo":
+        raise ValueError(f"unknown backend {backend!r}; the exchange runs over 'gloo'")
+
+
+def make_exchange_group(topo: PodTopology, backend: str = "gloo", timeout=None) -> ExchangeGroup:
+    """Split the default process group into the ``local`` and ``pod``
+    subgroups of ``topo``; every rank of the world calls it at once.
+
+    The world must hold exactly ``topo.nranks`` processes.  Each subgroup
+    list is built with ``new_subgroups_by_enumeration`` over every pod (or
+    local index) in order, so every rank creates every group in the same
+    order.  ``timeout`` (a ``timedelta``) bounds each subgroup's
+    collectives; ``None`` takes ``torch.distributed``'s default.
+    """
+    import torch.distributed as dist
+
+    check_backend(backend)
+    if not dist.is_initialized():
+        raise RuntimeError("make_exchange_group needs an initialised torch.distributed world")
+    world = dist.get_world_size()
+    if world != topo.nranks:
+        raise ValueError(f"{topo} needs a world of {topo.nranks} processes, this one has {world}")
+    kw = dict(backend=backend) if timeout is None else dict(backend=backend, timeout=timeout)
+    local, _ = dist.new_subgroups_by_enumeration(
+        [[topo.rank_of(p, l) for l in range(topo.ppn)] for p in range(topo.npods)], **kw
+    )
+    pod, _ = dist.new_subgroups_by_enumeration(
+        [[topo.rank_of(p, l) for p in range(topo.npods)] for l in range(topo.ppn)], **kw
+    )
+    return ExchangeGroup(topo=topo, rank=dist.get_rank(), local=local, pod=pod, backend=backend)

@@ -28,6 +28,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return device
 
 
+def device_for_rank(rank: int) -> torch.device:
+    """The CUDA device of world rank ``rank``: ``cuda:(rank % device_count)``.
+
+    On one card every rank of a process group shares ``cuda:0``.  A machine
+    without a card raises, as :func:`resolve_device` does; a caller that
+    wants the CPU passes ``device="cpu"`` instead of asking here.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the host"
+        )
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
 def as_device_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a contiguous tensor on ``device``."""
     return torch.as_tensor(x, dtype=dtype, device=device).contiguous()

@@ -1,0 +1,614 @@
+"""A ``torch.distributed`` world of one process per rank: the paper's case
+study on a real process group.
+
+The counterpart of the reference's forced host devices feeding
+``make_exchange_mesh``: :func:`run_world` spawns ``topo.nranks`` processes
+(``spawn``, never ``fork``: a child forked after CUDA is initialised cannot
+use it), joins them through a ``file://`` store in a fresh temporary
+directory (two worlds on one machine never share a TCP port), builds each
+rank's :class:`~repro_torch.comm.topology.ExchangeGroup` and calls
+``fn(group, device, *args)`` there.  Each rank uses one CPU thread.  The
+backend is gloo: NCCL refuses two ranks of one communicator on one card,
+so every hop stages its payload through host memory (the paper's
+staged-through-host path).  A rank that raises ends the world: the others
+are killed and :class:`WorldError` carries that rank's number and
+traceback, within ``timeout_s``.
+
+``python -m repro_torch.launch.world --topo 4x4 --rows 1048576 --out DIR``
+runs :func:`case_study` on the card (``--device cpu`` on the host): every
+rank builds ``spd_system(thermal_like(rows))`` and its plans from the seed,
+then holds its own ``[1, L]`` block and runs
+
+* the exchange of every strategy, barrier and split-phase, codecs ``none``,
+  ``bf16`` and ``int8``: each rank's halo bitwise row ``r`` of the stacked
+  :class:`~repro_torch.comm.strategies.IrregularExchange` (rank 0 runs it
+  and gathers the halos), and with ``none`` bitwise ``execute_numpy``;
+* ``DistributedSpMV(group=)``: overlap == barrier, ``matmat`` ==
+  ``matmat_looped``, ``w`` equal across strategies and bitwise the stacked
+  operator's row;
+* CG (``spd_system``) and BiCGStab (``shifted_system``) with every strategy
+  and ``auto``, barrier and overlap: converged, histories bitwise equal
+  across them and across ranks, the true residual, and the stacked host
+  loop's status, iterations (within one) and ``x`` (within 1e-4);
+* B1/B2 launches per rank against a count predicted from the calls made;
+* the guards: NCCL, ``verify``, ``faults``, the fused solve and a rank with
+  another strategy each raise;
+
+and writes ``DIR/world.json``; it exits 1 if any gate failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import hashlib
+import json
+import multiprocessing.connection
+import os
+import resource
+import sys
+import tempfile
+import time
+import traceback
+from collections import Counter
+from datetime import timedelta
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm.exchange import execute_numpy
+from repro_torch.comm.faults import FaultPlan, FaultSpec
+from repro_torch.comm.strategies import STRATEGY_NAMES, IrregularExchange
+from repro_torch.comm.topology import PodTopology, check_backend, make_exchange_group
+from repro_torch.core.device import device_for_rank
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.spmv_ell import spmm_ell, spmv_ell
+from repro_torch.solve.fused import fused_cg
+from repro_torch.solve.krylov import bicgstab, cg
+from repro_torch.solve.problems import shifted_system, spd_system
+from repro_torch.sparse.matrices import GENERATORS
+from repro_torch.sparse.partition import partition_csr
+from repro_torch.sparse.spmv import DistributedSpMV
+
+#: the case study's tolerances (PERF.md §2): CG/BiCGStab to 1e-6, a true
+#: residual under 1e-5, ``x`` within 1e-4 of the stacked solve
+TOL_SOLVE = 1e-6
+TOL_TRUE = 1e-5
+TOL_X = 1e-4
+TOL_SPMV = 1e-5
+CODECS = ("none", "bf16", "int8")
+MODES = ("barrier", "split")
+#: trailing feature widths of the exchange payloads (the SpMV's gates run
+#: the ``[1, L]`` vector and the ``[1, L, k]`` block through the exchange)
+FEATS = ((3,),)
+TIMED_REPS = 10
+MAXITER = 1000
+
+
+class WorldError(RuntimeError):
+    """A rank of the world raised; ``rank`` and ``traceback`` are its."""
+
+    def __init__(self, rank: int, tb: str):
+        super().__init__(f"rank {rank} of the world raised:\n{tb}")
+        self.rank = rank
+        self.traceback = tb
+
+
+# ---------------------------------------------------------------------------
+# The launcher
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank: int, fn: Callable, topo: PodTopology, device: Optional[str], backend: str,
+               timeout_s: float, store: str, out_dir: str, args: tuple, kwargs: dict) -> None:
+    """One rank: join the world, run ``fn``, write its JSON result (or its
+    traceback, and leave at once: the other ranks may be blocked in a
+    collective this rank never reaches)."""
+    try:
+        timeline = {"entered": time.time()}
+        torch.set_num_threads(1)
+        timeout = timedelta(seconds=timeout_s)
+        dist.init_process_group(backend, init_method=store, rank=rank, world_size=topo.nranks,
+                                timeout=timeout)
+        timeline["joined"] = time.time()
+        group = make_exchange_group(topo, backend, timeout=timeout)
+        timeline["grouped"] = time.time()
+        dev = torch.device("cpu") if device == "cpu" else device_for_rank(rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.empty(1, device=dev)  # the context exists from here on
+        timeline["device"] = time.time()
+        result = fn(group, dev, *args, **kwargs)
+        if isinstance(result, dict):
+            result.setdefault("timeline", timeline)
+        path = os.path.join(out_dir, f"rank{rank}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(result, f)
+        os.replace(path + ".tmp", path)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        tb = traceback.format_exc()
+        path = os.path.join(out_dir, f"rank{rank}.err")
+        with open(path + ".tmp", "w") as f:
+            json.dump({"rank": rank, "time": time.time(), "traceback": tb}, f)
+        os.replace(path + ".tmp", path)  # whole, even if this rank is killed next
+        sys.stderr.write(f"[rank {rank}] {tb}")
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.exitcode is None:
+            p.terminate()
+    for p in procs:
+        p.join(5.0)
+        if p.exitcode is None:
+            p.kill()
+            p.join()
+
+
+def _first_error(out_dir: str, failed: List[int], procs) -> WorldError:
+    """The rank that raised first (its error file's time): the others may
+    have failed after it, on its closed connections."""
+    errors = []
+    for name in os.listdir(out_dir):
+        if name.endswith(".err"):
+            with open(os.path.join(out_dir, name)) as f:
+                errors.append(json.load(f))
+    if errors:
+        first = min(errors, key=lambda e: e["time"])
+        return WorldError(first["rank"], first["traceback"])
+    r = failed[0]
+    return WorldError(r, f"exited with code {procs[r].exitcode} and wrote no traceback")
+
+
+def run_world(fn: Callable, topo: PodTopology, *, device: Optional[str] = None, backend: str = "gloo",
+              timeout_s: float = 600.0, args: Sequence = (), kwargs: Optional[dict] = None) -> list:
+    """Spawn ``topo.nranks`` processes and return ``fn(group, device,
+    *args, **kwargs)`` of each rank (JSON values), in rank order.
+
+    ``fn`` must be importable by name (a module-level function).  A dict
+    result gains ``"timeline"``: the epoch seconds at which the rank
+    entered (its imports done), joined the store, built its groups and held
+    its device.
+    ``device="cpu"`` runs every rank on the host; left out, rank ``r`` runs
+    on ``cuda:(r % device_count)``.  ``timeout_s`` bounds the whole world
+    and each of its collectives; past it every rank is killed and
+    :class:`TimeoutError` raised.  A rank that raises ends the world with
+    :class:`WorldError`.
+    """
+    check_backend(backend)
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_world_") as d:
+        procs = [
+            ctx.Process(target=_rank_main, args=(r, fn, topo, device, backend, timeout_s,
+                                                 f"file://{d}/store", d, tuple(args), kwargs or {}))
+            for r in range(topo.nranks)
+        ]
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.start()
+            while True:
+                failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                alive = [p for p in procs if p.exitcode is None]
+                if failed or not alive:
+                    break
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"the world of {topo.nranks} ranks did not end within {timeout_s} s; "
+                        f"ranks {[r for r, p in enumerate(procs) if p.exitcode is None]} were running"
+                    )
+                multiprocessing.connection.wait([p.sentinel for p in alive], timeout=min(left, 1.0))
+            if failed:
+                _stop(procs)
+                raise _first_error(d, failed, procs)
+        finally:
+            _stop(procs)
+        results = []
+        for r in range(topo.nranks):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    return results
+
+
+def probe(group, device: torch.device, fail_rank: int = -1) -> dict:
+    """The world's smallest program: one all-gather of the ranks' numbers.
+    ``fail_rank`` raises on that rank before the collective, which shows
+    how a failing rank ends the world."""
+    if group.rank == fail_rank:
+        raise ValueError(f"rank {group.rank} fails on purpose before the world's first collective")
+    got = [torch.zeros(1, dtype=torch.int64) for _ in range(group.topo.nranks)]
+    dist.all_gather(got, torch.tensor([group.rank]))
+    return {"rank": group.rank, "ranks": [int(t) for t in got], "device": str(device)}
+
+
+# ---------------------------------------------------------------------------
+# The case study
+# ---------------------------------------------------------------------------
+
+
+def payload(topo: PodTopology, L: int, feat: tuple, seed: int) -> np.ndarray:
+    """The exchange's stacked ``[nranks, L, *feat]`` float32 payload: values
+    over many binades, and in each rank's first and last rows an inf, a nan,
+    a -inf and a value beyond float16's range (the codecs' special cases)."""
+    rng = np.random.default_rng(seed)
+    shape = (topo.nranks, L) + tuple(feat)
+    x = (rng.normal(size=shape) * 10.0 ** rng.integers(-3, 4, size=shape)).astype(np.float32)
+    for row, value in ((0, np.inf), (1, np.nan), (-1, -np.inf), (-2, 7e4)):
+        x[:, row % L] = value
+    return x
+
+
+def inputs(topo: PodTopology, L: int, seed: int, mm_cols: int) -> dict:
+    """The stacked SpMV and solve operands, from the seed."""
+    rng = np.random.default_rng(seed + 4)
+    return {
+        "v": rng.normal(size=(topo.nranks, L)).astype(np.float32),
+        "V": rng.normal(size=(topo.nranks, L, mm_cols)).astype(np.float32),
+        "b": rng.normal(size=(topo.nranks, L)).astype(np.float32),
+        "b2": rng.normal(size=(topo.nranks, L)).astype(np.float32),
+    }
+
+
+def systems(matrix: str, rows: int, seed: int):
+    """``(spd_system(M), shifted_system(M'))`` of the generator ``matrix``."""
+    gen = GENERATORS[matrix]
+    return (spd_system(gen(rows, np.random.default_rng(seed))),
+            shifted_system(gen(rows, np.random.default_rng(seed + 1))))
+
+
+def product64(A, v: np.ndarray, absolute: bool = False) -> np.ndarray:
+    """``A @ v`` (or ``|A| @ |v|``, the scale of its rounding) in float64 on
+    the host (``v: [n]``)."""
+    rows = np.repeat(np.arange(A.n), np.diff(A.indptr))
+    data, vals = A.data.astype(np.float64), v.astype(np.float64)[A.indices]
+    if absolute:
+        data, vals = np.abs(data), np.abs(vals)
+    return np.bincount(rows, weights=data * vals, minlength=A.n)
+
+
+def _same_bits(a, b) -> bool:
+    a, b = torch.as_tensor(a).contiguous(), torch.as_tensor(b).contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _gather0(t: torch.Tensor, group) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``t`` (same shape) on rank 0, through the host."""
+    t = t.detach().cpu().contiguous()
+    out = [torch.empty_like(t) for _ in range(group.topo.nranks)] if group.rank == 0 else None
+    dist.gather(t, out, dst=0)
+    return out
+
+
+def _gather_rows(t: torch.Tensor, group) -> Optional[List[torch.Tensor]]:
+    """Rank 0 gets every rank's ``t[0]``."""
+    got = _gather0(t, group)
+    return None if got is None else [x[0] for x in got]
+
+
+def _barrier() -> None:
+    dist.barrier()
+
+
+def _all_max(x: float, group) -> float:
+    got = [torch.zeros(1, dtype=torch.float64) for _ in range(group.topo.nranks)]
+    dist.all_gather(got, torch.tensor([float(x)], dtype=torch.float64))
+    return max(float(t) for t in got)
+
+
+def _all_same(value, group) -> bool:
+    """Whether every rank holds the same ``value`` (by the hash of its repr)."""
+    h = int.from_bytes(hashlib.sha1(repr(value).encode()).digest()[:8], "little", signed=True)
+    got = [torch.zeros(1, dtype=torch.int64) for _ in range(group.topo.nranks)]
+    dist.all_gather(got, torch.tensor([h], dtype=torch.int64))
+    return len(Counter(int(t) for t in got)) == 1
+
+
+class _Launches:
+    """B1/B2 launches of the grouped calls made inside :meth:`counted`
+    (rank 0's stacked comparisons run outside it)."""
+
+    def __init__(self):
+        self.n = {"spmv_ell": 0, "spmm_ell": 0}
+
+    @contextlib.contextmanager
+    def counted(self):
+        before = (spmv_ell.launches, spmm_ell.launches)
+        try:
+            yield
+        finally:
+            self.n["spmv_ell"] += spmv_ell.launches - before[0]
+            self.n["spmm_ell"] += spmm_ell.launches - before[1]
+
+
+def _exchanges(group, device, part, seed: int, keep: bool, gates: dict, out: dict) -> dict:
+    """Every strategy x codec x barrier/split, each rank's halo held to the
+    stacked exchange's row on rank 0; then ms per staged exchange."""
+    topo, r, L = group.topo, group.rank, part.rows_per_rank
+    for fi, feat in enumerate(FEATS):
+        full = payload(topo, L, feat, seed + 3 + fi)
+        mine = torch.as_tensor(full[r : r + 1], device=device)
+        for codec in CODECS:
+            for strat in STRATEGY_NAMES:
+                ex = IrregularExchange(part.pattern, strat, device=device, wire=codec, group=group)
+                stacked = None
+                if r == 0:
+                    stacked = IrregularExchange(part.pattern, strat, device=device, wire=codec)(
+                        torch.as_tensor(full, device=device)).cpu()
+                    if codec == "none":
+                        want = execute_numpy(ex.plan, full)
+                        gates[f"stacked {strat} {feat} == execute_numpy"] = _same_bits(stacked, torch.as_tensor(want))
+                for mode in MODES:
+                    halo = ex(mine) if mode == "barrier" else ex.start(mine).finish()
+                    key = f"{strat}|{mode}|{codec}|{feat}"
+                    if keep:  # as int32 bit patterns: JSON drops a nan's sign and payload
+                        out.setdefault("halos", {})[key] = halo.cpu().view(torch.int32).numpy().tolist()
+                    halos = _gather0(halo, group)
+                    if r == 0:
+                        gates[f"exchange {key} == stacked rows"] = all(
+                            _same_bits(h[0], stacked[q]) for q, h in enumerate(halos))
+    # ms per staged exchange: the slowest rank's host wall, [1, L] float32
+    ms = {}
+    v = torch.as_tensor(payload(topo, L, (), seed + 3)[r : r + 1], device=device)
+    for codec in ("none", "int8"):
+        for strat in STRATEGY_NAMES:
+            ex = IrregularExchange(part.pattern, strat, device=device, wire=codec, group=group)
+            for mode in MODES:
+                call = (lambda: ex(v)) if mode == "barrier" else (lambda: ex.start(v).finish())
+                call()
+                _sync(device)
+                _barrier()
+                t0 = time.perf_counter()
+                for _ in range(TIMED_REPS):
+                    call()
+                _sync(device)
+                ms[f"{strat}|{mode}|{codec}"] = _all_max((time.perf_counter() - t0) / TIMED_REPS * 1e3, group)
+    return ms
+
+
+def _spmv(group, device, A, part, data: dict, keep: bool, gates: dict, out: dict, launches: _Launches,
+          predicted: dict) -> None:
+    """``DistributedSpMV(group=)`` of every strategy, barrier and overlap,
+    vector and ``matmat``: bitwise among themselves and the stacked rows."""
+    r = group.rank
+    v = torch.as_tensor(data["v"][r : r + 1], device=device)
+    V = torch.as_tensor(data["V"][r : r + 1], device=device)
+    k = V.shape[2]
+    first = None
+    for strat in STRATEGY_NAMES:
+        op = DistributedSpMV(part, strategy=strat, device=device, group=group)
+        ov = DistributedSpMV(part, strategy=strat, device=device, overlap=True, group=group)
+        with launches.counted():
+            w, w_ov = op(v), ov(v)
+            W, W_looped, W_ov = op.matmat(V), op.matmat_looped(V), ov.matmat(V)
+        # barrier and overlap SpMV 2 B1 each, k columns looped 2 B1 each,
+        # barrier and overlap SpMM 2 B2 each
+        predicted["spmv_ell"] += 2 * (2 + k)
+        predicted["spmm_ell"] += 4
+        if first is None:
+            first = (w, W)
+        gates[f"spmv {strat}: overlap == barrier"] = _same_bits(w_ov, w)
+        gates[f"spmv {strat}: matmat == matmat_looped, overlap == barrier"] = (
+            _same_bits(W, W_looped) and _same_bits(W_ov, W))
+        gates[f"spmv {strat}: w, W == standard's"] = _same_bits(w, first[0]) and _same_bits(W, first[1])
+        if keep:
+            out.setdefault("w", {})[strat] = w.cpu().numpy().tolist()
+            out.setdefault("W", {})[strat] = W.cpu().numpy().tolist()
+        ws, Ws = _gather0(w, group), _gather0(W, group)
+        if r == 0:
+            st = DistributedSpMV(part, strategy=strat, device=device)
+            w_st = st(torch.as_tensor(data["v"], device=device)).cpu()
+            W_st = st.matmat(torch.as_tensor(data["V"], device=device)).cpu()
+            gates[f"spmv {strat}: w == stacked rows"] = all(_same_bits(x[0], w_st[q]) for q, x in enumerate(ws))
+            gates[f"spmv {strat}: W == stacked rows"] = all(_same_bits(x[0], W_st[q]) for q, x in enumerate(Ws))
+    rows = _gather_rows(first[0], group)
+    if r == 0:
+        v64 = data["v"].reshape(-1)
+        err = np.abs(torch.cat(rows).numpy().reshape(-1) - product64(A, v64))
+        out["spmv_rel_err"] = float((err / (product64(A, v64, absolute=True) + 1e-30)).max())
+        gates[f"spmv: max |w - w64| / (|A||v|) = {out['spmv_rel_err']:.3e} <= {TOL_SPMV}"] = (
+            out["spmv_rel_err"] <= TOL_SPMV)
+
+
+def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict, out: dict,
+            launches: _Launches, predicted: dict) -> dict:
+    """CG on ``spd_system`` and BiCGStab on ``shifted_system`` with every
+    strategy and ``auto``, barrier and overlap; rank 0 holds the result to
+    the stacked host loop.  Returns each run's summary."""
+    r = group.rank
+    summary = {}
+    for solver, fn, M, part, rhs in (("cg", cg, systems_[0], parts[0], "b"),
+                                     ("bicgstab", bicgstab, systems_[1], parts[1], "b2")):
+        b = torch.as_tensor(data[rhs][r : r + 1], device=device)
+        runs = {}
+        for strat in STRATEGY_NAMES + ("auto",):
+            for overlap in (False, True):
+                op = DistributedSpMV(part, strategy=strat, device=device, overlap=overlap, group=group)
+                _sync(device)
+                _barrier()
+                t0 = time.perf_counter()
+                with launches.counted():
+                    res = fn(op, b, tol=TOL_SOLVE, maxiter=MAXITER)
+                _sync(device)
+                wall = time.perf_counter() - t0
+                predicted["spmv_ell"] += 2 * res.matvecs  # diag + off per matvec
+                runs[(strat, overlap)] = res
+                summary[f"{solver}|{strat}|{'overlap' if overlap else 'barrier'}"] = {
+                    "strategy": op.strategy, "status": res.status, "iterations": res.iterations,
+                    "matvecs": res.matvecs, "final_residual": res.final_residual,
+                    "ms_per_iteration": _all_max(wall / max(res.iterations, 1) * 1e3, group),
+                }
+        ref = runs[("standard", False)]
+        gates[f"{solver}: every run converged"] = all(x.converged for x in runs.values())
+        gates[f"{solver}: histories, x, status, matvecs bitwise equal across strategies and overlap"] = all(
+            x.residuals == ref.residuals and _same_bits(x.x, ref.x)
+            and (x.status, x.matvecs) == (ref.status, ref.matvecs) for x in runs.values())
+        gates[f"{solver}: every rank holds the same history"] = _all_same(ref.residuals, group)
+        if keep:
+            out.setdefault("solves", {})[solver] = {
+                f"{s}|{o}": {"x": x.x.cpu().numpy().tolist(), "residuals": list(x.residuals),
+                             "status": x.status, "iterations": x.iterations}
+                for (s, o), x in runs.items()}
+        xs = _gather_rows(ref.x, group)
+        if r == 0:
+            x = torch.cat(xs).double().numpy().reshape(-1)
+            bf = data[rhs].astype(np.float64).reshape(-1)
+            true = float(np.linalg.norm(bf - product64(M, x)) / np.linalg.norm(bf))
+            st = fn(DistributedSpMV(part, strategy="auto", device=device),
+                    torch.as_tensor(data[rhs], device=device), tol=TOL_SOLVE, maxiter=MAXITER)
+            dx = float(np.abs(st.x.double().cpu().numpy().reshape(-1) - x).max())
+            summary[f"{solver}|stacked"] = {"status": st.status, "iterations": st.iterations,
+                                            "true_residual": true, "max_dx": dx}
+            gates[f"{solver}: true residual {true:.3e} <= {TOL_TRUE}"] = true <= TOL_TRUE
+            gates[f"{solver}: status {ref.status} == stacked {st.status}"] = ref.status == st.status
+            gates[f"{solver}: iterations {ref.iterations} within one of stacked {st.iterations}"] = (
+                abs(ref.iterations - st.iterations) <= 1)
+            gates[f"{solver}: max |x - x_stacked| {dx:.3e} <= {TOL_X}"] = dx <= TOL_X
+    return summary
+
+
+def _guards(group, device, part) -> dict:
+    """Each refusal under a group raises with its ROADMAP item or the ranks
+    at fault; returns ``{guard: message}``."""
+    cases = {
+        "nccl": lambda: make_exchange_group(group.topo, backend="nccl"),
+        "verify": lambda: IrregularExchange(part.pattern, "standard", device=device, verify=True, group=group),
+        "faults": lambda: IrregularExchange(part.pattern, "standard", device=device, group=group,
+                                            faults=FaultPlan(seed=0, specs=(FaultSpec(),))),
+        "fused": lambda: fused_cg(DistributedSpMV(part, strategy="standard", device=device, group=group),
+                                  torch.zeros((1, part.rows_per_rank), device=device)),
+        # rank 1 plans another strategy: every rank raises at construction
+        "mismatch": lambda: IrregularExchange(part.pattern, "two_step" if group.rank == 1 else "standard",
+                                              device=device, group=group),
+    }
+    got = {}
+    for name, make in cases.items():
+        try:
+            make()
+        except (NotImplementedError, RuntimeError) as e:
+            got[name] = f"{type(e).__name__}: {e}"
+        else:
+            got[name] = "did not raise"
+    return got
+
+
+def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix: str = "thermal_like",
+               mm_cols: int = 8, keep: bool = False) -> dict:
+    """The paper's case study on this rank (see the module docstring);
+    returns its gates, times, launch counts and memory."""
+    started = time.time()
+    topo, r = group.topo, group.rank
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    A, B = systems(matrix, rows, seed)
+    part, part_b = partition_csr(A, topo), partition_csr(B, topo)
+    data = inputs(topo, part.rows_per_rank, seed, mm_cols)
+    setup_s = time.perf_counter() - t0
+    gates, out = {}, {}
+    launches, predicted = _Launches(), {"spmv_ell": 0, "spmm_ell": 0}
+    t1 = time.perf_counter()
+    exchange_ms = _exchanges(group, device, part, seed, keep, gates, out)
+    t2 = time.perf_counter()
+    _spmv(group, device, A, part, data, keep, gates, out, launches, predicted)
+    t3 = time.perf_counter()
+    solves = _solves(group, device, (A, B), (part, part_b), data, keep, gates, out, launches, predicted)
+    t4 = time.perf_counter()
+    guards = _guards(group, device, part)
+    # on the host the wrappers run the plain versions and launch nothing
+    want = predicted if device.type == "cuda" else {"spmv_ell": 0, "spmm_ell": 0}
+    gates[f"launches {launches.n} == predicted {want}"] = launches.n == want
+    expect = {"nccl": "A.6.3b", "verify": "A.6.3b", "faults": "A.6.3b", "fused": "A.6.3b",
+              "mismatch": "ranks [1]"}
+    for name, text in expect.items():
+        gates[f"guard {name} raises naming {text!r}"] = text in guards[name]
+    memory = {"host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+              **_host_memory()}
+    if device.type == "cuda":
+        memory.update(device_peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
+                      device_reserved_bytes=torch.cuda.memory_reserved(device))
+    return {
+        "rank": r, "device": str(device), "started_at": started, "setup_s": setup_s,
+        "phase_s": {"exchange": t2 - t1, "spmv": t3 - t2, "solve": t4 - t3},
+        "n": A.n, "nnz": A.nnz, "rows_per_rank": part.rows_per_rank, "halo_width": part.halo_width,
+        "gates": gates, "exchange_ms": exchange_ms, "solves": solves, "launches": launches.n,
+        "predicted_launches": predicted, "guards": guards, "memory": memory, **out,
+    }
+
+
+def _host_memory() -> dict:
+    """This process's proportional and private resident bytes now (Linux's
+    ``smaps_rollup``; the max RSS above also counts the shared library
+    pages every rank maps)."""
+    try:
+        with open("/proc/self/smaps_rollup") as f:
+            fields = dict(line.split(":", 1) for line in f if ":" in line)
+    except OSError:
+        return {}
+    def nbytes(key: str) -> int:
+        return int(fields[key].split()[0]) * 1024 if key in fields else 0
+
+    return {"host_pss_bytes": nbytes("Pss"),
+            "host_private_bytes": nbytes("Private_Clean") + nbytes("Private_Dirty")}
+
+
+def parse_topo(text: str) -> PodTopology:
+    npods, ppn = (int(x) for x in text.lower().split("x"))
+    return PodTopology(npods=npods, ppn=ppn)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--topo", default="4x4", help="NPODSxPPN (default 4x4: 16 processes)")
+    ap.add_argument("--rows", type=int, default=1 << 20)
+    ap.add_argument("--matrix", default="thermal_like")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mm-cols", type=int, default=8)
+    ap.add_argument("--device", default=None, help="'cpu' runs on the host; left out, the CUDA device")
+    ap.add_argument("--timeout", type=float, default=540.0, help="seconds for the whole world")
+    ap.add_argument("--keep-arrays", action="store_true", help="write each rank's halos, w and x too")
+    ap.add_argument("--out", required=True, help="directory for world.json")
+    args = ap.parse_args(argv)
+    topo = parse_topo(args.topo)
+    if args.device != "cpu":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to run on the host")
+        kbuild.build(["spmv_ell"])  # once here, not in every rank
+    t0 = time.time()
+    ranks = run_world(case_study, topo, device=args.device, timeout_s=args.timeout, kwargs=dict(
+        rows=args.rows, seed=args.seed, matrix=args.matrix, mm_cols=args.mm_cols, keep=args.keep_arrays))
+    total = time.time() - t0
+    failed = [f"rank {x['rank']}: {k}" for x in ranks for k, ok in x["gates"].items() if not ok]
+    # the world's start, by step: the slowest rank's seconds since the spawn
+    start = {k: max(x["timeline"][k] for x in ranks) - t0 for k in ranks[0]["timeline"]}
+    record = {"topo": args.topo, "rows": args.rows, "matrix": args.matrix, "device": args.device or "cuda",
+              "start_s": max(x["started_at"] for x in ranks) - t0, "start_steps_s": start, "total_s": total,
+              "failed_gates": failed, "ranks": ranks}
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "world.json"), "w") as f:
+        json.dump(record, f)
+    r0 = ranks[0]
+    print(f"world {args.topo}: {len(ranks)} processes, n={r0['n']} L={r0['rows_per_rank']} "
+          f"H={r0['halo_width']}, start {record['start_s']:.2f} s "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in start.items())}), total {total:.2f} s; "
+          f"{sum(len(x['gates']) for x in ranks)} gates, {len(failed)} failed", flush=True)
+    for line in failed:
+        print("FAILED", line, flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,6 +25,7 @@ from repro_torch.solve.operator import (
 )
 from repro_torch.solve.problems import shifted_system, spd_system
 from repro_torch.solve.reductions import (
+    GroupReductions,
     NumpyReductions,
     TorchReductions,
     default_reductions,
@@ -47,6 +48,7 @@ __all__ = [
     "traceable_operator",
     "shifted_system",
     "spd_system",
+    "GroupReductions",
     "NumpyReductions",
     "TorchReductions",
     "default_reductions",

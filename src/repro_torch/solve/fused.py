@@ -72,7 +72,7 @@ from repro_torch.solve.krylov import (
     _finish_status,
     _recovery_baseline,
 )
-from repro_torch.solve.operator import traceable_operator
+from repro_torch.solve.operator import refuse_group, traceable_operator
 from repro_torch.solve.reductions import traceable_dot
 from repro_torch.sparse.spmv import DistributedSpMV
 
@@ -590,6 +590,7 @@ def _fused_solve(op, b, x0, tol: float, maxiter: int, reductions, solver: str,
                  checkpoint_every: Optional[int] = None, device: DeviceLike = None,
                  capture: bool = True) -> SolveResult:
     global host_reads
+    refuse_group(op)
     host_reads = 0
     own = getattr(op, "device", None)
     dev = own if isinstance(own, torch.device) else resolve_device(device)

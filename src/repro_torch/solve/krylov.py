@@ -108,7 +108,8 @@ def _prepare(op, b, x0, reductions):
     red = default_reductions(op) if reductions is None else reductions
     device = getattr(op, "device", torch.device("cpu"))
     b = torch.as_tensor(b, device=device).contiguous()
-    g, L = op.topo.nranks, op.rows_per_rank
+    # the ranks this process holds: every one, or one under a process group
+    g, L = getattr(op, "ranks_held", op.topo.nranks), op.rows_per_rank
     if tuple(b.shape) != (g, L):
         raise ValueError(f"b must be [{g}, {L}], got {tuple(b.shape)}")
     if x0 is None:

@@ -348,6 +348,16 @@ class TraceableOperator:
         )
 
 
+def refuse_group(op) -> None:
+    """Raise for an operator over a process group: its captured solve is
+    ROADMAP A.6.3b, and nothing falls back to another path."""
+    if getattr(op, "group", None) is not None:
+        raise NotImplementedError(
+            "the fused solve over a process group is ROADMAP A.6.3b; solve a grouped operator "
+            "with repro_torch.solve.cg / bicgstab"
+        )
+
+
 def traceable_operator(op, device: DeviceLike = None) -> TraceableOperator:
     """Lower either SpMV operator flavor to a :class:`TraceableOperator`.
 
@@ -355,8 +365,10 @@ def traceable_operator(op, device: DeviceLike = None) -> TraceableOperator:
     blocks and plans (``device`` must be left out or name the same device).
     A :class:`NumpySpMV` is lowered onto ``device``: left out, the CUDA
     device, and a machine without one raises.  Plans come from the module
-    caches, so lowering an operator that already ran re-plans nothing.
+    caches, so lowering an operator that already ran re-plans nothing.  An
+    operator over a process group raises (:func:`refuse_group`).
     """
+    refuse_group(op)
     part = op.partition
     topo, L = part.topo, part.rows_per_rank
     g = topo.nranks

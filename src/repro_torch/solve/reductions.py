@@ -13,6 +13,10 @@ inter-pod hop once per pod.
   dot.  :func:`traceable_dot` is the same tree with no host read, for
   solvers that keep their scalars on the device.
 * :class:`NumpyReductions` -- the same tree in numpy on the host.
+* :class:`GroupReductions` -- one rank per process: each rank's float64
+  partial (taken on the host) is all-gathered over the world and every
+  rank sums the partials in :class:`NumpyReductions`' order, so every rank
+  holds the same bits and takes the same branch in the solver.
 
 Both are deterministic, so residual histories are bitwise reproducible
 across strategies and barrier-vs-overlap execution.
@@ -31,6 +35,11 @@ from repro_torch.comm.hierarchical import dot_hierarchical
 from repro_torch.comm.topology import PodTopology
 
 
+def _tree_sum(part: np.ndarray, topo: PodTopology) -> float:
+    """Per-rank float64 partials summed per pod, then over the pods."""
+    return float(part.reshape(topo.npods, topo.ppn).sum(axis=1).sum())
+
+
 @dataclasses.dataclass(frozen=True)
 class NumpyReductions:
     """Hierarchical dot products in numpy (rank -> pod -> world order).
@@ -45,8 +54,7 @@ class NumpyReductions:
         x = np.asarray(x, dtype=np.float64)
         y = np.asarray(y, dtype=np.float64)
         part = (x * y).reshape(self.topo.nranks, -1).sum(axis=1)  # per rank
-        pods = part.reshape(self.topo.npods, self.topo.ppn).sum(axis=1)
-        return float(pods.sum())
+        return _tree_sum(part, self.topo)
 
     def norm(self, x: np.ndarray) -> float:
         return float(np.sqrt(max(self.dot(x, x), 0.0)))
@@ -92,10 +100,43 @@ class TorchReductions:
         return float(np.sqrt(max(self.dot(x, x), 0.0)))
 
 
-def default_reductions(op) -> "TorchReductions | NumpyReductions":
-    """The reduction backend matching an operator's executor: the torch
-    tree for an operator with a ``device`` (the port's
+@dataclasses.dataclass(frozen=True)
+class GroupReductions:
+    """The hierarchical tree over a process group of one rank per process.
+
+    Each :meth:`dot` copies this rank's ``[1, L]`` operands to the host
+    (gloo's all-gather takes host tensors, so the partial goes there
+    anyway; one copy is one operation on the card, where the float64 casts,
+    product and sum were four, and a card shared by every rank's process
+    pays per operation), takes its float64 partial in numpy, all-gathers
+    the ``nranks`` partials over the world, and sums them rank -> pod ->
+    world as :class:`NumpyReductions` does.  Every rank gets the same bits.
+    """
+
+    topo: PodTopology
+    group: object  # repro_torch.comm.topology.ExchangeGroup
+
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> float:
+        import torch.distributed as dist
+
+        xs = x.detach().cpu().numpy().astype(np.float64)
+        ys = xs if y is x else y.detach().cpu().numpy().astype(np.float64)
+        mine = torch.tensor([float((xs * ys).sum())], dtype=torch.float64)
+        parts = [torch.empty(1, dtype=torch.float64) for _ in range(self.topo.nranks)]
+        dist.all_gather(parts, mine)
+        return _tree_sum(torch.cat(parts).numpy(), self.topo)
+
+    def norm(self, x: torch.Tensor) -> float:
+        return float(np.sqrt(max(self.dot(x, x), 0.0)))
+
+
+def default_reductions(op) -> "TorchReductions | NumpyReductions | GroupReductions":
+    """The reduction backend matching an operator's executor: the group's
+    for an operator over a process group, the torch tree for an operator
+    with a ``device`` (the port's
     :class:`repro_torch.sparse.spmv.DistributedSpMV`), numpy otherwise."""
+    if getattr(op, "group", None) is not None:
+        return GroupReductions(op.topo, op.group)
     if isinstance(getattr(op, "device", None), torch.device):
         return TorchReductions(op.topo)
     return NumpyReductions(op.topo)

@@ -10,9 +10,11 @@ from repro_torch.sparse.matrices import (
 )
 from repro_torch.sparse.partition import (
     EllBlock,
+    RankSlice,
     SpmvPartition,
     partition_csr,
     partition_from_arrays,
+    rank_slice,
 )
 from repro_torch.sparse.spmv import DistributedSpMV, build, reference, reference_mm
 
@@ -24,9 +26,11 @@ __all__ = [
     "random_block",
     "thermal_like",
     "EllBlock",
+    "RankSlice",
     "SpmvPartition",
     "partition_csr",
     "partition_from_arrays",
+    "rank_slice",
     "DistributedSpMV",
     "build",
     "reference",

@@ -58,6 +58,33 @@ class SpmvPartition:
         return self.topo.nranks * self.rows_per_rank
 
 
+@dataclasses.dataclass(frozen=True)
+class RankSlice:
+    """One rank's share of an :class:`SpmvPartition`, for a process that
+    holds that rank alone: its ELL blocks as ``[1, L, K]`` and its rows'
+    structural off-rank counts ``[1, L]``.  The pattern stays the whole
+    partition's, since every rank plans the whole exchange."""
+
+    rank: int
+    diag: EllBlock
+    off: EllBlock
+    off_row_nnz: np.ndarray
+
+
+def rank_slice(part: SpmvPartition, rank: int) -> RankSlice:
+    """World rank ``rank``'s rows of ``part`` (see :class:`RankSlice`)."""
+    if not 0 <= rank < part.topo.nranks:
+        raise ValueError(f"rank {rank} is not in {part.topo}")
+    L = part.rows_per_rank
+    rows = slice(rank * L, (rank + 1) * L)
+
+    def block(b: EllBlock) -> EllBlock:
+        return EllBlock(data=b.data[rows][None], cols=b.cols[rows][None])
+
+    return RankSlice(rank=rank, diag=block(part.diag), off=block(part.off),
+                     off_row_nnz=part.off_row_nnz[rows][None])
+
+
 def _slot_in_row(sel: np.ndarray, rows: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
     """For the entries picked by ``sel`` (in CSR order): their slot within
     their row's picked entries, and the picked count per row."""

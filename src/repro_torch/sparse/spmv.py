@@ -13,6 +13,13 @@ local compute is the hand-written blocked-ELL kernels of
 :mod:`repro_torch.kernels.spmv_ell` on CUDA, and their plain versions on the
 CPU.  Each block is one launch over all ranks.
 
+``group=`` (an :class:`~repro_torch.comm.topology.ExchangeGroup`) holds one
+rank per process instead: this rank's ``[1, L, K]`` blocks on its device
+(:func:`repro_torch.sparse.partition.rank_slice`), ``v [1, L] -> w [1, L]``,
+the exchange's hops gloo collectives, B1/B2 launched at ``g = 1``.  Every
+row is computed by the same code as in the stacked operator, so ``w`` is
+bitwise its row of the stacked product.
+
 Multi-vector products (``V: [nranks, L, k]``) move all ``k`` columns in one
 exchange under the single cached plan and run one SpMM per block
 (:meth:`DistributedSpMV.matmat`).
@@ -48,11 +55,11 @@ from repro_torch.comm import strategies as comm_strategies
 from repro_torch.comm.strategies import IrregularExchange
 from repro_torch.comm.topology import PodTopology
 from repro_torch.core.advisor import EXECUTABLE_STRATEGY, advise
-from repro_torch.core.device import DeviceLike, as_device_tensor, resolve_device
+from repro_torch.core.device import DeviceLike, as_device_tensor, device_for_rank, resolve_device
 from repro_torch.core.split_plan import RowPhaseSplit, split_rows
 from repro_torch.kernels.spmv_ell import TILE_R, TILE_R_MM, spmm_ell, spmv_ell
 from repro_torch.sparse.matrices import CSRMatrix
-from repro_torch.sparse.partition import SpmvPartition, partition_csr
+from repro_torch.sparse.partition import SpmvPartition, partition_csr, rank_slice
 
 #: the machine the advisor ranks strategies on: the paper's GPU machine,
 #: until H100 link and copy parameters are measured
@@ -121,6 +128,14 @@ class DistributedSpMV:
     tracker, which the operator shares as ``self.health`` (the solvers read
     its recoveries into their status).
 
+    ``group`` (an :class:`~repro_torch.comm.topology.ExchangeGroup`) makes
+    the operator one rank of a process group: ``[1, L(, k)]`` operands on
+    ``device`` (left out, ``cuda:(rank % device_count)``), the solvers'
+    reductions all-gathered over the world
+    (:class:`~repro_torch.solve.reductions.GroupReductions`).  ``auto``
+    picks the same strategy on every rank, and the exchange checks that
+    the ranks' plans agree.
+
     Example::
 
         import numpy as np
@@ -145,8 +160,11 @@ class DistributedSpMV:
     verify: bool = False
     faults: Optional[object] = None
     health: Optional[object] = None
+    group: Optional[object] = None
 
     def __post_init__(self) -> None:
+        if self.group is not None and self.device is None:
+            self.device = device_for_rank(self.group.rank)
         self.device = resolve_device(self.device)
         if self.strategy == "auto" or self.wire == "auto":
             self.advice = advise(
@@ -188,19 +206,21 @@ class DistributedSpMV:
             verify=self.verify,
             faults=self.faults,
             health=self.health,
+            group=self.group,
         )
         # the exchange owns (and may have created) the shared tracker
         self.health = self.exchange.health
-        g, L = self.topo.nranks, self.rows_per_rank
+        g, L = self.ranks_held, self.rows_per_rank
 
         def dev(a: np.ndarray) -> torch.Tensor:
             return as_device_tensor(a.reshape(g, L, -1), self.device)
 
-        part = self.partition
+        part = self.partition if self.group is None else rank_slice(self.partition, self.group.rank)
+        self._off_row_nnz = part.off_row_nnz
         self._blocks = (
             dev(part.diag.data), dev(part.diag.cols), dev(part.off.data), dev(part.off.cols)
         )
-        self._fingerprint = part.pattern.fingerprint()
+        self._fingerprint = self.partition.pattern.fingerprint()
         self._compute = _compute_program(self._fingerprint, self.device, None, False)
         #: per-instance memo over the module LRU, keyed by (k, phase)
         self._mm_programs: dict = {}
@@ -218,8 +238,7 @@ class DistributedSpMV:
         """
         split = self._row_splits.get(tile_rows)
         if split is None:
-            g, L = self.topo.nranks, self.rows_per_rank
-            halo_dep = self.partition.off_row_nnz.reshape(g, L) > 0
+            halo_dep = self._off_row_nnz.reshape(self.ranks_held, self.rows_per_rank) > 0
             split = self._row_splits[tile_rows] = split_rows(halo_dep, tile_rows)
         return split
 
@@ -239,8 +258,9 @@ class DistributedSpMV:
 
     # ------------------------------------------------------------------
     def __call__(self, v) -> torch.Tensor:
-        """``v [nranks, L] -> w [nranks, L]``; a trailing feature dim
-        (``[nranks, L, k]``) dispatches to :meth:`matmat`."""
+        """``v [nranks, L] -> w [nranks, L]`` (``[1, L]`` under a group); a
+        trailing feature dim (``[nranks, L, k]``) dispatches to
+        :meth:`matmat`."""
         v = as_device_tensor(v, self.device)
         if v.ndim == 3:
             return self.matmat(v)
@@ -298,6 +318,12 @@ class DistributedSpMV:
     @property
     def rows_per_rank(self) -> int:
         return self.partition.rows_per_rank
+
+    @property
+    def ranks_held(self) -> int:
+        """The leading dim of this operator's operands: every rank, or 1
+        under a process group."""
+        return self.topo.nranks if self.group is None else 1
 
     @property
     def wire_bytes(self) -> Tuple[int, int]:

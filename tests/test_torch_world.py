@@ -1,0 +1,233 @@
+"""The case study on a real process group, one process per rank.
+
+One gloo world per topology and module (``python -m repro_torch.launch.world
+--device cpu --keep-arrays``: ``PodTopology(2, 2)`` on the case study's
+``thermal_like`` grid, ``PodTopology(2, 4)`` on ``random_block``, whose
+all-to-all pattern gives every strategy permute rounds).  Each rank holds its
+own ``[1, L]`` block, and the test holds what every rank delivered to:
+
+* the exchange, for every strategy x {barrier, split-phase} x {none, bf16,
+  int8} (halos carried as int32 bit patterns, since JSON keeps no nan's
+  sign): bitwise the port's stacked ``IrregularExchange`` row; with
+  ``none`` also bitwise the reference's ``execute_numpy`` of its own plan;
+* ``DistributedSpMV(group=)`` and ``matmat`` (k = 3): bitwise the stacked
+  ``device="cpu"`` rows, and within 1e-5 of ``repro.sparse.spmv.reference``;
+* ``cg`` / ``bicgstab``: the reference solvers' status on
+  ``repro.solve.NumpySpMV``, iterations within one, ``x`` within 1e-4
+  (``tests/test_torch_solver.py``'s rule); histories bitwise identical
+  across strategies and barrier/overlap;
+* the world's own gates (rank 0's stacked checks, launch counts) and its
+  guards: NCCL, ``verify``, ``faults`` and the fused solve raise naming
+  ROADMAP A.6.3b, and a rank planning another strategy makes every rank
+  raise naming it.
+
+A world whose rank 1 raises before a collective ends with rank 1's
+traceback within its timeout.
+"""
+
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import exchange as ref_exchange
+from repro.comm.fusion import fuse as ref_fuse
+from repro.comm.topology import PodTopology as RefTopology
+from repro.solve import NumpySpMV
+from repro.solve import bicgstab as ref_bicgstab
+from repro.solve import cg as ref_cg
+from repro.solve import shifted_system as ref_shifted_system
+from repro.solve import spd_system as ref_spd_system
+from repro.sparse import partition_csr as ref_partition_csr
+from repro.sparse.matrices import GENERATORS as REF_GENERATORS
+from repro.sparse.spmv import reference as ref_spmv
+from repro.sparse.spmv import reference_mm as ref_spmm
+from repro_torch.comm import STRATEGY_NAMES, IrregularExchange, PodTopology, make_exchange_group
+from repro_torch.core.device import device_for_rank
+from repro_torch.launch import world
+from repro_torch.sparse import DistributedSpMV, partition_csr, rank_slice
+
+REPO = Path(__file__).resolve().parents[1]
+#: topology -> (matrix, rows)
+WORLDS = {"2x2": ("thermal_like", 1024), "2x4": ("random_block", 512)}
+MM_COLS = 3
+SEED = 0
+SPMV_TOL = 1e-5
+X_TOL = 1e-4
+SOLVERS = {"cg": (ref_cg, ref_spd_system, "b"), "bicgstab": (ref_bicgstab, ref_shifted_system, "b2")}
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Both worlds at once, each a ``python -m repro_torch.launch.world``."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    runs = {}
+    for topo, (matrix, rows) in WORLDS.items():
+        out = tmp_path_factory.mktemp(f"world_{topo}")
+        runs[topo] = out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.world", "--device", "cpu", "--topo", topo,
+             "--matrix", matrix, "--rows", str(rows), "--mm-cols", str(MM_COLS), "--seed", str(SEED),
+             "--timeout", "240", "--keep-arrays", "--out", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
+    got = {}
+    for topo, (out, proc) in runs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stdout[-3000:] + stderr[-4000:]
+        ranks = json.loads((out / "world.json").read_text())["ranks"]
+        assert [r["rank"] for r in ranks] == list(range(_topo(topo).nranks))
+        got[topo] = ranks
+    return got
+
+
+def _topo(topo: str) -> PodTopology:
+    return world.parse_topo(topo)
+
+
+@functools.lru_cache(maxsize=None)
+def _port(topo: str):
+    matrix, rows = WORLDS[topo]
+    A, B = world.systems(matrix, rows, SEED)
+    return A, B, partition_csr(A, _topo(topo)), partition_csr(B, _topo(topo))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref(topo: str):
+    matrix, rows = WORLDS[topo]
+    npods, ppn = (int(x) for x in topo.split("x"))
+    gen = REF_GENERATORS[matrix]
+    A = ref_spd_system(gen(rows, np.random.default_rng(SEED)))
+    B = ref_shifted_system(gen(rows, np.random.default_rng(SEED + 1)))
+    t = RefTopology(npods=npods, ppn=ppn)
+    return A, B, ref_partition_csr(A, t), ref_partition_csr(B, t)
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float32)).view(np.int32)
+
+
+@pytest.mark.parametrize("codec", world.CODECS)
+@pytest.mark.parametrize("mode", world.MODES)
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES)
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_exchange_equals_stacked_rows_and_reference(worlds, topo, strategy, mode, codec):
+    ranks = worlds[topo]
+    t = _topo(topo)
+    _, _, part, _ = _port(topo)
+    _, _, ref_part, _ = _ref(topo)
+    ex = IrregularExchange(part.pattern, strategy, device="cpu", wire=codec)
+    for fi, feat in enumerate(world.FEATS):
+        local = world.payload(t, part.rows_per_rank, feat, SEED + 3 + fi)
+        stacked = ex(local).numpy()
+        want = None
+        if codec == "none":
+            want = ref_exchange.execute_numpy(ref_fuse(ref_exchange.plan(strategy, ref_part.pattern)), local)
+            np.testing.assert_array_equal(_bits(stacked), _bits(want))
+        for r, rank in enumerate(ranks):
+            got = np.asarray(rank["halos"][f"{strategy}|{mode}|{codec}|{feat}"], dtype=np.int32)
+            assert got.shape == (1,) + stacked.shape[1:]
+            np.testing.assert_array_equal(got[0], _bits(stacked[r]), err_msg=f"rank {r} {feat}")
+
+
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES)
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_spmv_equals_stacked_rows_and_reference(worlds, topo, strategy):
+    ranks = worlds[topo]
+    t = _topo(topo)
+    _, _, part, _ = _port(topo)
+    ref_A = _ref(topo)[0]
+    data = world.inputs(t, part.rows_per_rank, SEED, MM_COLS)
+    op = DistributedSpMV(part, strategy=strategy, device="cpu")
+    w_st, W_st = op(data["v"]).numpy(), op.matmat(data["V"]).numpy()
+    w = np.concatenate([np.asarray(r["w"][strategy], np.float32) for r in ranks])
+    W = np.concatenate([np.asarray(r["W"][strategy], np.float32) for r in ranks])
+    np.testing.assert_array_equal(_bits(w), _bits(w_st))
+    np.testing.assert_array_equal(_bits(W), _bits(W_st))
+    np.testing.assert_allclose(w.reshape(-1), ref_spmv(ref_A, data["v"].reshape(-1)), rtol=SPMV_TOL, atol=SPMV_TOL)
+    np.testing.assert_allclose(W.reshape(-1, MM_COLS), ref_spmm(ref_A, data["V"].reshape(-1, MM_COLS)),
+                               rtol=SPMV_TOL, atol=SPMV_TOL)
+
+
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES + ("auto",))
+@pytest.mark.parametrize("solver", sorted(SOLVERS))
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_solve_matches_reference(worlds, topo, solver, strategy):
+    ranks = worlds[topo]
+    ref_solve, _, rhs = SOLVERS[solver]
+    ref_A, ref_B, ref_part, ref_part_b = _ref(topo)
+    t = _topo(topo)
+    b = world.inputs(t, ref_part.rows_per_rank, SEED, MM_COLS)[rhs]
+    ref_op = NumpySpMV(ref_part if solver == "cg" else ref_part_b, strategy="two_step")
+    want = ref_solve(ref_op, b, tol=world.TOL_SOLVE, maxiter=world.MAXITER)
+    first = ranks[0]["solves"][solver]["standard|False"]
+    for overlap in (False, True):
+        runs = [r["solves"][solver][f"{strategy}|{overlap}"] for r in ranks]
+        assert {r["status"] for r in runs} == {want.status}, (runs[0]["status"], want.status)
+        assert abs(runs[0]["iterations"] - want.iterations) <= 1, (runs[0]["iterations"], want.iterations)
+        x = np.concatenate([np.asarray(r["x"], np.float32) for r in runs])
+        np.testing.assert_allclose(x, want.x, rtol=X_TOL, atol=X_TOL)
+        # every rank holds the history of every other run, bitwise
+        for r in runs:
+            assert r["residuals"] == first["residuals"], (strategy, overlap)
+
+
+@pytest.mark.parametrize("part", ["exchange", "stacked", "spmv", "cg", "bicgstab", "launches"])
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_world_gates(worlds, topo, part):
+    gates = {f"rank {r['rank']}: {k}": ok for r in worlds[topo] for k, ok in r["gates"].items()
+             if k.split(" ")[0].rstrip(":") == part}
+    assert gates and all(gates.values()), [k for k, ok in gates.items() if not ok]
+
+
+@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b"), ("verify", "A.6.3b"), ("faults", "A.6.3b"),
+                                          ("fused", "A.6.3b"), ("mismatch", "ranks [1]")])
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_guards_raise_under_a_group(worlds, topo, guard, names):
+    for r in worlds[topo]:
+        msg = r["guards"][guard]
+        assert msg != "did not raise" and names in msg, (r["rank"], msg)
+
+
+def test_failing_rank_ends_the_world_with_its_traceback():
+    t0 = time.monotonic()
+    with pytest.raises(world.WorldError) as info:
+        world.run_world(world.probe, PodTopology(2, 2), device="cpu", timeout_s=60.0, args=(1,))
+    assert time.monotonic() - t0 < 60.0
+    assert info.value.rank == 1
+    assert "rank 1 fails on purpose" in info.value.traceback and "ValueError" in info.value.traceback
+
+
+def test_probe_world_gathers_every_rank():
+    got = world.run_world(world.probe, PodTopology(1, 2), device="cpu", timeout_s=60.0)
+    assert [g["ranks"] for g in got] == [[0, 1], [0, 1]]
+    assert [g["device"] for g in got] == ["cpu", "cpu"]
+
+
+def test_no_fallback_without_a_world_or_a_card():
+    with pytest.raises(NotImplementedError, match="A.6.3b"):
+        world.run_world(world.probe, PodTopology(1, 2), device="cpu", backend="nccl")
+    with pytest.raises(NotImplementedError, match="A.6.3b"):
+        make_exchange_group(PodTopology(1, 2), backend="nccl")
+    with pytest.raises(RuntimeError, match="initialised"):
+        make_exchange_group(PodTopology(1, 2))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            device_for_rank(0)
+
+
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_rank_slice_is_the_stacked_rows(topo):
+    _, _, part, _ = _port(topo)
+    t, L = _topo(topo), part.rows_per_rank
+    for r in range(t.nranks):
+        s = rank_slice(part, r)
+        for got, full in ((s.diag.data, part.diag.data), (s.diag.cols, part.diag.cols),
+                          (s.off.data, part.off.data), (s.off.cols, part.off.cols)):
+            np.testing.assert_array_equal(got, full.reshape(t.nranks, L, -1)[r : r + 1])
+        np.testing.assert_array_equal(s.off_row_nnz, part.off_row_nnz.reshape(t.nranks, L)[r : r + 1])
