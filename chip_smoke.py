@@ -168,8 +168,11 @@ Phases, each of which fails the run on any error:
    ``torch.profiler`` records no device activity here;
 21. the world (``world``): the case study on 16 processes over gloo in one
     child process (see ``phase_world``): every rank's halos, SpMV and solves
-    bitwise the stacked run's rows, its launches as predicted, the guards;
-    after ``fused``, which it would otherwise cost two profiler records;
+    bitwise the stacked run's rows; checks, faults and the recovery ladder
+    agreed by every rank and bitwise the stacked guarded exchange; the
+    on-pod-then-inter-pod reduction tree, plain and int8-compressed; its
+    launches as predicted, the guards; after ``fused``, which it would
+    otherwise cost two profiler records;
 22. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
@@ -3231,19 +3234,38 @@ def phase_world(ctx) -> None:
       barrier and overlap: converged to 1e-6, histories bitwise across them
       and across ranks, true residual under 1e-5, and the stacked host loop's
       status, iterations within one and ``x`` within 1e-4;
+    * checks, faults and the recovery ladder (every strategy x barrier/split
+      x codecs none/int8 on a ``[1, L]`` payload): checked clean calls raise
+      nothing and equal the unchecked halo; a transient corruption (retry),
+      an int8-only corruption (demote) and a persistent perturbation of the
+      strategy (re-advise) give each rank's halo bitwise row ``r`` of the
+      stacked guarded exchange, that one bitwise ``execute_numpy`` of the
+      attempt that succeeded, and the stacked run's recovery key and health
+      events on every rank; with ``fallback=False`` every rank raises the
+      stacked raise's hop with one violation; CG checked and CG through a
+      retried fault converge with the clean history bitwise and one status
+      (``+exchange:retry:...``) on every rank;
+    * the reductions: the tree bitwise ``_tree_sum`` of the gathered
+      partials, ``Compressor()``'s dot one value on every rank within one
+      quantum of the stacked ``TorchReductions``, a CG on the compressed
+      tree with one history on every rank and the stacked loop's status;
     * each rank's B1/B2 launches equal to the count predicted from its calls
       (2 B1 per matvec, 2 B2 per ``matmat``);
-    * the guards (NCCL, ``verify``, ``faults``, the fused solve, a rank with
-      another strategy) raise.
+    * the guards (NCCL, the fused solve, a rank with another strategy, a
+      rank with another fault plan) raise.
 
     Logged beside the card's name and power limit: ms per staged exchange
-    per strategy, ms per CG iteration (the slowest rank's host wall), the
-    world's start and total seconds, memory per rank.  It runs last, after
+    per strategy, ms per checked vs unchecked exchange, ms per dot (the
+    tree, compressed, and one all-gather over the world), ms per CG
+    iteration (plain, checked, retried, compressed reductions; the slowest
+    rank's host wall), the world's start and total seconds, memory per
+    rank.  It runs last, after
     ``fused``: placed right after ``mesh`` it cost ``fused``'s profiler two
     B1 records (ROADMAP §C).  The child runs in a session of its own, so a
     timeout kills every rank with it.
     """
     import signal
+    from collections import Counter
 
     card = ctx["details"]["card"]
     out_dir = os.path.join(HERE, "chiprun_out", "world")
@@ -3272,12 +3294,21 @@ def phase_world(ctx) -> None:
         f"({card})")
     for key, ms in r0["exchange_ms"].items():
         log(f"[world] staged exchange {key}: {ms:.4f} ms (slowest rank, host wall, mean of 10) ({card})")
-    for key, res in r0["solves"].items():
+    for key, ms in r0["fault_ms"].items():
+        log(f"[world] barrier exchange {key}: {ms:.4f} ms (slowest rank, host wall, mean of 10) ({card})")
+    for key, ms in r0["reductions"]["dot_ms"].items():
+        log(f"[world] dot {key}: {ms:.4f} ms (slowest rank, host wall, mean of 50) ({card})")
+    solves = {**r0["solves"], **r0["fault_solves"], **{k: v for k, v in r0["reductions"].items()
+                                                       if k.startswith("cg|")}}
+    for key, res in solves.items():
         if "ms_per_iteration" in res:
             log(f"[world] {key} ({res['strategy']}): {res['status']} in {res['iterations']} iterations, "
                 f"{res['ms_per_iteration']:.4f} ms/iteration (slowest rank) ({card})")
         else:
             log(f"[world] {key}: {json.dumps(res)}")
+    log(f"[world] reductions: {json.dumps(r0['reductions']['values'])}")
+    recoveries = Counter(v["recovery"] for x in ranks for v in x["fault_records"].values())
+    log(f"[world] recoveries over every rank and case: {dict(recoveries)}")
     mem = [x["memory"] for x in ranks]
     log(f"[world] memory per rank: device peak allocated {[m['device_peak_allocated_bytes'] for m in mem]} B, "
         f"reserved {[m['device_reserved_bytes'] for m in mem]} B, host max RSS "
@@ -3285,16 +3316,25 @@ def phase_world(ctx) -> None:
         f"{[m.get('host_private_bytes') for m in mem]} B ({card})")
     log(f"[world] launches per rank {[x['launches'] for x in ranks]}, predicted "
         f"{[x['predicted_launches'] for x in ranks]}")
+    def gates_of(part: str) -> int:
+        return sum(k.startswith(part + " ") for x in ranks for k in x["gates"])
+
     checks = {
         f"{sum(len(x['gates']) for x in ranks)} gates on {len(ranks)} ranks, none failed": not rec["failed_gates"],
         "16 ranks": len(ranks) == 16,
+        f"{gates_of('faults')} faults gates and {gates_of('reductions')} reductions gates ran": (
+            gates_of("faults") > 0 and gates_of("reductions") > 0),
+        "every retry, demote and re-advise case recovered on every rank": all(
+            (v["recovery"] or "").startswith(k.split("|")[0]) for x in ranks for k, v in x["fault_records"].items()
+            if k.split("|")[0] in ("retry", "demote", "readvise")),
         "every rank launched B1 and B2 as predicted": all(
             x["launches"] == x["predicted_launches"] and x["launches"]["spmv_ell"] > 0 and x["launches"]["spmm_ell"] > 0
             for x in ranks),
     }
     ctx["details"]["world"] = {
         "seconds": seconds, "start_s": rec["start_s"], "total_s": rec["total_s"],
-        "exchange_ms": r0["exchange_ms"], "solves": r0["solves"], "memory": mem,
+        "exchange_ms": r0["exchange_ms"], "solves": r0["solves"], "fault_ms": r0["fault_ms"],
+        "fault_solves": r0["fault_solves"], "reductions": r0["reductions"], "memory": mem,
         "launches": [x["launches"] for x in ranks], "setup_s": [x["setup_s"] for x in ranks],
         "phase_s": [x["phase_s"] for x in ranks], "spmv_rel_err": r0["spmv_rel_err"],
     }

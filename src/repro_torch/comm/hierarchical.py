@@ -16,15 +16,19 @@ Here every rank lives in one stacked tensor whose leading axes are
 ``[npods, ppn]`` (rank ``p * ppn + l``), so each collective is a reduction or
 an index move over those axes, and every function returns the stacked
 per-rank result (replicated results as a broadcast view).
+:func:`dot_hierarchical_group` is the same reduction tree over a process
+group of one rank per process
+(:class:`~repro_torch.comm.topology.ExchangeGroup`).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.comm.compression import Compressor
+from repro_torch.comm.compression import Compressor, int8_dequantize, int8_quantize, int8_scale
 from repro_torch.comm.topology import PodTopology
 
 
@@ -112,6 +116,48 @@ def dot_hierarchical(
         return pods.sum()
     q, scale = compressor.compress(pods)
     return compressor.decompress(q.to(torch.int32).sum(), scale)
+
+
+def _row_sum(values: np.ndarray) -> float:
+    """One level of the tree: float64 values summed as numpy sums a row of a
+    ``[rows, n]`` array along its last axis (its pairwise order), which is
+    the order ``NumpyReductions``' ``reshape(npods, ppn).sum(axis=1)`` and
+    its final ``.sum()`` take."""
+    return float(np.asarray(values, dtype=np.float64).reshape(1, -1).sum(axis=1)[0])
+
+
+def dot_hierarchical_group(partial: float, group, compressor: Optional[Compressor] = None) -> float:
+    """:func:`dot_hierarchical` over a process group: ``partial`` is this
+    rank's float64 share of ``<x, y>``, and every rank returns the world sum.
+
+    The ``ppn`` partials of this rank's pod are all-gathered over
+    ``group.local`` and summed in index order (the pod sum), then the
+    ``npods`` pod sums over ``group.pod`` in index order: one scalar per pod
+    crosses the inter-pod groups, and the result is bitwise the stacked
+    partials' rank -> pod -> world tree (``NumpyReductions``).  With a
+    ``compressor`` the pod sum is int8-quantized on the inter-pod hop under
+    one scale agreed over the pods (an all-reduce MAX of the finite
+    magnitudes, :func:`~repro_torch.comm.compression.int8_scale`'s
+    formula), and the ``int32`` codes are summed over ``group.pod`` and
+    dequantized; every rank holds the same bits either way.
+    """
+    import torch.distributed as dist
+
+    topo = group.topo
+    mine = torch.tensor([float(partial)], dtype=torch.float64)
+    local = [torch.empty(1, dtype=torch.float64) for _ in range(topo.ppn)]
+    dist.all_gather(local, mine, group=group.local)
+    pod = torch.tensor([_row_sum(torch.cat(local).numpy())], dtype=torch.float64)
+    if compressor is None:
+        pods = [torch.empty(1, dtype=torch.float64) for _ in range(topo.npods)]
+        dist.all_gather(pods, pod, group=group.pod)
+        return _row_sum(torch.cat(pods).numpy())
+    amax = torch.where(torch.isfinite(pod), pod.abs(), torch.zeros_like(pod))
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group.pod)
+    scale = int8_scale(amax[0], compressor.qmax)
+    q = int8_quantize(pod, scale, compressor.qmax).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group.pod)
+    return float(int8_dequantize(q[0], scale))
 
 
 def all_gather_hierarchical(x: torch.Tensor, topo: PodTopology) -> torch.Tensor:

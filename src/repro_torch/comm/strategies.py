@@ -56,7 +56,12 @@ process (:class:`~repro_torch.comm.topology.ExchangeGroup`): ``local [1, L,
 host memory (:class:`_RankProgram`), bitwise this rank's row of the stacked
 call.  Its split phase leaves the inter-pod program's first hop in flight
 (``async_op=True``) while the on-pod program runs, and ``finish()`` runs the
-inter-pod program's other hops.
+inter-pod program's other hops.  Checks and faults run there too: each
+sender's check triples cross the hop in the payload's own bytes, the
+receiver computes each hop's violation, and a guarded call ends with one
+all-reduce MAX of the violations over the world, so every rank raises the
+same :class:`~repro_torch.comm.faults.ExchangeIntegrityError` (or none) and
+takes the same rung of the ladder.
 """
 
 from __future__ import annotations
@@ -182,6 +187,27 @@ def _apply_injection(x: torch.Tensor, mask: torch.Tensor, kind: str, value: floa
     raise ValueError(f"unknown injection kind {kind!r}")
 
 
+def _faults_on_device(cache: dict, sp: StagePlan, device: torch.device, codec: str, faults,
+                      rank: Optional[int] = None) -> tuple:
+    """``(injections, delay_s)`` of ``faults`` compiled against ``sp`` and
+    ``codec``, memoized in ``cache`` per (codec, fault plan): injections map
+    ``(op_index, round_index)`` to ``((kind, receiver mask, value), ...)``
+    with the masks on ``device`` -- every receiver's, or only ``rank``'s
+    row (a process group's rank)."""
+    key = (codec, faults.fingerprint())
+    got = cache.get(key)
+    if got is None:
+        cf = faults_mod.compile_faults(sp, codec, faults)
+        grouped: Dict[tuple, list] = {}
+        for inj in cf.injections:
+            mask = inj.dev_mask if rank is None else inj.dev_mask[rank]
+            grouped.setdefault((inj.op_index, inj.round_index), []).append(
+                (inj.kind, torch.as_tensor(mask, device=device), inj.value)
+            )
+        got = cache[key] = ({k: tuple(v) for k, v in grouped.items()}, cf.delay_s)
+    return got
+
+
 def _wire_hop(send: torch.Tensor, move: Callable, codec: str, encoded: bool, verify: bool,
               injections, recv_shape: tuple, own_pod: Optional[int] = None):
     """One inter-pod hop of ``[nblocks, nelem]`` sender blocks.
@@ -279,17 +305,7 @@ class _Program:
         and ``codec``: injections map ``(op_index, round_index)`` to
         ``((kind, receiver mask on the device, value), ...)``.  Compiled in
         numpy and moved to the device once per (codec, fault plan)."""
-        key = (codec, faults.fingerprint())
-        got = self._faults.get(key)
-        if got is None:
-            cf = faults_mod.compile_faults(self.sp, codec, faults)
-            grouped: Dict[tuple, list] = {}
-            for inj in cf.injections:
-                grouped.setdefault((inj.op_index, inj.round_index), []).append(
-                    (inj.kind, torch.as_tensor(inj.dev_mask, device=self.device), inj.value)
-                )
-            got = self._faults[key] = ({k: tuple(v) for k, v in grouped.items()}, cf.delay_s)
-        return got
+        return _faults_on_device(self._faults, self.sp, self.device, codec, faults)
 
     def run(self, local: torch.Tensor, codec: str = "none", verify: bool = False,
             injections: Optional[Dict[tuple, tuple]] = None):
@@ -416,6 +432,14 @@ class _RankProgram:
       exchange's two programs never match each other's messages); a rank
       that receives nothing in a round gets zeros, as ``ppermute`` gives.
 
+    On an inter-pod hop of a checked call the sender's check triple of each
+    wire block (:func:`_wire_check`, taken before encoding) crosses in the
+    same bytes as the payload and its int8 scales (one :func:`_bytes_of`
+    layout for all of them); the receiver decodes, applies this rank's row
+    of the fault masks (:meth:`faults_on_device`), and computes the hop's
+    violation from its own triple of what arrived.  On-pod hops are never
+    checked, and a rank that receives nothing in a hop records 0 for it.
+
     :meth:`steps` issues each hop asynchronously and yields its pending
     work, so :meth:`IrregularExchange.start` can leave the inter-pod
     program's first hop in flight while the on-pod program runs.
@@ -459,50 +483,89 @@ class _RankProgram:
                                  (tag << 24) | (op_i << 12) | ri))
                     ai += 1
                 self.ops.append(("permute", sum(blks), rnds))
+        #: the checked hops, in :class:`_Program`'s order (the columns of
+        #: :meth:`steps`'s violation vector)
+        self.hops: Tuple[tuple, ...] = tuple(
+            (op_index, stage_kind, round_index)
+            for _, op_index, stage_kind, round_index, _, _ in faults_mod.iter_inter_hops(sp)
+        )
+        self._hop_at = {(op_index, round_index): j for j, (op_index, _, round_index) in enumerate(self.hops)}
+        self._faults: Dict[tuple, tuple] = {}
 
-    def steps(self, local: torch.Tensor, codec: str):
+    def faults_on_device(self, codec: str, faults) -> tuple:
+        """``(injections, delay_s)`` as :meth:`_Program.faults_on_device`,
+        each mask this rank's receiver row."""
+        return _faults_on_device(self._faults, self.sp, self.device, codec, faults, rank=self.group.rank)
+
+    def steps(self, local: torch.Tensor, codec: str, verify: bool = False,
+              injections: Optional[Dict[tuple, tuple]] = None):
         """Generator over the program's hops: yields each hop's pending
         works once issued, resumes after the caller waited on them, and
-        returns ``[1, out_size, *feat]``."""
+        returns ``([1, out_size, *feat], viols)``: ``viols`` is ``None``
+        unless ``verify``, else this rank's ``[len(hops)]`` float64 violations
+        on the device (``> 0`` failed)."""
         import torch.distributed as dist
 
         topo, L, E, device = self.topo, self.L, self.E, self.device
         feat = tuple(local.shape[2:])
         nfeat = int(np.prod(feat, dtype=np.int64))
         encoded = _codec_applies(codec, local.dtype)
+        injections = injections or {}
+        viols = [torch.zeros((), dtype=torch.float64, device=device)] * len(self.hops)
         ext = local.new_zeros((E,) + feat)
         ext[:L] = local[0]
 
         def take(idx: torch.Tensor, width: int) -> torch.Tensor:
             return ext.index_select(0, idx).view((width,) + feat)
 
-        def encode(blocks: torch.Tensor, wire: bool) -> list:
-            """``[n, blk * nfeat]`` blocks -> the tensors that cross the hop."""
-            if not (wire and encoded):
+        def pack(blocks: torch.Tensor, wired: bool) -> list:
+            """``[n, blk * nfeat]`` blocks -> the tensors that cross the hop:
+            on a wired inter-pod hop the encoded payload, its int8 scales and
+            the blocks' check triples, else the blocks themselves."""
+            if not wired:
                 return [blocks]
-            payload, scale = _encode_blocks(blocks, codec)
-            return [payload] if scale is None else [payload, scale]
+            parts = [blocks]
+            if encoded:
+                payload, scale = _encode_blocks(blocks, codec)
+                parts = [payload] if scale is None else [payload, scale]
+            if verify:
+                parts.append(_wire_check(blocks))
+            return parts
 
-        def decode(raw: torch.Tensor, parts: list, dtype) -> torch.Tensor:
-            """Received bytes laid out as ``parts`` (the encoded tensors), decoded."""
+        def unpack(raw: torch.Tensor, parts: list, dtype) -> tuple:
+            """Received bytes laid out as :func:`pack`'s ``parts``: the
+            decoded blocks and the sender's check triples (or ``None``)."""
             got = _from_bytes(raw, [(tuple(p.shape), p.dtype) for p in parts], device)
-            return _decode_blocks(got[0], got[1] if len(got) > 1 else None, dtype)
+            pre = got.pop() if verify else None
+            if not encoded:
+                return got[0], pre
+            return _decode_blocks(got[0], got[1] if len(got) > 1 else None, dtype), pre
+
+        def settle(got: torch.Tensor, pre, key: tuple, recv_shape: tuple) -> torch.Tensor:
+            """Hop ``key``'s injections on the received blocks, then its violation."""
+            for kind, mask, value in injections.get(key, ()):
+                got = _apply_injection(got.view(recv_shape), mask, kind, value).view(got.shape)
+            if verify:
+                viols[self._hop_at[key]] = _check_violation(pre, _wire_check(got), got.shape[1], codec,
+                                                            encoded)
+            return got
 
         def land(dest: torch.Tensor, raw: torch.Tensor) -> None:
             """Received bytes of an unencoded hop, copied straight into ``dest``."""
             dest.view(-1).view(torch.uint8).copy_(raw.view(-1))
 
-        for kind, width, arg in self.ops:
+        for op_i, (kind, width, arg) in enumerate(self.ops):
             if kind == "gather":
                 ext[L : L + width] = take(arg, width)
             elif kind in ("a2a_local", "a2a_pod"):
                 seg = take(arg, width) if arg is not None else ext[L : L + width]
                 if not width:
                     continue
-                wire = kind == "a2a_pod" and encoded
                 groups = topo.npods if kind == "a2a_pod" else topo.ppn
-                blocks = seg.reshape(groups, (width // groups) * nfeat)
-                parts = encode(blocks, wire)
+                blk = width // groups
+                blocks = seg.reshape(groups, blk * nfeat)
+                wired = kind == "a2a_pod" and (encoded or verify or (op_i, None) in injections)
+                parts = pack(blocks, wired)
                 send = _bytes_of(parts)
                 recv = torch.empty_like(send)
                 work = dist.all_to_all_single(
@@ -510,28 +573,31 @@ class _RankProgram:
                     async_op=True,
                 )
                 yield [work]
-                if not wire:
+                if not wired:
                     land(ext[L : L + width], recv)
                     continue
-                got = decode(recv, parts, blocks.dtype)
-                # the own-pod block never crossed pods: full precision
-                me = self.group.pod_index
-                got[me] = blocks[me]
+                got, pre = unpack(recv, parts, blocks.dtype)
+                if encoded:  # the own-pod block never crossed pods: full precision
+                    me = self.group.pod_index
+                    got[me] = blocks[me]
+                got = settle(got, pre, (op_i, None), (groups, blk) + feat)
                 ext[L : L + width] = got.view((width,) + feat)
             else:  # permute
                 works, pending, at = [], [], L
-                for blk, sel, dst, src, inter, tag in arg:
+                for ri, (blk, sel, dst, src, inter, tag) in enumerate(arg):
                     dest, at = ext[at : at + blk], at + blk
                     if not blk:
                         continue
                     if dst is None and src is None:
-                        pending.append((dest, None, None, None))
+                        pending.append((dest, None, None, None, None))
                         continue
                     send = take(sel, blk)
                     if dst == self.group.rank:  # a pair of one rank: no hop
-                        pending.append((dest, send, None, None))
+                        pending.append((dest, send, None, None, None))
                         continue
-                    parts = encode(send.reshape(1, blk * nfeat), inter)
+                    key = (op_i, ri)
+                    wired = inter and (encoded or verify or key in injections)
+                    parts = pack(send.reshape(1, blk * nfeat), wired)
                     ops, recv = [], None
                     if dst is not None:
                         ops.append(dist.P2POp(dist.isend, _bytes_of(parts), dst, tag=tag))
@@ -541,9 +607,9 @@ class _RankProgram:
                         ops.append(dist.P2POp(dist.irecv, recv, src, tag=tag))
                     if ops:
                         works += dist.batch_isend_irecv(ops)
-                    pending.append((dest, None, recv, parts if inter and encoded else None))
+                    pending.append((dest, None, recv, parts if wired else None, key))
                 yield works
-                for dest, own, recv, parts in pending:
+                for dest, own, recv, parts, key in pending:
                     if own is not None:
                         dest.copy_(own)
                     elif recv is None:  # nothing arrives: zeros, as ppermute gives
@@ -551,19 +617,28 @@ class _RankProgram:
                     elif parts is None:
                         land(dest, recv)
                     else:
-                        dest.copy_(decode(recv, parts, dest.dtype).view(dest.shape))
+                        got, pre = unpack(recv, parts, dest.dtype)
+                        got = settle(got, pre, key, (dest.shape[0],) + feat)
+                        dest.copy_(got.view(dest.shape))
         # a view of this call's own scratch: contiguous, as the kernels want
-        return ext[L : L + self.out_size].unsqueeze(0)
+        out = ext[L : L + self.out_size].unsqueeze(0)
+        if not verify:
+            return out, None
+        if not viols:
+            return out, torch.zeros(0, dtype=torch.float64, device=device)
+        return out, torch.stack(viols)
 
-    def run(self, local: torch.Tensor, codec: str = "none"):
-        """``local [1, L, *feat] -> ([1, out_size, *feat], None)``, each hop
-        waited on before the next."""
-        return _drive(self.steps(local, codec)), None
+    def run(self, local: torch.Tensor, codec: str = "none", verify: bool = False,
+            injections: Optional[Dict[tuple, tuple]] = None):
+        """``local [1, L, *feat] -> ([1, out_size, *feat], viols)``, each hop
+        waited on before the next (:meth:`steps`)."""
+        return _drive(self.steps(local, codec, verify, injections))
 
 
-def _drive(steps, works=None) -> torch.Tensor:
-    """Run a :meth:`_RankProgram.steps` generator to its end; ``works`` are
-    the pending works of a hop it already yielded."""
+def _drive(steps, works=None):
+    """Run a :meth:`_RankProgram.steps` generator to its end and return what
+    it returns; ``works`` are the pending works of a hop it already
+    yielded."""
     try:
         if works is None:
             works = next(steps)
@@ -573,6 +648,18 @@ def _drive(steps, works=None) -> torch.Tensor:
             works = steps.send(None)
     except StopIteration as stop:
         return stop.value
+
+
+def _agree_on_violations(viols: np.ndarray) -> np.ndarray:
+    """Every rank's ``[len(hops)]`` violations reduced to the world's MAX by
+    one all-reduce on the host, so every rank raises the same error or
+    none.  A NaN (a check that cannot be read) counts as ``inf``, a failure,
+    whatever gloo's MAX would make of it."""
+    import torch.distributed as dist
+
+    t = torch.from_numpy(np.where(np.isnan(viols), np.inf, viols).astype(np.float64))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -753,9 +840,10 @@ def _rank_program(sp: StagePlan, plan_key: tuple, device: torch.device, group, t
 
 
 def _check_plans_agree(group, key: tuple) -> None:
-    """Every rank of ``group``'s world must run the same plan, or the ranks'
-    collectives would not match and the world would hang: all-gather a hash
-    of ``key`` and raise on every rank, naming the ranks that differ."""
+    """Every rank of ``group``'s world must run the same plan, checks,
+    faults and ladder, or the ranks' collectives would not match and the
+    world would hang: all-gather a hash of ``key`` and raise on every rank,
+    naming the ranks that differ."""
     import hashlib
     from collections import Counter
 
@@ -771,7 +859,8 @@ def _check_plans_agree(group, key: tuple) -> None:
         raise RuntimeError(
             f"the ranks' exchange plans differ: ranks {odd} planned another exchange than ranks "
             f"{[r for r, h in enumerate(hashes) if h == common]} (pattern, strategy, cap, "
-            f"element bytes, fusion and codec must agree on every rank)"
+            f"element bytes, fusion, codec, checks, fault plan, retries and fallback must "
+            f"agree on every rank)"
         )
 
 
@@ -898,8 +987,10 @@ class IrregularExchange:
         process holds one rank, ``local [1, L, *feat] -> [1, H, *feat]``,
         on ``device`` (left out, ``cuda:(rank % device_count)``), and the
         hops are gloo collectives.  Every rank constructs the exchange at
-        once; a rank whose plan differs raises on every rank.  ``verify``,
-        ``faults`` and ``health`` raise under a group (ROADMAP A.6.3b).
+        once; a rank whose plan, checks, fault plan or ladder settings
+        differ raises on every rank.  A checked call ends with one
+        all-reduce of the violations, so every rank takes the same rung of
+        the ladder.
 
     Example::
 
@@ -937,16 +1028,13 @@ class IrregularExchange:
             self.elem_bytes, self.fuse_program,
         )
         if self.group is not None:
-            if self.verify or self.faults is not None or self.health is not None:
-                raise NotImplementedError(
-                    "wire checks, faults and the recovery ladder under a process group are "
-                    "ROADMAP A.6.3b (the ranks must agree on a violation before a retry)"
-                )
             if self.group.topo != self.pattern.topo:
                 raise ValueError(f"the group is {self.group.topo}, the pattern {self.pattern.topo}")
             self.device = (device_for_rank(self.group.rank) if self.device is None
                            else resolve_device(self.device))
-            _check_plans_agree(self.group, key + (self.wire,))
+            _check_plans_agree(self.group, key + (
+                self.wire, self.verify, None if self.faults is None else self.faults.fingerprint(),
+                self.max_retries, self.fallback))
         else:
             self.device = resolve_device(self.device)
         self.plan: StagePlan = planned(
@@ -997,23 +1085,31 @@ class IrregularExchange:
         return local
 
     # -- verification + recovery ---------------------------------------
-    def _launch(self, local: torch.Tensor, call_index: int) -> tuple:
-        """Queue one physical attempt: the faulted program when the
-        FaultPlan's call gating says so.  Returns ``(out, viols, delay_s)``
-        without waiting for the device."""
-        injections, delay = None, 0.0
+    def _injections(self, call_index: int) -> tuple:
+        """``(injections, delay_s)`` of physical attempt ``call_index``: the
+        compiled faults when the FaultPlan's call gating says so."""
         if self.faults is not None and self.faults.active(call_index):
-            injections, delay = self._program.faults_on_device(self.wire, self.faults)
+            return self._program.faults_on_device(self.wire, self.faults)
+        return None, 0.0
+
+    def _launch(self, local: torch.Tensor, call_index: int) -> tuple:
+        """Queue one physical attempt (the faulted program when the
+        FaultPlan's call gating says so).  Returns ``(out, viols, delay_s)``
+        without waiting for the device."""
+        injections, delay = self._injections(call_index)
         out, viols = self._program.run(local, self.wire, self.verify, injections)
         return out, viols, delay
 
     def _settle(self, out: torch.Tensor, viols: Optional[torch.Tensor], delay: float) -> torch.Tensor:
-        """Finish an attempt: the injected slow-hop latency, then the one
-        device-to-host read of its violations."""
+        """Finish an attempt: the injected slow-hop latency (slept on every
+        rank of a group), then the one device-to-host read of its
+        violations; under a group the ranks agree on them first
+        (:func:`_agree_on_violations`), so all raise or none does."""
         if delay > 0.0:
             time.sleep(delay)
         if viols is not None and viols.numel():
-            self._raise_from_viols(viols.cpu().numpy())
+            v = viols.cpu().numpy()
+            self._raise_from_viols(v if self.group is None else _agree_on_violations(v))
         return out
 
     def _raw_call(self, local: torch.Tensor, call_index: int) -> torch.Tensor:
@@ -1040,23 +1136,28 @@ class IrregularExchange:
         key = (strategy, wire)
         v = self._variants.get(key)
         if v is None:
+            # under a group every rank builds it at the same rung (the ranks
+            # agreed on the violations), so its plan check is collective
             v = self._variants[key] = IrregularExchange(
                 self.pattern, strategy, device=self.device,
                 message_cap_bytes=self.message_cap_bytes, elem_bytes=self.elem_bytes,
                 fuse_program=self.fuse_program, wire=wire, verify=self.verify,
                 faults=self.faults, health=self.health, max_retries=0, fallback=False,
+                group=self.group,
             )
         return v
 
-    def _guarded_call(self, local: torch.Tensor, pending: Optional[tuple] = None) -> torch.Tensor:
-        """Run the ladder; ``pending`` is a first attempt already queued by
-        :meth:`start`, settled here as the ladder's first try."""
+    def _guarded_call(self, local: torch.Tensor,
+                      pending: Optional[Callable[[], tuple]] = None) -> torch.Tensor:
+        """Run the ladder; ``pending`` completes a first attempt already
+        begun by :meth:`start` (returning its ``(out, viols, delay_s)``),
+        settled here as the ladder's first try."""
 
         def attempt(strategy: str, wire: str):
             nonlocal pending
             if pending is not None:
                 first, pending = pending, None
-                return self._settle(*first)
+                return self._settle(*first())
             idx = self._calls
             self._calls += 1
             return self._variant(strategy, wire)._raw_call(local, idx)
@@ -1109,17 +1210,30 @@ class IrregularExchange:
         local = self._checked(local)
         if self.group is not None:
             # the inter-pod program's first hop goes in flight, the on-pod
-            # program runs to its end, and finish() runs the rest
-            steps = remote_ex._program.steps(local, remote_ex.wire)
+            # program runs to its end, and finish() runs the rest (a
+            # guarded call: then agrees on the violations and runs the
+            # ladder's further rungs as barrier calls)
+            injections, delay = None, 0.0
+            if remote_ex.guarded:
+                injections, delay = remote_ex._injections(remote_ex._calls)
+                remote_ex._calls += 1
+            steps = remote_ex._program.steps(local, remote_ex.wire, remote_ex.verify, injections)
             try:
-                first = next(steps)
+                first, done = next(steps), None
             except StopIteration as stop:
-                remote, first = stop.value, None
+                first, done = None, stop.value
+
+            def drive() -> tuple:
+                return done if first is None else _drive(steps, first)
+
+            def settle() -> torch.Tensor:
+                if not remote_ex.guarded:
+                    return drive()[0]
+                return remote_ex._guarded_call(local, lambda: (*drive(), delay))
+
             rank = self.group.rank
-            return ExchangeHandle(
-                local_ex(local), None, lambda lo, ro: merge(lo, ro, rank),
-                _settle=(lambda: _drive(steps, first)) if first is not None else (lambda: remote),
-            )
+            return ExchangeHandle(local_ex(local), None, lambda lo, ro: merge(lo, ro, rank),
+                                  _settle=settle)
 
         def launch_remote() -> tuple:
             if not remote_ex.guarded:
@@ -1145,7 +1259,7 @@ class IrregularExchange:
             return ExchangeHandle(local_ex(local), remote, merge, stream=side)
         return ExchangeHandle(
             local_ex(local), remote, merge, stream=side,
-            _settle=lambda: remote_ex._guarded_call(local, pending),
+            _settle=lambda: remote_ex._guarded_call(local, lambda: pending),
             _pending=tuple(t for t in pending[:2] if t is not None),
         )
 

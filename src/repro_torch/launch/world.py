@@ -30,9 +30,26 @@ then holds its own ``[1, L]`` block and runs
   and ``auto``, barrier and overlap: converged, histories bitwise equal
   across them and across ranks, the true residual, and the stacked host
   loop's status, iterations (within one) and ``x`` (within 1e-4);
+* checks, faults and the recovery ladder: every strategy x barrier/split x
+  codecs ``none`` and ``int8`` with ``verify=True`` on a normal payload
+  (clean: no raise, bitwise the unchecked halo), a transient corruption
+  (retry), a lossy-codec corruption (demote, ``int8``) and a persistent
+  perturbation of the strategy (re-advise): each rank's halo bitwise row
+  ``r`` of the stacked guarded exchange (rank 0), that one bitwise
+  ``execute_numpy(faults=, fault_call=, verify=True)`` of the attempt that
+  succeeded, the recovery key and health events equal on every rank and to
+  the stacked run's; with ``fallback=False`` a persistent corruption raises
+  on every rank with the stacked raise's hop and one violation; CG checked
+  and CG through a retried fault, converged with the clean history bitwise
+  and one status on every rank; ms per checked vs unchecked exchange;
+* the reductions: the on-pod-then-inter-pod tree bitwise ``_tree_sum`` of
+  the gathered partials; with ``Compressor()`` one value on every rank,
+  within one quantum of the stacked ``TorchReductions``; a CG on the
+  compressed tree with one history on every rank and the stacked loop's
+  status; ms per dot, tree vs one all-gather over the world;
 * B1/B2 launches per rank against a count predicted from the calls made;
-* the guards: NCCL, ``verify``, ``faults``, the fused solve and a rank with
-  another strategy each raise;
+* the guards: NCCL, the fused solve, a rank with another strategy and a rank
+  with another fault plan each raise;
 
 and writes ``DIR/world.json``; it exits 1 if any gate failed.
 """
@@ -58,9 +75,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.comm.compression import Compressor, int8_scale
 from repro_torch.comm.exchange import execute_numpy
-from repro_torch.comm.faults import FaultPlan, FaultSpec
-from repro_torch.comm.strategies import STRATEGY_NAMES, IrregularExchange
+from repro_torch.comm.faults import ExchangeIntegrityError, FaultPlan, FaultSpec
+from repro_torch.comm.strategies import STRATEGY_NAMES, IrregularExchange, planned
 from repro_torch.comm.topology import PodTopology, check_backend, make_exchange_group
 from repro_torch.core.device import device_for_rank
 from repro_torch.kernels import build as kbuild
@@ -68,6 +86,7 @@ from repro_torch.kernels.spmv_ell import spmm_ell, spmv_ell
 from repro_torch.solve.fused import fused_cg
 from repro_torch.solve.krylov import bicgstab, cg
 from repro_torch.solve.problems import shifted_system, spd_system
+from repro_torch.solve.reductions import GroupReductions, TorchReductions, _tree_sum
 from repro_torch.sparse.matrices import GENERATORS
 from repro_torch.sparse.partition import partition_csr
 from repro_torch.sparse.spmv import DistributedSpMV
@@ -85,6 +104,15 @@ MODES = ("barrier", "split")
 FEATS = ((3,),)
 TIMED_REPS = 10
 MAXITER = 1000
+#: the faults section's codecs, and the strategy of its solves and of the
+#: compressed-reduction CG
+FAULT_CODECS = ("none", "int8")
+FAULT_SOLVE_STRATEGY = "two_step"
+#: the compressed reductions' CG tolerance (int8 pod sums, ~0.4% per dot)
+TOL_COMPRESSED = 1e-4
+MAXITER_COMPRESSED = 200
+#: dots per timing of the reduction tree and the flat all-gather
+DOT_REPS = 50
 
 
 class WorldError(RuntimeError):
@@ -228,6 +256,29 @@ def probe(group, device: torch.device, fail_rank: int = -1) -> dict:
     return {"rank": group.rank, "ranks": [int(t) for t in got], "device": str(device)}
 
 
+def dot_operands(topo: PodTopology, length: int, seed: int) -> list:
+    """Stacked ``[nranks, length]`` float32 operand pairs for :func:`dots`,
+    their values spread over seven binades (so a change of summation order
+    shows in the last bits)."""
+    rng = np.random.default_rng(seed)
+    x, y = ((rng.normal(size=(topo.nranks, length)) * 10.0 ** rng.integers(-3, 4, size=(topo.nranks, length)))
+            .astype(np.float32) for _ in range(2))
+    return [(x, x), (x, y), (y, -x)]
+
+
+def dots(group, device: torch.device, length: int = 64, seed: int = 0) -> dict:
+    """The reduction tree on :func:`dot_operands`: this rank's tree and
+    int8-compressed dot of each pair (``GroupReductions``), as ``float.hex``
+    so every bit survives JSON."""
+    r = group.rank
+    tree, comp = GroupReductions(group.topo, group), GroupReductions(group.topo, group, Compressor())
+    out = []
+    for x, y in dot_operands(group.topo, length, seed):
+        xs, ys = (torch.as_tensor(a[r : r + 1], device=device) for a in (x, y))
+        out.append({"tree": tree.dot(xs, ys).hex(), "compressed": comp.dot(xs, ys).hex()})
+    return {"rank": r, "dots": out}
+
+
 # ---------------------------------------------------------------------------
 # The case study
 # ---------------------------------------------------------------------------
@@ -253,6 +304,32 @@ def inputs(topo: PodTopology, L: int, seed: int, mm_cols: int) -> dict:
         "V": rng.normal(size=(topo.nranks, L, mm_cols)).astype(np.float32),
         "b": rng.normal(size=(topo.nranks, L)).astype(np.float32),
         "b2": rng.normal(size=(topo.nranks, L)).astype(np.float32),
+    }
+
+
+def fault_payload(topo: PodTopology, L: int, seed: int) -> np.ndarray:
+    """The faults section's stacked ``[nranks, L]`` float32 payload: normal
+    values, on which every check of a clean call passes."""
+    return np.random.default_rng(seed + 12).normal(size=(topo.nranks, L)).astype(np.float32)
+
+
+def fault_cases(strategy: str, seed: int) -> dict:
+    """The faults section's cases for ``strategy``: ``name -> (codecs,
+    IrregularExchange keyword arguments)``.  ``clean`` checks a fault-free
+    call; ``retry`` corrupts the first call only; ``demote`` corrupts every
+    lossy-codec hop (so ``int8`` alone); ``readvise`` perturbs every hop of
+    ``strategy``; ``detect`` corrupts every call with no retry or fallback."""
+    corrupt = FaultSpec(kind="corrupt")
+    return {
+        "clean": (FAULT_CODECS, dict(verify=True)),
+        "retry": (FAULT_CODECS, dict(verify=True, faults=FaultPlan(seed=seed, specs=(corrupt,),
+                                                                     active_calls=(0,)))),
+        "demote": (("int8",), dict(verify=True, faults=FaultPlan(
+            seed=seed, specs=(FaultSpec(kind="corrupt", codecs=("lossy",)),)))),
+        "readvise": (FAULT_CODECS, dict(verify=True, faults=FaultPlan(
+            seed=seed, specs=(FaultSpec(kind="perturb", strategies=(strategy,)),)))),
+        "detect": (FAULT_CODECS, dict(verify=True, faults=FaultPlan(seed=seed, specs=(corrupt,)),
+                                      max_retries=0, fallback=False)),
     }
 
 
@@ -424,10 +501,11 @@ def _spmv(group, device, A, part, data: dict, keep: bool, gates: dict, out: dict
 
 
 def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict, out: dict,
-            launches: _Launches, predicted: dict) -> dict:
+            launches: _Launches, predicted: dict, histories: dict) -> dict:
     """CG on ``spd_system`` and BiCGStab on ``shifted_system`` with every
     strategy and ``auto``, barrier and overlap; rank 0 holds the result to
-    the stacked host loop.  Returns each run's summary."""
+    the stacked host loop.  Returns each run's summary; ``histories`` gets
+    each solver's (common) residual history."""
     r = group.rank
     summary = {}
     for solver, fn, M, part, rhs in (("cg", cg, systems_[0], parts[0], "b"),
@@ -452,6 +530,7 @@ def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict,
                     "ms_per_iteration": _all_max(wall / max(res.iterations, 1) * 1e3, group),
                 }
         ref = runs[("standard", False)]
+        histories[solver] = ref.residuals
         gates[f"{solver}: every run converged"] = all(x.converged for x in runs.values())
         gates[f"{solver}: histories, x, status, matvecs bitwise equal across strategies and overlap"] = all(
             x.residuals == ref.residuals and _same_bits(x.x, ref.x)
@@ -480,19 +559,252 @@ def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict,
     return summary
 
 
+def _guarded(ex: IrregularExchange, x: torch.Tensor, mode: str) -> tuple:
+    """One guarded call, barrier or split-phase: ``(halo or None, record)``,
+    the record holding the recovery key, the health events, the ladder's
+    physical attempts so far and a raised error's fields."""
+    halo, err = None, None
+    try:
+        halo = ex(x) if mode == "barrier" else ex.start(x).finish()
+    except ExchangeIntegrityError as e:
+        err = {**e.diagnostics(), "violation": e.violation}
+    inner = ex._two_phase[0] if mode == "split" else ex
+    return halo, {"recovery": ex.health.last_recovery, "events": list(ex.health.events),
+                  "calls": inner._calls, "error": err}
+
+
+def _from_rank0(value, group):
+    """Rank 0's ``value`` (any picklable object) on every rank."""
+    got = [value if group.rank == 0 else None]
+    dist.broadcast_object_list(got, src=0)
+    return got[0]
+
+
+def _faults(group, device, part, seed: int, keep: bool, gates: dict, out: dict) -> dict:
+    """Checks, faults and the recovery ladder under the group: every
+    :func:`fault_cases` case x strategy x codec x barrier/split on a ``[1,
+    L]`` payload, held to the stacked guarded exchange that rank 0 runs
+    under the same plan and to ``execute_numpy``; then ms per checked vs
+    unchecked barrier exchange per strategy."""
+    topo, r, L = group.topo, group.rank, part.rows_per_rank
+    full = fault_payload(topo, L, seed)
+    mine = torch.as_tensor(full[r : r + 1], device=device)
+    stacked_in = torch.as_tensor(full, device=device) if r == 0 else None
+    fields = ("op_index", "stage_kind", "round_index")
+    for strat in STRATEGY_NAMES:
+        for case, (codecs, kw) in fault_cases(strat, seed).items():
+            for codec in codecs:
+                for mode in MODES:
+                    key = f"{case}|{strat}|{mode}|{codec}"
+                    ex = IrregularExchange(part.pattern, strat, device=device, wire=codec, group=group, **kw)
+                    halo, rec = _guarded(ex, mine, mode)
+                    out.setdefault("fault_records", {})[key] = rec
+                    if keep and halo is not None:
+                        out.setdefault("fault_halos", {})[key] = halo.cpu().view(torch.int32).numpy().tolist()
+                    want = None
+                    if r == 0:
+                        st = IrregularExchange(part.pattern, strat, device=device, wire=codec, **kw)
+                        st_halo, want = _guarded(st, stacked_in, mode)
+                        plan_ = st.plan if mode == "barrier" else st._two_phase[0].plan
+                        if case == "detect":
+                            try:
+                                execute_numpy(plan_, full, codec, faults=kw["faults"], fault_call=0, verify=True)
+                                np_err = None
+                            except ExchangeIntegrityError as e:
+                                np_err = e.diagnostics()
+                            gates[f"faults {key}: the stacked raise == execute_numpy's"] = (
+                                want["error"] is not None and np_err is not None
+                                and all(want["error"][f] == np_err[f] for f in fields))
+                        else:
+                            # the attempt that succeeded: the ladder's last
+                            succ = (strat, codec) if want["recovery"] is None else tuple(
+                                want["recovery"].split(":", 1)[1].split("/"))
+                            try:
+                                oracle = execute_numpy(planned(part.pattern, succ[0]), full, succ[1],
+                                                       faults=kw.get("faults"), fault_call=want["calls"] - 1,
+                                                       verify=True)
+                            except ExchangeIntegrityError:
+                                oracle = None
+                            gates[f"faults {key}: stacked == execute_numpy of the attempt that succeeded "
+                                  f"{succ}"] = oracle is not None and _same_bits(st_halo.cpu(), torch.as_tensor(oracle))
+                    want = _from_rank0(want, group)
+                    err = rec["error"]
+                    if case == "detect":
+                        gates[f"faults {key}: raised, hop == the stacked raise's"] = (
+                            err is not None and all(err[f] == want["error"][f] for f in fields))
+                    else:
+                        gates[f"faults {key}: recovery {rec['recovery']} and events == stacked"] = (
+                            err is None and (rec["recovery"], rec["events"]) == (want["recovery"], want["events"]))
+                    gates[f"faults {key}: every rank the same recovery, events and error"] = _all_same(
+                        (rec["recovery"], rec["events"], err), group)
+                    if case == "clean":
+                        plain = IrregularExchange(part.pattern, strat, device=device, wire=codec, group=group)
+                        unchecked = plain(mine) if mode == "barrier" else plain.start(mine).finish()
+                        gates[f"faults {key}: the checked halo == the unchecked"] = (
+                            halo is not None and _same_bits(halo, unchecked))
+                    if halo is not None:
+                        halos = _gather0(halo, group)
+                        if r == 0:
+                            gates[f"faults {key}: halos == the stacked rows"] = all(
+                                _same_bits(h[0], st_halo[q].cpu()) for q, h in enumerate(halos))
+    # ms per checked and unchecked barrier exchange: the slowest rank's host wall
+    ms = {}
+    for strat in STRATEGY_NAMES:
+        for checked in (False, True):
+            ex = IrregularExchange(part.pattern, strat, device=device, verify=checked, group=group)
+            ex(mine)
+            _sync(device)
+            _barrier()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_REPS):
+                ex(mine)
+            _sync(device)
+            ms[f"{strat}|{'verify' if checked else 'plain'}"] = _all_max(
+                (time.perf_counter() - t0) / TIMED_REPS * 1e3, group)
+    return ms
+
+
+def _fault_solves(group, device, A, part, data: dict, seed: int, clean: tuple, keep: bool, gates: dict,
+                  out: dict, launches: _Launches, predicted: dict) -> dict:
+    """CG checked, and CG through a transient corruption the ladder retries:
+    converged, the clean group run's history bitwise, one status on every
+    rank, the true residual.  Returns each run's summary."""
+    r, strat = group.rank, FAULT_SOLVE_STRATEGY
+    b = torch.as_tensor(data["b"][r : r + 1], device=device)
+    runs = {
+        "verify": (dict(verify=True), "converged"),
+        "retry": (dict(verify=True, faults=FaultPlan(seed=seed + 11, specs=(FaultSpec(kind="corrupt"),),
+                                                     active_calls=(0,))),
+                  f"converged+exchange:retry:{strat}/none"),
+    }
+    summary = {}
+    for name, (kw, want) in runs.items():
+        op = DistributedSpMV(part, strategy=strat, device=device, group=group, **kw)
+        _sync(device)
+        _barrier()
+        t0 = time.perf_counter()
+        with launches.counted():
+            res = cg(op, b, tol=TOL_SOLVE, maxiter=MAXITER)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        predicted["spmv_ell"] += 2 * res.matvecs
+        summary[f"cg|{name}"] = {
+            "strategy": strat, "status": res.status, "iterations": res.iterations, "matvecs": res.matvecs,
+            "final_residual": res.final_residual, "recoveries": op.health.recovery_count,
+            "ms_per_iteration": _all_max(wall / max(res.iterations, 1) * 1e3, group),
+        }
+        gates[f"faults cg {name}: converged, status {res.status!r} == {want!r}"] = (
+            res.converged and res.status == want)
+        gates[f"faults cg {name}: history bitwise the clean group run's"] = res.residuals == clean
+        gates[f"faults cg {name}: every rank holds the same history and status"] = _all_same(
+            (res.residuals, res.status), group)
+        if keep:
+            out.setdefault("fault_solve_runs", {})[name] = {
+                "x": res.x.cpu().numpy().tolist(), "residuals": list(res.residuals), "status": res.status,
+                "iterations": res.iterations}
+        xs = _gather_rows(res.x, group)
+        if r == 0:
+            x = torch.cat(xs).double().numpy().reshape(-1)
+            bf = data["b"].astype(np.float64).reshape(-1)
+            true = float(np.linalg.norm(bf - product64(A, x)) / np.linalg.norm(bf))
+            summary[f"cg|{name}"]["true_residual"] = true
+            gates[f"faults cg {name}: true residual {true:.3e} <= {TOL_TRUE}"] = true <= TOL_TRUE
+    return summary
+
+
+def _flat_dot(red: GroupReductions, x: torch.Tensor, y: torch.Tensor) -> float:
+    """The tree's baseline: every rank's float64 partial all-gathered over
+    the whole world and summed rank -> pod -> world on every rank."""
+    parts = [torch.empty(1, dtype=torch.float64) for _ in range(red.topo.nranks)]
+    dist.all_gather(parts, torch.tensor([red.partial(x, y)], dtype=torch.float64))
+    return _tree_sum(torch.cat(parts).numpy(), red.topo)
+
+
+def _reductions(group, device, part, data: dict, keep: bool, gates: dict, out: dict, launches: _Launches,
+                predicted: dict) -> dict:
+    """The reduction tree over the group, plain and int8-compressed, held to
+    the gathered partials and to the stacked ``TorchReductions``; a CG on
+    the compressed tree; ms per dot, tree vs the flat all-gather."""
+    topo, r = group.topo, group.rank
+    tree, comp = GroupReductions(topo, group), GroupReductions(topo, group, Compressor())
+    values = {}
+    for a, c in (("b", "b"), ("v", "b"), ("b", "b2")):
+        name = f"{a}.{c}"
+        x = torch.as_tensor(data[a][r : r + 1], device=device)
+        y = x if a == c else torch.as_tensor(data[c][r : r + 1], device=device)
+        plain, compressed, flat = tree.dot(x, y), comp.dot(x, y), _flat_dot(tree, x, y)
+        partial = tree.partial(x, y)
+        values[name] = {"tree": plain, "compressed": compressed, "partial": partial}
+        gates[f"reductions {name}: every rank holds the same tree and compressed bits"] = _all_same(
+            (plain.hex(), compressed.hex()), group)
+        gates[f"reductions {name}: the tree == the flat all-gather, bitwise"] = plain.hex() == flat.hex()
+        parts = _gather0(torch.tensor([partial], dtype=torch.float64), group)
+        if r == 0:
+            p = torch.cat(parts).numpy()
+            gates[f"reductions {name}: the tree == _tree_sum of the gathered partials, bitwise"] = (
+                plain.hex() == _tree_sum(p, topo).hex())
+            pods = p.reshape(topo.npods, topo.ppn).sum(axis=1)
+            quantum = float(int8_scale(torch.tensor(np.abs(pods[np.isfinite(pods)]).max(initial=0.0)),
+                                       Compressor().qmax))
+            stacked = TorchReductions(topo, Compressor()).dot(torch.as_tensor(data[a], device=device),
+                                                               torch.as_tensor(data[c], device=device))
+            values[name].update(stacked=stacked, quantum=quantum)
+            gates[f"reductions {name}: |compressed - stacked| {abs(compressed - stacked):.3e} <= one "
+                  f"quantum {quantum:.3e}"] = abs(compressed - stacked) <= quantum
+    summary = {"values": values}
+    # CG on the compressed tree: one history on every rank, the stacked status
+    strat = FAULT_SOLVE_STRATEGY
+    b = torch.as_tensor(data["b"][r : r + 1], device=device)
+    op = DistributedSpMV(part, strategy=strat, device=device, group=group)
+    _sync(device)
+    _barrier()
+    t0 = time.perf_counter()
+    with launches.counted():
+        res = cg(op, b, tol=TOL_COMPRESSED, maxiter=MAXITER_COMPRESSED, reductions=comp)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    predicted["spmv_ell"] += 2 * res.matvecs
+    summary["cg|compressed"] = {"strategy": strat, "status": res.status, "iterations": res.iterations,
+                                "final_residual": res.final_residual,
+                                "ms_per_iteration": _all_max(wall / max(res.iterations, 1) * 1e3, group)}
+    gates["reductions cg compressed: every rank holds the same history and status"] = _all_same(
+        (res.residuals, res.status), group)
+    if keep:
+        out["compressed_cg"] = {"residuals": list(res.residuals), "status": res.status,
+                                "iterations": res.iterations, "x": res.x.cpu().numpy().tolist()}
+    if r == 0:
+        st = cg(DistributedSpMV(part, strategy=strat, device=device), torch.as_tensor(data["b"], device=device),
+                tol=TOL_COMPRESSED, maxiter=MAXITER_COMPRESSED, reductions=TorchReductions(topo, Compressor()))
+        summary["cg|compressed|stacked"] = {"status": st.status, "iterations": st.iterations}
+        gates[f"reductions cg compressed: status {res.status} == stacked {st.status}"] = res.status == st.status
+    # ms per dot: the slowest rank's host wall
+    x = torch.as_tensor(data["b"][r : r + 1], device=device)
+    ms = {}
+    for name, dot in (("tree", tree.dot), ("compressed", comp.dot), ("flat", lambda u, w: _flat_dot(tree, u, w))):
+        dot(x, x)
+        _barrier()
+        t0 = time.perf_counter()
+        for _ in range(DOT_REPS):
+            dot(x, x)
+        ms[name] = _all_max((time.perf_counter() - t0) / DOT_REPS * 1e3, group)
+    summary["dot_ms"] = ms
+    return summary
+
+
 def _guards(group, device, part) -> dict:
     """Each refusal under a group raises with its ROADMAP item or the ranks
     at fault; returns ``{guard: message}``."""
     cases = {
         "nccl": lambda: make_exchange_group(group.topo, backend="nccl"),
-        "verify": lambda: IrregularExchange(part.pattern, "standard", device=device, verify=True, group=group),
-        "faults": lambda: IrregularExchange(part.pattern, "standard", device=device, group=group,
-                                            faults=FaultPlan(seed=0, specs=(FaultSpec(),))),
         "fused": lambda: fused_cg(DistributedSpMV(part, strategy="standard", device=device, group=group),
                                   torch.zeros((1, part.rows_per_rank), device=device)),
         # rank 1 plans another strategy: every rank raises at construction
         "mismatch": lambda: IrregularExchange(part.pattern, "two_step" if group.rank == 1 else "standard",
                                               device=device, group=group),
+        # rank 1 holds another fault plan: every rank raises at construction
+        "fault_mismatch": lambda: IrregularExchange(
+            part.pattern, "standard", device=device, group=group, verify=True,
+            faults=FaultPlan(seed=1 if group.rank == 1 else 0, specs=(FaultSpec(),))),
     }
     got = {}
     for name, make in cases.items():
@@ -520,19 +832,27 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     setup_s = time.perf_counter() - t0
     gates, out = {}, {}
     launches, predicted = _Launches(), {"spmv_ell": 0, "spmm_ell": 0}
+    histories = {}
     t1 = time.perf_counter()
     exchange_ms = _exchanges(group, device, part, seed, keep, gates, out)
     t2 = time.perf_counter()
     _spmv(group, device, A, part, data, keep, gates, out, launches, predicted)
     t3 = time.perf_counter()
-    solves = _solves(group, device, (A, B), (part, part_b), data, keep, gates, out, launches, predicted)
+    solves = _solves(group, device, (A, B), (part, part_b), data, keep, gates, out, launches, predicted,
+                     histories)
     t4 = time.perf_counter()
+    fault_ms = _faults(group, device, part, seed, keep, gates, out)
+    fault_solves = _fault_solves(group, device, A, part, data, seed, histories["cg"], keep, gates, out,
+                                 launches, predicted)
+    t5 = time.perf_counter()
+    reductions = _reductions(group, device, part, data, keep, gates, out, launches, predicted)
+    t6 = time.perf_counter()
     guards = _guards(group, device, part)
     # on the host the wrappers run the plain versions and launch nothing
     want = predicted if device.type == "cuda" else {"spmv_ell": 0, "spmm_ell": 0}
     gates[f"launches {launches.n} == predicted {want}"] = launches.n == want
-    expect = {"nccl": "A.6.3b", "verify": "A.6.3b", "faults": "A.6.3b", "fused": "A.6.3b",
-              "mismatch": "ranks [1]"}
+    expect = {"nccl": "A.6.3b", "fused": "A.6.3b item 6", "mismatch": "ranks [1]",
+              "fault_mismatch": "ranks [1]"}
     for name, text in expect.items():
         gates[f"guard {name} raises naming {text!r}"] = text in guards[name]
     memory = {"host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
@@ -542,9 +862,11 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
                       device_reserved_bytes=torch.cuda.memory_reserved(device))
     return {
         "rank": r, "device": str(device), "started_at": started, "setup_s": setup_s,
-        "phase_s": {"exchange": t2 - t1, "spmv": t3 - t2, "solve": t4 - t3},
+        "phase_s": {"exchange": t2 - t1, "spmv": t3 - t2, "solve": t4 - t3, "faults": t5 - t4,
+                    "reductions": t6 - t5},
         "n": A.n, "nnz": A.nnz, "rows_per_rank": part.rows_per_rank, "halo_width": part.halo_width,
-        "gates": gates, "exchange_ms": exchange_ms, "solves": solves, "launches": launches.n,
+        "gates": gates, "exchange_ms": exchange_ms, "solves": solves, "fault_ms": fault_ms,
+        "fault_solves": fault_solves, "reductions": reductions, "launches": launches.n,
         "predicted_launches": predicted, "guards": guards, "memory": memory, **out,
     }
 

@@ -350,11 +350,12 @@ class TraceableOperator:
 
 def refuse_group(op) -> None:
     """Raise for an operator over a process group: its captured solve is
-    ROADMAP A.6.3b, and nothing falls back to another path."""
+    ROADMAP A.6.3b item 6 (a gloo hop copies through the host, which a CUDA
+    graph cannot capture), and nothing falls back to another path."""
     if getattr(op, "group", None) is not None:
         raise NotImplementedError(
-            "the fused solve over a process group is ROADMAP A.6.3b; solve a grouped operator "
-            "with repro_torch.solve.cg / bicgstab"
+            "the fused solve over a process group is ROADMAP A.6.3b item 6; solve a grouped "
+            "operator with repro_torch.solve.cg / bicgstab"
         )
 
 

@@ -13,12 +13,15 @@ inter-pod hop once per pod.
   dot.  :func:`traceable_dot` is the same tree with no host read, for
   solvers that keep their scalars on the device.
 * :class:`NumpyReductions` -- the same tree in numpy on the host.
-* :class:`GroupReductions` -- one rank per process: each rank's float64
-  partial (taken on the host) is all-gathered over the world and every
-  rank sums the partials in :class:`NumpyReductions`' order, so every rank
-  holds the same bits and takes the same branch in the solver.
+* :class:`GroupReductions` -- the tree over a process group of one rank
+  per process (:func:`repro_torch.comm.hierarchical.dot_hierarchical_group`):
+  each rank's float64 partial (taken on the host) is summed over its pod's
+  ``local`` group, and one scalar per pod crosses the ``pod`` groups
+  (int8-quantized with a ``compressor``).  Both levels sum in
+  :class:`NumpyReductions`' order, so every rank holds the same bits and
+  takes the same branch in the solver.
 
-Both are deterministic, so residual histories are bitwise reproducible
+All are deterministic, so residual histories are bitwise reproducible
 across strategies and barrier-vs-overlap execution.
 """
 
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.compression import Compressor
-from repro_torch.comm.hierarchical import dot_hierarchical
+from repro_torch.comm.hierarchical import dot_hierarchical, dot_hierarchical_group
 from repro_torch.comm.topology import PodTopology
 
 
@@ -105,26 +108,30 @@ class GroupReductions:
     """The hierarchical tree over a process group of one rank per process.
 
     Each :meth:`dot` copies this rank's ``[1, L]`` operands to the host
-    (gloo's all-gather takes host tensors, so the partial goes there
+    (gloo's collectives take host tensors, so the partial goes there
     anyway; one copy is one operation on the card, where the float64 casts,
     product and sum were four, and a card shared by every rank's process
-    pays per operation), takes its float64 partial in numpy, all-gathers
-    the ``nranks`` partials over the world, and sums them rank -> pod ->
-    world as :class:`NumpyReductions` does.  Every rank gets the same bits.
+    pays per operation), takes its float64 partial in numpy, and reduces it
+    on-pod, then over the pods
+    (:func:`~repro_torch.comm.hierarchical.dot_hierarchical_group`): without
+    a ``compressor`` bitwise :class:`NumpyReductions` of the stacked
+    operands; with one, the pod sums int8-quantized on the inter-pod hop
+    as :class:`TorchReductions` quantizes them.  Every rank gets the same
+    bits.
     """
 
     topo: PodTopology
     group: object  # repro_torch.comm.topology.ExchangeGroup
+    compressor: Optional[Compressor] = None
 
-    def dot(self, x: torch.Tensor, y: torch.Tensor) -> float:
-        import torch.distributed as dist
-
+    def partial(self, x: torch.Tensor, y: torch.Tensor) -> float:
+        """This rank's float64 share of ``<x, y>`` (``[1, L]`` operands)."""
         xs = x.detach().cpu().numpy().astype(np.float64)
         ys = xs if y is x else y.detach().cpu().numpy().astype(np.float64)
-        mine = torch.tensor([float((xs * ys).sum())], dtype=torch.float64)
-        parts = [torch.empty(1, dtype=torch.float64) for _ in range(self.topo.nranks)]
-        dist.all_gather(parts, mine)
-        return _tree_sum(torch.cat(parts).numpy(), self.topo)
+        return float((xs * ys).sum())
+
+    def dot(self, x: torch.Tensor, y: torch.Tensor) -> float:
+        return dot_hierarchical_group(self.partial(x, y), self.group, self.compressor)
 
     def norm(self, x: torch.Tensor) -> float:
         return float(np.sqrt(max(self.dot(x, x), 0.0)))

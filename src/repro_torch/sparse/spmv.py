@@ -131,10 +131,12 @@ class DistributedSpMV:
     ``group`` (an :class:`~repro_torch.comm.topology.ExchangeGroup`) makes
     the operator one rank of a process group: ``[1, L(, k)]`` operands on
     ``device`` (left out, ``cuda:(rank % device_count)``), the solvers'
-    reductions all-gathered over the world
+    reductions the on-pod-then-inter-pod tree over the group
     (:class:`~repro_torch.solve.reductions.GroupReductions`).  ``auto``
     picks the same strategy on every rank, and the exchange checks that
-    the ranks' plans agree.
+    the ranks' plans, checks, fault plans and ladder settings agree; the
+    ranks agree on every checked call's violations, so ``verify``,
+    ``faults`` and ``health`` take the same recovery on every rank.
 
     Example::
 

@@ -16,15 +16,33 @@ own ``[1, L]`` block, and the test holds what every rank delivered to:
   ``repro.solve.NumpySpMV``, iterations within one, ``x`` within 1e-4
   (``tests/test_torch_solver.py``'s rule); histories bitwise identical
   across strategies and barrier/overlap;
-* the world's own gates (rank 0's stacked checks, launch counts) and its
-  guards: NCCL, ``verify``, ``faults`` and the fused solve raise naming
-  ROADMAP A.6.3b, and a rank planning another strategy makes every rank
-  raise naming it.
+* checks, faults and the recovery ladder under the group (every strategy x
+  {barrier, split-phase} x {clean, retry, demote, re-advise} x codecs
+  ``none`` / ``int8``): each rank's halo bitwise the stacked guarded
+  exchange's row and the reference's ``execute_numpy(plan, local, wire,
+  faults=, fault_call=, verify=True)`` of its own plan for the attempt that
+  succeeded; recovery keys and health events equal on every rank and to
+  the stacked port's; with ``fallback=False`` every rank raises the stacked
+  port's and the reference's hop, with one violation;
+* CG checked and CG through a retried fault: the reference's ``cg`` on
+  ``repro.solve.NumpySpMV(verify=, faults=)``'s status with its
+  ``+exchange:`` suffix, iterations within one, ``x`` within 1e-4, the
+  clean history bitwise;
+* the world's own gates (rank 0's stacked checks, launch counts, the
+  reductions) and its guards: NCCL and the fused solve raise naming ROADMAP
+  A.6.3b, and a rank planning another strategy or holding another fault
+  plan makes every rank raise naming it.
 
-A world whose rank 1 raises before a collective ends with rank 1's
+In-process worlds at ``2x2`` and ``2x4`` hold the reduction tree bitwise to
+``NumpyReductions`` of the stacked operands, and its int8-compressed form
+equal on every rank and within one quantum of the reference's
+``dot_hierarchical(..., compressor=Compressor())`` under ``shard_map``; the
+tree's two levels are pinned to numpy's summation order at ``ppn`` 4, 8
+and 16.  A world whose rank 1 raises before a collective ends with rank 1's
 traceback within its timeout.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -37,9 +55,12 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import run_devices
 from repro.comm import exchange as ref_exchange
+from repro.comm import faults as RF
 from repro.comm.fusion import fuse as ref_fuse
 from repro.comm.topology import PodTopology as RefTopology
+from repro.solve import NumpyReductions as RefNumpyReductions
 from repro.solve import NumpySpMV
 from repro.solve import bicgstab as ref_bicgstab
 from repro.solve import cg as ref_cg
@@ -50,8 +71,10 @@ from repro.sparse.matrices import GENERATORS as REF_GENERATORS
 from repro.sparse.spmv import reference as ref_spmv
 from repro.sparse.spmv import reference_mm as ref_spmm
 from repro_torch.comm import STRATEGY_NAMES, IrregularExchange, PodTopology, make_exchange_group
+from repro_torch.comm.hierarchical import _row_sum
 from repro_torch.core.device import device_for_rank
 from repro_torch.launch import world
+from repro_torch.solve.reductions import NumpyReductions, _tree_sum
 from repro_torch.sparse import DistributedSpMV, partition_csr, rank_slice
 
 REPO = Path(__file__).resolve().parents[1]
@@ -177,7 +200,8 @@ def test_solve_matches_reference(worlds, topo, solver, strategy):
             assert r["residuals"] == first["residuals"], (strategy, overlap)
 
 
-@pytest.mark.parametrize("part", ["exchange", "stacked", "spmv", "cg", "bicgstab", "launches"])
+@pytest.mark.parametrize("part", ["exchange", "stacked", "spmv", "cg", "bicgstab", "launches", "faults",
+                                  "reductions"])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_world_gates(worlds, topo, part):
     gates = {f"rank {r['rank']}: {k}": ok for r in worlds[topo] for k, ok in r["gates"].items()
@@ -185,8 +209,8 @@ def test_world_gates(worlds, topo, part):
     assert gates and all(gates.values()), [k for k, ok in gates.items() if not ok]
 
 
-@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b"), ("verify", "A.6.3b"), ("faults", "A.6.3b"),
-                                          ("fused", "A.6.3b"), ("mismatch", "ranks [1]")])
+@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b"), ("fused", "A.6.3b item 6"),
+                                          ("mismatch", "ranks [1]"), ("fault_mismatch", "ranks [1]")])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_guards_raise_under_a_group(worlds, topo, guard, names):
     for r in worlds[topo]:
@@ -231,3 +255,200 @@ def test_rank_slice_is_the_stacked_rows(topo):
                           (s.off.data, part.off.data), (s.off.cols, part.off.cols)):
             np.testing.assert_array_equal(got, full.reshape(t.nranks, L, -1)[r : r + 1])
         np.testing.assert_array_equal(s.off_row_nnz, part.off_row_nnz.reshape(t.nranks, L)[r : r + 1])
+
+
+# ---------------------------------------------------------------------------
+# Checks, faults and the recovery ladder under the group
+# ---------------------------------------------------------------------------
+
+#: (case, codec) of the faults section: demote only under a lossy codec
+FAULT_CASES = [(case, codec) for case, (codecs, _) in world.fault_cases("standard", SEED).items()
+               if case != "detect" for codec in codecs]
+#: the recovery each case must take (``None``: no recovery)
+WANT_ACTION = {"clean": None, "retry": "retry", "demote": "demote", "readvise": "readvise"}
+
+
+def _ref_faults(fp):
+    """The port's ``FaultPlan`` as the reference's."""
+    if fp is None:
+        return None
+    return RF.FaultPlan(seed=fp.seed, specs=tuple(RF.FaultSpec(**dataclasses.asdict(s)) for s in fp.specs),
+                        active_calls=fp.active_calls)
+
+
+def _ref_plan(strategy: str, pattern):
+    return ref_fuse(ref_exchange.plan(strategy, pattern))
+
+
+@pytest.mark.parametrize("case, codec", FAULT_CASES)
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES)
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_guarded_exchange_equals_stacked_rows_and_reference(worlds, topo, strategy, case, codec):
+    ranks = worlds[topo]
+    _, _, part, _ = _port(topo)
+    _, _, ref_part, _ = _ref(topo)
+    kw = world.fault_cases(strategy, SEED)[case][1]
+    full = world.fault_payload(_topo(topo), part.rows_per_rank, SEED)
+    for mode in world.MODES:
+        key = f"{case}|{strategy}|{mode}|{codec}"
+        st = IrregularExchange(part.pattern, strategy, device="cpu", wire=codec, **kw)
+        halo, rec = world._guarded(st, torch.as_tensor(full), mode)
+        assert rec["error"] is None, rec
+        action = None if rec["recovery"] is None else rec["recovery"].split(":")[0]
+        assert action == WANT_ACTION[case], (key, rec["recovery"])
+        # the attempt that succeeded, on the reference's own plan
+        succ = (strategy, codec) if rec["recovery"] is None else tuple(rec["recovery"].split(":", 1)[1].split("/"))
+        if case == "readvise":
+            assert succ[0] != strategy and succ[1] == "none", succ
+        want = ref_exchange.execute_numpy(_ref_plan(succ[0], ref_part.pattern), full, succ[1],
+                                          faults=_ref_faults(kw.get("faults")), fault_call=rec["calls"] - 1,
+                                          verify=True)
+        np.testing.assert_array_equal(_bits(halo.numpy()), _bits(want), err_msg=key)
+        for r, rank in enumerate(ranks):
+            got = rank["fault_records"][key]
+            assert (got["recovery"], got["events"], got["error"]) == (rec["recovery"], rec["events"], None), (r, key)
+            bits = np.asarray(rank["fault_halos"][key], dtype=np.int32)
+            np.testing.assert_array_equal(bits[0], _bits(halo[r].numpy()), err_msg=f"rank {r} {key}")
+
+
+@pytest.mark.parametrize("codec", world.FAULT_CODECS)
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES)
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_persistent_fault_raises_on_every_rank_with_the_stacked_hop(worlds, topo, strategy, codec):
+    ranks = worlds[topo]
+    _, _, part, _ = _port(topo)
+    _, _, ref_part, _ = _ref(topo)
+    kw = world.fault_cases(strategy, SEED)["detect"][1]
+    full = world.fault_payload(_topo(topo), part.rows_per_rank, SEED)
+    fields = ("strategy", "stage_kind", "op_index", "round_index", "hop_class", "codec")
+    for mode in world.MODES:
+        key = f"detect|{strategy}|{mode}|{codec}"
+        st = IrregularExchange(part.pattern, strategy, device="cpu", wire=codec, **kw)
+        halo, rec = world._guarded(st, torch.as_tensor(full), mode)
+        assert halo is None and rec["error"] is not None, key
+        plan_ = _ref_plan(strategy, ref_part.pattern if mode == "barrier"
+                          else ref_exchange.split_phase(ref_part.pattern).remote)
+        with pytest.raises(RF.ExchangeIntegrityError) as info:
+            ref_exchange.execute_numpy(plan_, full, codec, faults=_ref_faults(kw["faults"]), verify=True)
+        want = {f: rec["error"][f] for f in fields}
+        assert info.value.diagnostics() == want, key
+        errors = [rank["fault_records"][key]["error"] for rank in ranks]
+        assert all(e is not None and {f: e[f] for f in fields} == want for e in errors), (key, errors)
+        # one violation on every rank: the world's maximum
+        assert len({e["violation"] for e in errors}) == 1 and errors[0]["violation"] > 0, (key, errors)
+
+
+@pytest.mark.parametrize("name", ["verify", "retry"])
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_guarded_solves_match_reference(worlds, topo, name):
+    ranks = worlds[topo]
+    _, _, ref_part, _ = _ref(topo)
+    b = world.inputs(_topo(topo), ref_part.rows_per_rank, SEED, MM_COLS)["b"]
+    faults = None
+    if name == "retry":
+        faults = RF.FaultPlan(seed=SEED + 11, specs=(RF.FaultSpec(kind="corrupt"),), active_calls=(0,))
+    ref_op = NumpySpMV(ref_part, strategy=world.FAULT_SOLVE_STRATEGY, verify=True, faults=faults)
+    want = ref_cg(ref_op, b, tol=world.TOL_SOLVE, maxiter=world.MAXITER)
+    if name == "retry":
+        assert want.status == f"converged+exchange:retry:{world.FAULT_SOLVE_STRATEGY}/none"
+    runs = [r["fault_solve_runs"][name] for r in ranks]
+    assert {r["status"] for r in runs} == {want.status}, (runs[0]["status"], want.status)
+    assert abs(runs[0]["iterations"] - want.iterations) <= 1, (runs[0]["iterations"], want.iterations)
+    x = np.concatenate([np.asarray(r["x"], np.float32) for r in runs])
+    np.testing.assert_allclose(x, want.x, rtol=X_TOL, atol=X_TOL)
+    clean = ranks[0]["solves"]["cg"]["standard|False"]["residuals"]
+    assert all(r["residuals"] == clean for r in runs)
+
+
+# ---------------------------------------------------------------------------
+# The reduction tree on a group
+# ---------------------------------------------------------------------------
+
+DOTS_LEN = 64
+
+
+@pytest.fixture(scope="module")
+def group_dots():
+    """Every rank's tree and compressed dots, an in-process world per topology."""
+    return {t: world.run_world(world.dots, _topo(t), device="cpu", timeout_s=120.0,
+                               kwargs=dict(length=DOTS_LEN, seed=SEED)) for t in sorted(WORLDS)}
+
+
+@pytest.fixture(scope="module")
+def ref_compressed_dots(tmp_path_factory):
+    """The reference's ``dot_hierarchical(..., compressor=Compressor())``
+    under ``shard_map`` on 8 forced host devices (the 2x2 mesh on four of
+    them), and the agreed scale of each pair: ``{topo: [(value, scale)]}``."""
+    d = tmp_path_factory.mktemp("dots")
+    arrays = {}
+    for t in sorted(WORLDS):
+        for i, (x, y) in enumerate(world.dot_operands(_topo(t), DOTS_LEN, SEED)):
+            arrays[f"{t}_{i}_x"], arrays[f"{t}_{i}_y"] = x, y
+    np.savez(d / "in.npz", **arrays)
+    run_devices(
+        f"""
+        import json
+        import numpy as np, jax, jax.numpy as jnp
+        from jax.sharding import Mesh
+        from repro.comm import PodTopology
+        from repro.comm.compression import Compressor
+        from repro.solve import DeviceReductions
+
+        data = np.load({str(d / "in.npz")!r})
+        out = {{}}
+        for t in {sorted(WORLDS)!r}:
+            npods, ppn = (int(v) for v in t.split("x"))
+            topo = PodTopology(npods=npods, ppn=ppn)
+            mesh = Mesh(np.array(jax.devices()[: topo.nranks]).reshape(npods, ppn), ("pod", "local"))
+            red = DeviceReductions(topo, mesh, compressor=Compressor())
+            out[t] = [red.dot(jnp.asarray(data[f"{{t}}_{{i}}_x"]), jnp.asarray(data[f"{{t}}_{{i}}_y"]))
+                      for i in range({len(world.dot_operands(_topo("2x2"), 1, 0))})]
+        with open({str(d / "out.json")!r}, "w") as f:
+            json.dump(out, f)
+        """,
+        devices=8,
+    )
+    return json.loads((d / "out.json").read_text())
+
+
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_group_tree_is_bitwise_numpy_reductions(group_dots, topo):
+    t = _topo(topo)
+    for i, (x, y) in enumerate(world.dot_operands(t, DOTS_LEN, SEED)):
+        want = NumpyReductions(t).dot(x, y)
+        assert want == RefNumpyReductions(RefTopology(npods=t.npods, ppn=t.ppn)).dot(x, y)
+        got = {float.fromhex(r["dots"][i]["tree"]) for r in group_dots[topo]}
+        assert got == {want} and float(want).hex() == group_dots[topo][0]["dots"][i]["tree"], (i, got, want)
+
+
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_group_compressed_tree_is_one_quantum_from_the_reference(group_dots, ref_compressed_dots, topo):
+    t = _topo(topo)
+    for i, (x, y) in enumerate(world.dot_operands(t, DOTS_LEN, SEED)):
+        got = {r["dots"][i]["compressed"] for r in group_dots[topo]}
+        assert len(got) == 1, (i, got)  # every rank the same bits
+        value = float.fromhex(got.pop())
+        part = (x.astype(np.float64) * y).reshape(t.nranks, -1).sum(axis=1)
+        pods = part.reshape(t.npods, t.ppn).sum(axis=1)
+        quantum = max(np.abs(pods).max() / 127.0, np.finfo(np.float64).tiny)
+        exact = NumpyReductions(t).dot(x, y)
+        assert value != exact  # the inter-pod hop did quantize
+        assert abs(value - ref_compressed_dots[topo][i]) <= quantum, (i, value, ref_compressed_dots[topo][i], quantum)
+
+
+@pytest.mark.parametrize("ppn", [4, 8, 16])
+def test_tree_levels_sum_in_numpy_reductions_order(ppn):
+    """The group tree's two levels (:func:`_row_sum` over the pod's
+    partials, then over the pod sums) are bitwise ``_tree_sum``; from ppn 8
+    numpy's pairwise order differs from a left-to-right sum, so the pin
+    matters there."""
+    rng = np.random.default_rng(ppn)
+    differs = 0
+    for npods in (1, 2, 3, 4):
+        t = PodTopology(npods=npods, ppn=ppn)
+        for _ in range(200):
+            p = rng.normal(size=t.nranks) * 10.0 ** rng.integers(-8, 9, size=t.nranks)
+            pods = [_row_sum(p[q * ppn : (q + 1) * ppn]) for q in range(npods)]
+            assert _row_sum(np.asarray(pods)) == _tree_sum(p, t)
+            differs += functools.reduce(lambda a, b: a + b, p[:ppn].tolist()) != _row_sum(p[:ppn])
+    assert (differs > 0) == (ppn >= 8), differs
