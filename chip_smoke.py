@@ -14,7 +14,13 @@ before it and read just after:
 * the same case study on a real process group (``repro_torch.launch.world``):
   16 processes of one rank each, all on this card, joined by gloo and
   staged through host memory; kernels B1/B2 at ``g = 1`` in every rank,
-  counted per rank in the child processes against a predicted count;
+  counted per rank in the child processes against a predicted count; in
+  the same world one llama4-scout MoE layer at full width (d_model 5120, 16
+  experts of 8192, top-1, one expert per process, bf16) dispatched by the
+  exchange over the world's ``("pod", "local")`` ``DeviceMesh``; no kernel
+  (the experts are GEMMs, as in the reference); and the train and serve
+  launchers' ``--mesh 2x2`` on this card, which raise before they spawn
+  (gloo has no CUDA path for DTensor's all-gather, probed here);
 * the same case study solved whole on the device: CG and BiCGStab as
   replayed CUDA graphs (``repro_torch.solve.fused``); kernel B1;
 * the serving executor draining coalesced batches of the case study's
@@ -67,6 +73,9 @@ Phases, each of which fails the run on any error:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together; seconds, registers and spills printed);
+1b. the fused CG's profiled solve (``fused_profile``) in a child process
+   of its own, before any other process has used the card: B1's kernels in
+   its trace equal to the launches counted from the graph replays;
 2. the examples (``examples``): each of the ten runs above in a child
    process on the card, its exit code, the reference's expected line and
    its launch gate checked, its wall seconds recorded; then B1-B4 at the
@@ -162,17 +171,21 @@ Phases, each of which fails the run on any error:
    a transient fault, host reads per solve; then ms/iteration of fused and
    host loop over 200 iterations (wire none / int8 / checked), a block-size
    sweep on the converging solves and the 200-iteration horizon, and the
-   fused solve's busy share (B1's launches there are the captured launches
-   times the replays, held to the profiler's count of B1 kernels in a
-   profiled solve); the last phase in this process, because after it
-   ``torch.profiler`` records no device activity here;
+   busy share of phase 1b's profiled solve; the last phase in this process,
+   because after its graph replays ``torch.profiler`` records no device
+   activity here;
 21. the world (``world``): the case study on 16 processes over gloo in one
     child process (see ``phase_world``): every rank's halos, SpMV and solves
     bitwise the stacked run's rows; checks, faults and the recovery ladder
     agreed by every rank and bitwise the stacked guarded exchange; the
     on-pod-then-inter-pod reduction tree, plain and int8-compressed; its
-    launches as predicted, the guards; after ``fused``, which it would
-    otherwise cost two profiler records;
+    launches as predicted, the guards; the MoE exchange dispatch at full
+    width on the world's mesh (bitwise across strategies and the mesh
+    all-to-all, bitwise the stacked exchange, the stacked run's slot
+    counts, the int8 wire bitwise the stacked int8 run, planning once; ms
+    per call);
+    then the gloo probe and the launchers' ``--mesh`` raise; last, so no
+    other process shares the card with a profiled phase;
 22. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
@@ -1111,12 +1124,93 @@ def sim_case(comm, serving, testing):
         window=1e-3, max_width=8, chaos=storm, deadline_s=0.05, strategy="two_step"))
 
 
-def phase_fused(ctx) -> None:
-    """The whole-solve CG/BiCGStab as replayed CUDA graphs at the case
-    study's size, against the host loops on the same operators."""
+def fused_profile() -> dict:
+    """The fused CG's profiled solve (``python3 chip_smoke.py --fused-profile
+    OUT``, a process of its own): the case study's operator with the
+    advisor's strategy, one warm-up solve of ``FUSED_TIMED_ITERS`` iterations
+    (it captures), then the same solve under ``torch.profiler``: its wall and
+    device ms per iteration, busy share, top kernels, and B1's kernels in the
+    trace beside the launches counted from the graph replays."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.comm import PodTopology
+    from repro_torch.kernels.spmv_ell import spmv_ell
+    from repro_torch.solve import fused_cg, spd_system
+    from repro_torch.solve import fused as F
+    from repro_torch.sparse import DistributedSpMV, partition_csr, thermal_like
+
+    topo = PodTopology(npods=NPODS, ppn=PPN)
+    part = partition_csr(spd_system(thermal_like(SIDE * SIDE, np.random.default_rng(SEED))), topo)
+    op = DistributedSpMV(part, strategy="auto")
+    rng = np.random.default_rng(SEED + 13)
+    b = torch.as_tensor(rng.normal(size=(topo.nranks, part.rows_per_rank)).astype(np.float32), device="cuda")
+    fused_cg(op, b, tol=0.0, maxiter=FUSED_TIMED_ITERS)  # warm-up and capture
+    torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # the launch count derived from the replays, held to the profiler's
+    # count of B1 kernels in the same solve
+    spmv_ell.launches = 0
+    F.graph_launches.update(spmv_ell=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = fused_cg(op, b, tol=0.0, maxiter=FUSED_TIMED_ITERS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0]
+    device_ms = sum(device_us(e) for e in events) / 1e3
+    return {
+        "strategy": op.strategy,
+        "iterations": r.iterations,
+        "wall_ms_per_iteration": wall / r.iterations,
+        "device_ms_per_iteration": device_ms / r.iterations,
+        "device_busy_share": device_ms / wall,
+        "b1_kernels_in_trace": sum(e.count for e in events if "spmv_ell" in e.key),
+        "b1_launches_counted": spmv_ell.launches + F.graph_launches["spmv_ell"],
+        "top_kernels": [
+            {"name": e.key[:80], "calls_per_iteration": e.count / r.iterations,
+             "us_per_iteration": device_us(e) / r.iterations}
+            for e in sorted(events, key=device_us, reverse=True)[:10]
+        ],
+    }
+
+
+def phase_fused_profile(ctx) -> None:
+    """:func:`fused_profile` in a child process, started right after the
+    build, before any other process has used the card: after many graph
+    replays, or with other processes on the card before it, a profiler in
+    one process has recorded no device activity or lost B1 records
+    (ROADMAP §C).  The B1 kernels in its trace must equal the launches
+    counted from the replays, exactly."""
+    out = os.path.join(HERE, "chiprun_out", "fused_profile.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--fused-profile", out], capture_output=True,
+                          text=True, timeout=600, cwd=HERE, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"fused_profile: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        prof = json.load(f)
+    prof["child_s"] = time.perf_counter() - t0
+    ctx["fused_profile"] = prof
+    log("[fused_profile] " + json.dumps(prof))
+    if prof["b1_kernels_in_trace"] == 0:
+        raise AssertionError("fused_profile: the profiler recorded no B1 kernel")
+    if prof["b1_kernels_in_trace"] != prof["b1_launches_counted"]:
+        raise AssertionError(f"fused_profile: B1 kernels in the trace {prof['b1_kernels_in_trace']} != "
+                             f"launches counted from the replays {prof['b1_launches_counted']}")
+
+
+def phase_fused(ctx) -> None:
+    """The whole-solve CG/BiCGStab as replayed CUDA graphs at the case
+    study's size, against the host loops on the same operators (the
+    profiled solve is ``fused_profile``'s, in a process of its own)."""
+    import torch
 
     from repro_torch.comm import (
         ExchangeIntegrityError,
@@ -1314,40 +1408,11 @@ def phase_fused(ctx) -> None:
     if not all(row["same_history"] for per_u in sweep.values() for row in per_u.values()):
         failures.append("block sweep: a block size changed a history")
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    fused_cg(op, b, tol=0.0, maxiter=FUSED_TIMED_ITERS)  # the entry exists: no capture below
-    torch.cuda.synchronize()
-    # the launch count derived from the replays, held to the profiler's
-    # count of B1 kernels in the same solve
-    spmv_ell.launches = 0
-    F.graph_launches.update(spmv_ell=0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r = fused_cg(op, b, tol=0.0, maxiter=FUSED_TIMED_ITERS)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0]
-    device_ms = sum(device_us(e) for e in events) / 1e3
-    b1_seen = sum(e.count for e in events if "spmv_ell" in e.key)
-    timings["profile"] = {
-        "wall_ms_per_iteration": wall / r.iterations,
-        "device_ms_per_iteration": device_ms / r.iterations,
-        "device_busy_share": device_ms / wall,
-        "b1_kernels_in_trace": b1_seen,
-        "b1_launches_counted": spmv_ell.launches + F.graph_launches["spmv_ell"],
-        "top_kernels": [
-            {"name": e.key[:80], "calls_per_iteration": e.count / r.iterations,
-             "us_per_iteration": device_us(e) / r.iterations}
-            for e in sorted(events, key=device_us, reverse=True)[:10]
-        ],
-    }
-    log("[fused] profile: " + json.dumps(timings["profile"]))
-    if not events:
-        failures.append("the profiler recorded no device time")
-    if b1_seen != timings["profile"]["b1_launches_counted"]:
-        failures.append("B1 launches counted from the replays != the profiler's count")
+    # the profiled solve ran in a process of its own right after the build
+    # (phase fused_profile): its operator's strategy is this one's
+    timings["profile"] = ctx["fused_profile"]
+    if timings["profile"]["strategy"] != strat:
+        failures.append(f"the profiled solve ran {timings['profile']['strategy']}, not {strat}")
     summary["timings"] = timings
     ctx["details"]["fused"] = summary
     ctx["launches"]["spmv_ell"] += launches
@@ -3211,6 +3276,49 @@ def phase_mesh(ctx) -> None:
 #: phase ``world``: the case study on a gloo world of one process per rank
 WORLD_TOPO = "4x4"
 WORLD_TIMEOUT_S = 600
+#: the launchers in phase world: a DATAxMODEL mesh of that many processes
+#: on the card, with the tiny presets (stablelm-3b trained, hymba-1.5b
+#: served), as a user starts them
+LAUNCH_MESH = "2x2"
+LAUNCH_TRAIN = ["--arch", "stablelm-3b", "--preset", "tiny", "--steps", "10"]
+LAUNCH_SERVE = ["--arch", "hymba-1.5b", "--preset", "tiny"]
+
+
+def world_launchers(ctx) -> dict:
+    """The launchers' ``--mesh`` on the card: first which collectives of a
+    DTensor program gloo runs on CUDA tensors (``probe_collectives``, one
+    world of 2 processes per collective; the plain ``torch.distributed``
+    all-gather beside them, logged), which must be all but
+    ``GLOO_CUDA_MISSING``; then ``launch.train`` and ``launch.serve`` with
+    ``--mesh LAUNCH_MESH`` on the CUDA device, as a user starts them, which
+    must raise before they spawn, naming the missing collective and ROADMAP
+    A.6.3b item 5 (no rank is carried to the host unasked)."""
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import GLOO_CUDA_MISSING
+    from repro_torch.launch.world import COLLECTIVES, probe_collectives
+
+    card = ctx["details"]["card"]
+    t0 = time.perf_counter()
+    probe = probe_collectives()
+    seconds = time.perf_counter() - t0
+    log(f"[world] gloo collectives on CUDA tensors, as DTensor issues them: {json.dumps(probe)} "
+        f"({seconds:.2f} s; {card})")
+    checks = {f"gloo on CUDA: every DTensor collective but {list(GLOO_CUDA_MISSING)} runs": all(
+        (probe[k] != "ok") == (k in GLOO_CUDA_MISSING) for k in COLLECTIVES)}
+    raised = {}
+    for name, main, argv in (("train", train.main, LAUNCH_TRAIN), ("serve", serve.main, LAUNCH_SERVE)):
+        t0 = time.perf_counter()
+        try:
+            main([*argv, "--mesh", LAUNCH_MESH])
+            raised[name] = "did not raise"
+        except NotImplementedError as e:
+            raised[name] = str(e)
+        checks[f"{name} --mesh {LAUNCH_MESH} on CUDA raises before it spawns, naming "
+               f"{GLOO_CUDA_MISSING} and A.6.3b item 5"] = (
+            all(c in raised[name] for c in GLOO_CUDA_MISSING) and "A.6.3b item 5" in raised[name]
+            and time.perf_counter() - t0 < 5.0)
+    log(f"[world] launchers --mesh {LAUNCH_MESH} on CUDA: {json.dumps(raised)}")
+    return {"probe": probe, "probe_s": seconds, "raised": raised, "checks": checks}
 
 
 def phase_world(ctx) -> None:
@@ -3252,7 +3360,17 @@ def phase_world(ctx) -> None:
     * each rank's B1/B2 launches equal to the count predicted from its calls
       (2 B1 per matvec, 2 B2 per ``matmat``);
     * the guards (NCCL, the fused solve, a rank with another strategy, a
-      rank with another fault plan) raise.
+      rank with another fault plan) raise;
+    * the MoE section: one llama4-scout layer at full width (the world's
+      layer on CUDA ranks) on the 4 x 4 ``("pod", "local")`` ``DeviceMesh``,
+      one expert per process, uniform and skewed routing: each rank's
+      output bitwise across the four strategies and ``auto`` and bitwise the
+      mesh all-to-all, the gathered rows bitwise the stacked exchange on
+      rank 0, the slots summed over the ranks the stacked run's, the int8
+      wire bitwise the stacked int8 run and not the full-precision output,
+      no planning after the first of five calls.
+
+    Then :func:`world_launchers`: the gloo probe and the launchers' raise.
 
     Logged beside the card's name and power limit: ms per staged exchange
     per strategy, ms per checked vs unchecked exchange, ms per dot (the
@@ -3266,6 +3384,9 @@ def phase_world(ctx) -> None:
     """
     import signal
     from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import MOE_TIMED
 
     card = ctx["details"]["card"]
     out_dir = os.path.join(HERE, "chiprun_out", "world")
@@ -3316,6 +3437,21 @@ def phase_world(ctx) -> None:
         f"{[m.get('host_private_bytes') for m in mem]} B ({card})")
     log(f"[world] launches per rank {[x['launches'] for x in ranks]}, predicted "
         f"{[x['predicted_launches'] for x in ranks]}")
+    moe = r0["moe"]
+    log(f"[world] moe: {MOE_ARCH} layer at full width on the 4x4 (pod, local) mesh, d_model {moe['d_model']}, "
+        f"{moe['experts']} experts of {moe['d_ff_expert']}, top-{moe['top_k']}, batch {moe['batch']}, bf16")
+    for key, ms in moe["ms"].items():
+        log(f"[world] moe {key}: {ms:.4f} ms per call (slowest rank, host wall, mean of {MOE_TIMED} calls, the "
+            f"count all-gather of 50; stacked: rank 0 alone) ({card})")
+    log(f"[world] moe vs the stacked exchange on rank 0: {json.dumps(moe['stacked'])}; int8 wire max abs err "
+        f"against full precision {moe['int8_max_abs_err']}; cache [after call 1, after call 5] "
+        f"{json.dumps(moe['cache'])}; auto picked "
+        f"{moe['uniform|auto_picked']} / {moe['skewed|auto_picked']}")
+    log(f"[world] moe slots summed over the ranks (routed, dropped, shipped): "
+        + json.dumps({k: v for k, v in moe["tally"].items() if k.endswith("|summed")}) + "; stacked "
+        + json.dumps(moe["tally"]["stacked"]))
+    log(f"[world] moe device peak allocated per rank (whole world run): "
+        f"{[x['moe'].get('device_peak_allocated_bytes') for x in ranks]} B ({card})")
     def gates_of(part: str) -> int:
         return sum(k.startswith(part + " ") for x in ranks for k in x["gates"])
 
@@ -3330,14 +3466,19 @@ def phase_world(ctx) -> None:
         "every rank launched B1 and B2 as predicted": all(
             x["launches"] == x["predicted_launches"] and x["launches"]["spmv_ell"] > 0 and x["launches"]["spmm_ell"] > 0
             for x in ranks),
+        f"{gates_of('moe')} moe gates ran, the full-width layer": gates_of("moe") > 0 and all(
+            x["moe"]["d_model"] == get_config(MOE_ARCH).d_model for x in ranks),
     }
     ctx["details"]["world"] = {
         "seconds": seconds, "start_s": rec["start_s"], "total_s": rec["total_s"],
         "exchange_ms": r0["exchange_ms"], "solves": r0["solves"], "fault_ms": r0["fault_ms"],
         "fault_solves": r0["fault_solves"], "reductions": r0["reductions"], "memory": mem,
         "launches": [x["launches"] for x in ranks], "setup_s": [x["setup_s"] for x in ranks],
-        "phase_s": [x["phase_s"] for x in ranks], "spmv_rel_err": r0["spmv_rel_err"],
+        "phase_s": [x["phase_s"] for x in ranks], "spmv_rel_err": r0["spmv_rel_err"], "moe": moe,
     }
+    launchers = world_launchers(ctx)
+    ctx["details"]["world"]["launchers"] = launchers
+    checks.update(launchers["checks"])
     for name, ok in checks.items():
         log(f"[world] {name}: {ok}")
     if not all(checks.values()):
@@ -3348,6 +3489,8 @@ def phase_world(ctx) -> None:
 #: the phases in the order ``main`` runs them
 PHASES = (
     ("build", phase_build),
+    # its own process, before any other process has used the card
+    ("fused_profile", phase_fused_profile),
     ("examples", phase_examples),
     ("mesh", phase_mesh),
     ("setup", phase_setup),
@@ -3382,6 +3525,10 @@ PHASES = (
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--fused-profile"]:
+        with open(sys.argv[2], "w") as f:
+            json.dump(fused_profile(), f)
+        return 0
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available; this script runs only on a GPU")
         return 2

@@ -8,6 +8,12 @@ number.  A train state ``{"params": p, "opt": OptState}`` therefore writes
 ``params/embed``, ``opt/.step``, ``opt/.mu/embed``, ... as the reference
 does.  numpy has no bfloat16: a bfloat16 leaf is written as float32
 (exactly), and a load casts every array to its template leaf's dtype.
+
+A DTensor leaf (a state sharded over a ``DeviceMesh``) is saved whole: every
+rank of the mesh gathers it (a collective, so every rank snapshots the same
+tree), and only the rank whose manager writes (``writer=True``, rank 0)
+writes it.  A DTensor leaf of the template restores as this rank's shard of
+the whole array, so a checkpoint does not depend on the mesh that wrote it.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.errors import detached
@@ -62,6 +69,9 @@ def _to_host(leaf, copy: bool = False) -> np.ndarray:
     shares its memory (a bfloat16 or CUDA leaf is copied anyway)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if isinstance(leaf, DTensor):  # collective: every rank of its mesh gathers it
+            leaf = leaf.full_tensor()
+            copy = False  # a fresh tensor
         if leaf.dtype == torch.bfloat16:
             return leaf.float().cpu().numpy()
         host = leaf.cpu().numpy()
@@ -81,7 +91,12 @@ def _unflatten_into(template, arrays: Dict[str, np.ndarray], device: torch.devic
         arr = arrays[key]
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"leaf {key}: shape {arr.shape} != expected {tuple(like.shape)}")
-        return torch.as_tensor(arr).to(device=device, dtype=like.dtype)
+        t = torch.as_tensor(arr).to(device=device, dtype=like.dtype)
+        if not isinstance(like, DTensor):
+            return t
+        from repro_torch.models.sharding import from_whole
+
+        return from_whole(t, like.device_mesh, like.placements)
 
     return map_state(leaf, template)
 
@@ -143,9 +158,12 @@ class CheckpointManager:
     traceback's text as a note: the traceback itself would hold the worker's
     frames, and through them the whole host snapshot, until then."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.directory = directory
         self.keep = keep
+        #: whether this manager writes; a mesh's other ranks only take part
+        #: in gathering the snapshot
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         os.makedirs(directory, exist_ok=True)
@@ -153,6 +171,8 @@ class CheckpointManager:
     def save_async(self, step: int, state, extra: Optional[dict] = None) -> None:
         self.wait()  # bound outstanding writes to one
         snapshot = map_state(lambda _, leaf: _to_host(leaf, copy=True), state)  # host copy now
+        if not self.writer:
+            return
 
         def _work():
             try:

@@ -1290,6 +1290,7 @@ def exchange_for(
     message_cap_bytes: int = 16384,
     elem_bytes: int = 4,
     wire: str = "none",
+    group=None,
 ) -> IrregularExchange:
     """Memoized :class:`IrregularExchange` constructor for dynamic callers.
 
@@ -1298,12 +1299,20 @@ def exchange_for(
     ``(fingerprint, strategy, caps, wire, device)`` request, so hot routing
     buckets cost one dict lookup.  The key holds the resolved device
     (``None`` means the CUDA device).  Cleared by :func:`clear_caches`.
+
+    Under an :class:`~repro_torch.comm.topology.ExchangeGroup` (``group``)
+    the key also holds this rank and the group's process groups: a miss
+    builds the exchange, which is collective (every rank checks the plans
+    agree), and a hit does not, so every rank must request the same
+    patterns in the same order.
     """
-    device = resolve_device(device)
+    device = device_for_rank(group.rank) if device is None and group is not None else resolve_device(device)
     key = (pattern.fingerprint(), strategy, message_cap_bytes, elem_bytes, wire, str(device))
+    if group is not None:
+        key += (group.rank, id(group.local), id(group.pod))
     return _lru_get(
         _EXCHANGE_CACHE, key, EXCHANGE_CACHE_MAX,
         lambda: IrregularExchange(pattern, strategy, device=device, message_cap_bytes=message_cap_bytes,
-                                  elem_bytes=elem_bytes, wire=wire),
+                                  elem_bytes=elem_bytes, wire=wire, group=group),
         "exchange",
     )

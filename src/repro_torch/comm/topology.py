@@ -89,7 +89,7 @@ def check_backend(backend: str) -> None:
     """Only gloo runs: NCCL raises, naming its ROADMAP item."""
     if backend == "nccl":
         raise NotImplementedError(
-            "the NCCL transport is ROADMAP A.6.3b: one card cannot hold a NCCL world of two "
+            "the NCCL transport is ROADMAP A.6.3b item 5: one card cannot hold a NCCL world of two "
             "ranks, so only backend='gloo' (staged through host memory) runs"
         )
     if backend != "gloo":
@@ -122,3 +122,31 @@ def make_exchange_group(topo: PodTopology, backend: str = "gloo", timeout=None) 
         [[topo.rank_of(p, l) for p in range(topo.npods)] for l in range(topo.ppn)], **kw
     )
     return ExchangeGroup(topo=topo, rank=dist.get_rank(), local=local, pod=pod, backend=backend)
+
+
+def exchange_group_of_mesh(mesh) -> ExchangeGroup:
+    """The :class:`ExchangeGroup` of a ``("pod", "local")`` ``DeviceMesh``
+    over the whole default world, made of the mesh's own ``local`` and
+    ``pod`` dimension groups (no new subgroup): the counterpart of the
+    reference's ``make_exchange_mesh`` mesh handed to an exchange.
+
+    The exchange addresses world ranks as ``topo.rank_of(pod, local)``, so
+    the mesh must lay the world out pod-major, as ``init_device_mesh`` does.
+    Equal meshes give equal groups (their process groups are the mesh's).
+    """
+    import torch.distributed as dist
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != WORLD_AXES:
+        raise ValueError(f"an exchange group needs a {WORLD_AXES} mesh, got axes {names}")
+    topo = PodTopology(npods=mesh.size(0), ppn=mesh.size(1))
+    world = dist.get_world_size()
+    if world != topo.nranks:
+        raise ValueError(f"the {topo.npods}x{topo.ppn} mesh must span the world; this one has {world} processes")
+    layout = mesh.mesh.reshape(-1).tolist()
+    if layout != [topo.rank_of(p, l) for p in range(topo.npods) for l in range(topo.ppn)]:
+        raise ValueError(f"the mesh lays the ranks out as {layout}, not pod-major")
+    backend = dist.get_backend(mesh.get_group("local"))
+    check_backend(backend)
+    return ExchangeGroup(topo=topo, rank=dist.get_rank(), local=mesh.get_group("local"),
+                         pod=mesh.get_group("pod"), backend=backend)

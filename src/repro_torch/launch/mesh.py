@@ -1,4 +1,4 @@
-"""Mesh builders: the reference's production meshes as ``DeviceMesh``, and the launchers' one card.
+"""Mesh builders: the reference's production meshes as ``DeviceMesh``, and the launchers' mesh.
 
 ``make_production_mesh`` is a function (not a module-level constant) so that
 importing this module touches no device or process-group state, as in the
@@ -56,15 +56,57 @@ def init_fake_world(world_size: int, rank: int = 0) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> None:
-    """``None`` (one card, no mesh) for ``1x1``; anything else raises.
+#: the collectives of a DTensor program that gloo has no CUDA path for, as
+#: ``repro_torch.launch.world.probe_collectives`` found them on the card's
+#: torch (2.11): ``all_gather`` as DTensor issues it
+#: (``_functional_collectives.all_gather_tensor``) ends each process of the
+#: world with a segmentation fault, while reduce-scatter, all-to-all and
+#: all-reduce run
+GLOO_CUDA_MISSING: Tuple[str, ...] = ("all_gather",)
 
-    The train and serve launchers hold the whole model on one card; a mesh
-    of several cards for them needs a real several-card group (ROADMAP A.6.3).
-    """
-    if (data, model) != (1, 1):
-        raise ValueError(
-            f"mesh {data}x{model}: the port's launchers run on one card (mesh 1x1); "
-            "a several-card group for them waits for ROADMAP A.6.3"
+
+def check_mesh_device(device_type: str, data: int, model: int) -> None:
+    """Raise before a launcher spawns a ``data x model`` world of CUDA ranks
+    whose DTensor programs need a collective gloo cannot run on CUDA tensors
+    (:data:`GLOO_CUDA_MISSING`); the CPU, asked for, runs."""
+    if device_type == "cuda" and data * model > 1 and GLOO_CUDA_MISSING:
+        raise NotImplementedError(
+            f"mesh {data}x{model} on CUDA: the sharded programs issue {', '.join(GLOO_CUDA_MISSING)}, which the "
+            "gloo backend has no CUDA path for (the process dies), and one card cannot hold a NCCL world: "
+            "CUDA ranks wait for the NCCL transport, ROADMAP A.6.3b item 5; pass --device cpu for a mesh "
+            "of host ranks"
         )
-    return None
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
+    """The launchers' ``("data", "model")`` mesh: ``None`` (one device, no
+    mesh) for ``1x1``; otherwise a ``DeviceMesh`` of ``device_type`` over
+    the initialised default process group, whose world must hold
+    ``data * model`` processes (one rank each).
+
+    The reference's ``make_host_mesh`` lays its mesh over forced host
+    devices of one process; the port's ranks are processes, which
+    :func:`repro_torch.launch.world.run_world` spawns (the train and serve
+    launchers do so for ``--mesh``).
+    """
+    if (data, model) == (1, 1):
+        return None
+    check_mesh_device(device_type, data, model)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(f"mesh {data}x{model} needs an initialised process group of {data * model} processes")
+    if dist.get_world_size() != data * model:
+        raise ValueError(
+            f"mesh {data}x{model} needs a world of {data * model} processes; this one has {dist.get_world_size()}"
+        )
+    return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
+
+
+def parse_mesh(text: str) -> Tuple[int, int]:
+    """``"DxM"`` -> ``(D, M)``, each at least 1."""
+    data, model = (int(x) for x in text.lower().split("x"))
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh {text!r}: both sizes must be at least 1")
+    return data, model

@@ -37,6 +37,17 @@ routing histogram of the served tokens over ``--npods`` x ``--ppn`` ranks;
 the serving simulator (``repro_torch.serving``), coalesced against
 sequential, and ``--chaos SEED`` re-runs the simulation under a seeded fault
 storm -- as the reference's launcher does.
+
+``--mesh DxM`` other than ``1x1`` serves on a ``("data", "model")`` mesh of
+``D * M`` processes, one rank each, joined by gloo (spawned by
+:func:`repro_torch.launch.world.run_launcher`, or this process's rank of a
+process group already initialised), as the reference's launcher passes its
+mesh: the model built with ``tp=M``, its weights drawn whole from the seed
+and sharded by the reference's rules, the prompts sharded over ``data``,
+``prefill`` / ``decode_step`` given the mesh.  Rank 0 prints.  The ranks
+run on the host (``--device cpu``); a mesh of CUDA ranks raises before it
+spawns (:func:`repro_torch.launch.mesh.check_mesh_device`: gloo has no CUDA
+path for the all-gather DTensor issues, ROADMAP A.6.3b item 5).
 """
 
 from __future__ import annotations
@@ -48,18 +59,19 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import HEAD_PAIRS, head_dims_supported
 from repro_torch.launch.presets import PRESETS
-from repro_torch.models.lm import LMModel
+from repro_torch.models.lm import LMModel, on_mesh
 from repro_torch.models.moe_dispatch import ExpertLoadHistogram
-from repro_torch.models.sharding import tree_items
+from repro_torch.models.sharding import distribute_params, from_whole, named_sharding, rules_for_mesh
 
 
 def build(arch: str, preset: str = "tiny", seed: int = 0, device: DeviceLike = None,
-          dtype: Optional[torch.dtype] = None, layers: Optional[int] = None):
+          dtype: Optional[torch.dtype] = None, layers: Optional[int] = None, tp: int = 1):
     """``(model, params)``: the model at ``preset`` with parameters drawn on
     ``device`` from a generator seeded by ``seed``.
 
@@ -67,7 +79,8 @@ def build(arch: str, preset: str = "tiny", seed: int = 0, device: DeviceLike = N
     its weights' together; one seed draws the same weights in every dtype.
     ``layers`` (default: the preset's) cuts the depth and nothing else; for
     a ``vlm`` it must be a multiple of ``cross_attn_every``, so that the cut
-    keeps the published share of cross-attention layers.
+    keeps the published share of cross-attention layers.  ``tp`` is the
+    ``"model"`` axis of the mesh the model will run on (``LMModel(tp=)``).
     """
     device = resolve_device(device)
     cfg = PRESETS[preset](get_config(arch))
@@ -79,7 +92,7 @@ def build(arch: str, preset: str = "tiny", seed: int = 0, device: DeviceLike = N
                 f"{cfg.name}: --layers {layers} is not a multiple of cross_attn_every {cfg.cross_attn_every}"
             )
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    model = LMModel(cfg)
+    model = LMModel(cfg, tp=tp)
     gen = torch.Generator(device=device).manual_seed(seed)
     return model, model.init(gen, device=device)
 
@@ -104,18 +117,23 @@ def make_context(vocab_size: int, batch: int, prompt_len: int, ctx_len: int, d_m
     return prompts, rng.normal(size=(batch, ctx_len, d_model)).astype(np.float32)
 
 
-def rehome_cache(model: LMModel, cache: dict, batch: int, max_len: int) -> dict:
-    """The prefill cache copied into zeroed buffers ``max_len`` deep (window
+def rehome_cache(model: LMModel, cache: dict, batch: int, max_len: int, mesh=None) -> dict:
+    """The prefill cache padded with zeros to ``max_len`` deep (window
     rings, SSM states and cross-attention K/V over the ``ctx_len`` context
-    keep their shape)."""
-    _, first = next(tree_items(cache))
-    full = model.init_cache(batch, max_len, model.dtype, first.device)
+    keep their shape); on a ``mesh`` the cache's leaves are DTensors."""
+    full = model.init_cache(batch, max_len, model.dtype, "meta")
 
-    def blend(dst, src):
-        dst[tuple(slice(0, s) for s in src.shape)] = src.to(dst.dtype)
-        return dst
+    def grow(dst, src):
+        src = src.to(dst.dtype)
+        for dim, (want, have) in enumerate(zip(dst.shape, src.shape)):
+            if want != have:
+                pad = torch.zeros((*src.shape[:dim], want - have, *src.shape[dim + 1:]), dtype=src.dtype,
+                                  device=src.device)
+                src = torch.cat([src, pad], dim=dim)
+        return src
 
-    return _zip_map(blend, full, cache)
+    with on_mesh(mesh):
+        return _zip_map(grow, full, cache)
 
 
 def _zip_map(fn, a, b):
@@ -138,33 +156,51 @@ def check_kernel_heads(model: LMModel) -> None:
             )
 
 
-@torch.inference_mode()
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl: str = "kernel",
-             ctx: Optional[torch.Tensor] = None) -> dict:
+             ctx: Optional[torch.Tensor] = None, mesh=None) -> dict:
     """Prefill ``prompts [B, S]`` (with the stub context embeddings ``ctx``
     of a ``vlm`` / ``enc_dec`` model) with ``impl``, then ``gen`` greedy tokens.
 
     Returns ``tokens [B, gen]``, ``logits`` (one float32 ``[B, vocab]`` per
     generated token: the prefill's last position, then each decode step's),
     and the host-clock seconds of the prefill (cache re-homing included) and
-    of the decode loop.
+    of the decode loop.  On a ``mesh``, ``params`` are its DTensors and
+    ``prompts`` / ``ctx`` whole tensors (the same on every rank), sharded
+    here by the reference's rules; every rank gathers each step's logits
+    and picks the same token (under ``no_grad``: DTensor parameters made
+    outside inference mode cannot be sliced inside it).
     """
+    with torch.inference_mode() if mesh is None else torch.no_grad():
+        return _generate(model, params, prompts, gen, impl, ctx, mesh)
+
+
+def _generate(model: LMModel, params: dict, prompts: torch.Tensor, gen: int, impl: str, ctx, mesh) -> dict:
     device = prompts.device
     if impl == "kernel" and device.type == "cuda":
         check_kernel_heads(model)
     B, S = prompts.shape
+    place = lambda t, logical: t
+    if mesh is not None:
+        rules = rules_for_mesh(mesh)
+        place = lambda t, logical: from_whole(t, mesh, named_sharding(mesh, rules, logical, t.shape))
+        prompts = place(prompts, ("batch", "seq"))
+        ctx = None if ctx is None else place(ctx, ("batch", None, None))
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, ctx, impl=impl)
-    cache = rehome_cache(model, cache, B, S + gen)
+    logits, cache = model.prefill(params, prompts, ctx, impl=impl, mesh=mesh)
+    cache = rehome_cache(model, cache, B, S + gen, mesh)
     _sync(device)
     t1 = time.perf_counter()
-    step_logits = [logits[:, -1].float()]
+    step_logits = [_whole(logits[:, -1:])[:, 0].float()]
     token = step_logits[0].argmax(dim=-1)[:, None]
     outs = [token]
     for t in range(gen - 1):
-        logits, cache = model.decode_step(params, token, cache, S + t)
-        step_logits.append(logits[:, 0].float())
+        logits, cache = model.decode_step(params, place(token, ("batch", "seq")), cache, S + t, mesh=mesh)
+        step_logits.append(_whole(logits)[:, 0].float())
         token = step_logits[-1].argmax(dim=-1)[:, None]
         outs.append(token)
     tokens = torch.cat(outs, dim=1)
@@ -256,6 +292,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--impl", choices=("kernel", "chunked", "dot"), default="kernel")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL, e.g. 2x2: that many processes")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (default: the preset's)")
     ap.add_argument("--advise-dispatch", action="store_true",
@@ -303,24 +340,45 @@ def report_dispatch(params, cfg, served, npods: int, ppn: int, simulate_n: int =
     return out
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    args = parse_args(argv)
-    model, params = build(args.arch, args.preset, args.seed, args.device, layers=args.layers)
+def run(args: argparse.Namespace, device: DeviceLike = None, mesh=None) -> dict:
+    """This rank's serve: the launcher's build, prompts and ``generate``;
+    rank 0 (or the only process) prints and runs ``--advise-dispatch``."""
+    tp = mesh.size(mesh.mesh_dim_names.index("model")) if mesh is not None else 1
+    model, params = build(args.arch, args.preset, args.seed, device, layers=args.layers, tp=tp)
     device = params["embed"].device
     cfg = model.cfg
     prompts, ctx = make_context(cfg.vocab_size, args.batch, args.prompt_len, model.ctx_len(), cfg.d_model,
                                 args.seed)
-    out = generate(model, params, torch.as_tensor(prompts, device=device), args.gen, impl=args.impl,
-                   ctx=None if ctx is None else torch.as_tensor(ctx, device=device))
-    print(f"{model.cfg.name} ({args.preset}, {model.param_count():,} parameters) on {device}: "
+    weights = params if mesh is None else distribute_params(params, mesh, rules_for_mesh(mesh),
+                                                            model.param_specs())
+    out = generate(model, weights, torch.as_tensor(prompts, device=device), args.gen, impl=args.impl,
+                   ctx=None if ctx is None else torch.as_tensor(ctx, device=device), mesh=mesh)
+    if mesh is not None and mesh.get_rank() != 0:
+        return out
+    where = device if mesh is None else f"{device} (mesh {args.mesh}, {mesh.size()} ranks)"
+    print(f"{model.cfg.name} ({args.preset}, {model.param_count():,} parameters) on {where}: "
           f"prefill {args.batch}x{args.prompt_len} in {out['prefill_s']:.3f}s; "
           f"decoded {args.gen} tokens/seq in {out['decode_s']:.3f}s")
-    print("generated:", out["tokens"].cpu().numpy()[:, :10])
+    print("generated:", out["tokens"].cpu().numpy()[:, :10], flush=True)
     if args.advise_dispatch:
         served = np.concatenate([prompts, out["tokens"].cpu().numpy()], axis=1)
         out["dispatch"] = report_dispatch(params, model.cfg, served, args.npods, args.ppn,
                                           args.simulate_serving, args.chaos)
     return out
+
+
+def summary(out: dict) -> dict:
+    """What a rank of a ``--mesh`` world returns: its tokens and times."""
+    return {"tokens": out["tokens"].cpu().tolist(), "prefill_s": out["prefill_s"], "decode_s": out["decode_s"]}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Serve (:func:`repro_torch.launch.world.run_launcher`): one rank's
+    ``generate`` output, or rank 0's ``tokens``, times and ``launches`` with
+    every rank's under ``"ranks"`` where ``--mesh`` spawned them."""
+    from repro_torch.launch.world import run_launcher
+
+    return run_launcher("repro_torch.launch.serve", argv)
 
 
 if __name__ == "__main__":

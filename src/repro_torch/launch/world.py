@@ -50,6 +50,18 @@ then holds its own ``[1, L]`` block and runs
 * B1/B2 launches per rank against a count predicted from the calls made;
 * the guards: NCCL, the fused solve, a rank with another strategy and a rank
   with another fault plan each raise;
+* the MoE exchange dispatch (on CUDA ranks one llama4-scout layer at full
+  width, one expert per rank in bf16, batch ``nranks x 1024``; on the host
+  the same layer narrowed) on the world's ``("pod", "local")``
+  ``DeviceMesh``, uniform and skewed routing: each rank's output bitwise
+  across the four strategies and ``auto`` and bitwise the mesh all-to-all
+  (``ep_axis=("pod", "local")``), the gathered output bitwise the stacked
+  ``_dispatch_exchange`` on rank 0, the slots routed / dropped / shipped
+  summed over the ranks equal to the stacked run's, the int8 wire bitwise
+  the stacked int8 run and not the full-precision output, planning on the
+  first of ``MOE_REPS`` uniform calls only; ms per layer call per strategy,
+  of the mesh all-to-all and of the stacked layer (mean of ``MOE_TIMED``)
+  and of the count all-gather (mean of 50);
 
 and writes ``DIR/world.json``; it exits 1 if any gate failed.
 """
@@ -69,7 +81,7 @@ import time
 import traceback
 from collections import Counter
 from datetime import timedelta
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -80,7 +92,7 @@ from repro_torch.comm.exchange import execute_numpy
 from repro_torch.comm.faults import ExchangeIntegrityError, FaultPlan, FaultSpec
 from repro_torch.comm.strategies import STRATEGY_NAMES, IrregularExchange, planned
 from repro_torch.comm.topology import PodTopology, check_backend, make_exchange_group
-from repro_torch.core.device import device_for_rank
+from repro_torch.core.device import device_for_rank, resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.spmv_ell import spmm_ell, spmv_ell
 from repro_torch.solve.fused import fused_cg
@@ -113,6 +125,12 @@ TOL_COMPRESSED = 1e-4
 MAXITER_COMPRESSED = 200
 #: dots per timing of the reduction tree and the flat all-gather
 DOT_REPS = 50
+#: the MoE section's layer (llama4-scout's, at full width on CUDA ranks),
+#: its strategies and timed calls
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_STRATEGIES = STRATEGY_NAMES + ("auto",)
+MOE_REPS = 5
+MOE_TIMED = 3
 
 
 class WorldError(RuntimeError):
@@ -129,7 +147,7 @@ class WorldError(RuntimeError):
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(rank: int, fn: Callable, topo: PodTopology, device: Optional[str], backend: str,
+def _rank_main(rank: int, fn: Callable, topo: Union[PodTopology, int], device: Optional[str], backend: str,
                timeout_s: float, store: str, out_dir: str, args: tuple, kwargs: dict) -> None:
     """One rank: join the world, run ``fn``, write its JSON result (or its
     traceback, and leave at once: the other ranks may be blocked in a
@@ -138,10 +156,10 @@ def _rank_main(rank: int, fn: Callable, topo: PodTopology, device: Optional[str]
         timeline = {"entered": time.time()}
         torch.set_num_threads(1)
         timeout = timedelta(seconds=timeout_s)
-        dist.init_process_group(backend, init_method=store, rank=rank, world_size=topo.nranks,
+        dist.init_process_group(backend, init_method=store, rank=rank, world_size=_nranks(topo),
                                 timeout=timeout)
         timeline["joined"] = time.time()
-        group = make_exchange_group(topo, backend, timeout=timeout)
+        group = rank if isinstance(topo, int) else make_exchange_group(topo, backend, timeout=timeout)
         timeline["grouped"] = time.time()
         dev = torch.device("cpu") if device == "cpu" else device_for_rank(rank)
         if dev.type == "cuda":
@@ -169,6 +187,7 @@ def _rank_main(rank: int, fn: Callable, topo: PodTopology, device: Optional[str]
 
 
 def _stop(procs) -> None:
+    procs = [p for p in procs if p.pid is not None]  # those started
     for p in procs:
         if p.exitcode is None:
             p.terminate()
@@ -194,10 +213,18 @@ def _first_error(out_dir: str, failed: List[int], procs) -> WorldError:
     return WorldError(r, f"exited with code {procs[r].exitcode} and wrote no traceback")
 
 
-def run_world(fn: Callable, topo: PodTopology, *, device: Optional[str] = None, backend: str = "gloo",
-              timeout_s: float = 600.0, args: Sequence = (), kwargs: Optional[dict] = None) -> list:
+def _nranks(topo: Union[PodTopology, int]) -> int:
+    return topo if isinstance(topo, int) else topo.nranks
+
+
+def run_world(fn: Callable, topo: Union[PodTopology, int], *, device: Optional[str] = None,
+              backend: str = "gloo", timeout_s: float = 600.0, args: Sequence = (),
+              kwargs: Optional[dict] = None) -> list:
     """Spawn ``topo.nranks`` processes and return ``fn(group, device,
-    *args, **kwargs)`` of each rank (JSON values), in rank order.
+    *args, **kwargs)`` of each rank (JSON values), in rank order.  ``topo``
+    an ``int`` spawns that many processes joined in a plain world, with no
+    exchange group: ``fn`` then takes the rank's number as ``group`` (the
+    launchers build their own mesh on it).
 
     ``fn`` must be importable by name (a module-level function).  A dict
     result gains ``"timeline"``: the epoch seconds at which the rank
@@ -215,7 +242,7 @@ def run_world(fn: Callable, topo: PodTopology, *, device: Optional[str] = None, 
         procs = [
             ctx.Process(target=_rank_main, args=(r, fn, topo, device, backend, timeout_s,
                                                  f"file://{d}/store", d, tuple(args), kwargs or {}))
-            for r in range(topo.nranks)
+            for r in range(_nranks(topo))
         ]
         deadline = time.monotonic() + timeout_s
         try:
@@ -229,7 +256,7 @@ def run_world(fn: Callable, topo: PodTopology, *, device: Optional[str] = None, 
                 left = deadline - time.monotonic()
                 if left <= 0:
                     raise TimeoutError(
-                        f"the world of {topo.nranks} ranks did not end within {timeout_s} s; "
+                        f"the world of {_nranks(topo)} ranks did not end within {timeout_s} s; "
                         f"ranks {[r for r, p in enumerate(procs) if p.exitcode is None]} were running"
                     )
                 multiprocessing.connection.wait([p.sentinel for p in alive], timeout=min(left, 1.0))
@@ -239,10 +266,53 @@ def run_world(fn: Callable, topo: PodTopology, *, device: Optional[str] = None, 
         finally:
             _stop(procs)
         results = []
-        for r in range(topo.nranks):
+        for r in range(_nranks(topo)):
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 results.append(json.load(f))
     return results
+
+
+def run_launcher(module: str, argv: Optional[Sequence[str]] = None) -> dict:
+    """A launcher's ``main`` (``launch.train``, ``launch.serve``): the
+    module's ``parse_args(argv)``, then its ``run(args, device, mesh)`` on a
+    ``--mesh`` of ``D x M`` ranks.  With one rank, or in a process group
+    already initialised (this process one rank of it), it runs here;
+    otherwise it spawns ``D * M`` processes (:func:`run_world`, raising
+    first where the device cannot hold such a mesh) and returns rank 0's
+    ``summary(out)`` and kernel launches with every rank's under
+    ``"ranks"``."""
+    import importlib
+
+    from repro_torch.launch.mesh import check_mesh_device, make_host_mesh, parse_mesh
+
+    mod = importlib.import_module(module)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = mod.parse_args(argv)
+    data, model = parse_mesh(args.mesh)
+    if data * model > 1 and not dist.is_initialized():
+        check_mesh_device("cpu" if args.device == "cpu" else "cuda", data, model)
+        ranks = run_world(_launcher_rank, data * model, device=args.device, args=(module, argv), timeout_s=3600.0)
+        return {**ranks[0], "ranks": ranks}
+    device = args.device
+    if device is None and dist.is_initialized():
+        device = device_for_rank(dist.get_rank())
+    device = resolve_device(device)
+    return mod.run(args, device, make_host_mesh(data, model, device.type))
+
+
+def _launcher_rank(rank: int, device: torch.device, module: str, argv: list) -> dict:
+    """One rank of a launcher's spawned world."""
+    import importlib
+
+    from repro_torch.examples import launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, parse_mesh
+
+    mod = importlib.import_module(module)
+    before = launch_counts()
+    args = mod.parse_args(argv)
+    out = mod.run(args, device, make_host_mesh(*parse_mesh(args.mesh), device.type))
+    return {"rank": rank, "device": str(device), **mod.summary(out),
+            "launches": {k: v - before[k] for k, v in launch_counts().items()}}
 
 
 def probe(group, device: torch.device, fail_rank: int = -1) -> dict:
@@ -254,6 +324,60 @@ def probe(group, device: torch.device, fail_rank: int = -1) -> dict:
     got = [torch.zeros(1, dtype=torch.int64) for _ in range(group.topo.nranks)]
     dist.all_gather(got, torch.tensor([group.rank]))
     return {"rank": group.rank, "ranks": [int(t) for t in got], "device": str(device)}
+
+
+#: the collectives a DTensor program issues (``_functional_collectives``),
+#: and what :func:`probe_collectives` tries: those, and the all-gather as a
+#: plain ``torch.distributed`` call (``all_gather_c10d``), beside DTensor's
+COLLECTIVES = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
+PROBES = COLLECTIVES + ("all_gather_c10d",)
+
+
+def collective(rank: int, device: torch.device, name: str) -> dict:
+    """One collective of a DTensor program, as DTensor issues it
+    (``_functional_collectives`` on the world group), on this rank's
+    ``[world]`` tensor of ``device`` holding its rank: ``{"ok": the values
+    every rank should get}``."""
+    from torch.distributed import _functional_collectives as funcol
+
+    world = dist.get_world_size()
+    t = torch.full((world,), float(rank), device=device)
+    total = float(sum(range(world)))
+    ranks = torch.arange(world, dtype=torch.float32, device=device)
+    grp = dist.group.WORLD
+    if name == "all_gather":
+        out, want = funcol.all_gather_tensor(t, 0, grp), ranks.repeat_interleave(world)
+    elif name == "reduce_scatter":
+        out, want = funcol.reduce_scatter_tensor(t, "sum", 0, grp), torch.full((1,), total, device=device)
+    elif name == "all_to_all":
+        out, want = funcol.all_to_all_single(t, None, None, grp), ranks
+    elif name == "all_reduce":
+        out, want = funcol.all_reduce(t, "sum", grp), torch.full((world,), total, device=device)
+    elif name == "all_gather_c10d":
+        out, want = torch.empty(world * world, device=device), ranks.repeat_interleave(world)
+        dist.all_gather_into_tensor(out, t)
+    else:
+        raise ValueError(f"unknown collective {name!r}; one of {PROBES}")
+    out = funcol.wait_tensor(out) if isinstance(out, funcol.AsyncCollectiveTensor) else out
+    return {"rank": rank, "ok": bool(torch.equal(out, want))}
+
+
+def probe_collectives(device: Optional[str] = None, nranks: int = 2, timeout_s: float = 120.0) -> dict:
+    """Which of :data:`PROBES` gloo runs on ``device`` tensors (left out,
+    each rank's CUDA device): ``{name: "ok" | "wrong values" | the world's
+    error}``, one world per collective (a collective without a path may end
+    its process), the worlds at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name: str) -> str:
+        try:
+            ranks = run_world(collective, nranks, device=device, timeout_s=timeout_s, args=(name,))
+        except (WorldError, TimeoutError) as e:
+            return f"{type(e).__name__}: {str(e).splitlines()[-1][:200]}"
+        return "ok" if all(r["ok"] for r in ranks) else "wrong values"
+
+    with ThreadPoolExecutor(len(PROBES)) as pool:
+        return dict(zip(PROBES, pool.map(one, PROBES)))
 
 
 def dot_operands(topo: PodTopology, length: int, seed: int) -> list:
@@ -817,6 +941,189 @@ def _guards(group, device, part) -> dict:
     return got
 
 
+def moe_shapes(device: torch.device, nranks: int) -> tuple:
+    """``(MoEConfig, d_model, act, batch, seq)`` of the MoE section: on a
+    CUDA device the config's layer with one expert per rank and ``nranks x
+    1024`` tokens; on the host d_model 32, experts 64 wide, ``nranks x 32``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    if device.type == "cuda":
+        return cfg.moe, cfg.d_model, cfg.act, nranks, 1024
+    return dataclasses.replace(cfg.moe, n_experts=nranks, d_ff_expert=64), 32, cfg.act, nranks, 32
+
+
+def moe_params(layer, seed: int, experts: Sequence[int], device: torch.device) -> dict:
+    """The section's bf16 weights: the router and the shared expert drawn
+    whole from ``seed``, and only the routed ``experts`` (each from a seed of
+    its own, at the whole tensor's scale), so a rank draws its own 1/n."""
+    from repro_torch.models.sharding import init_params
+
+    specs = layer.params()
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    p = {"router": specs["router"].initialize(gen(seed), torch.bfloat16, device)}
+    if "shared" in specs:
+        p["shared"] = init_params(specs["shared"], gen(seed + 1), torch.bfloat16, device)
+    for j, key in enumerate(("w_in", "w_gate", "w_out")):
+        spec = specs[key]
+        p[key] = torch.cat([
+            torch.randn((1, *spec.shape[1:]), generator=gen(seed + 2 + 3 * e + j), device=device)
+            .mul_(spec.std()).bfloat16() for e in experts])
+    return p
+
+
+def moe_inputs(shape: tuple, seed: int, device: torch.device) -> dict:
+    """The uniform and skewed ``[B, S, M]`` bf16 inputs (the reference
+    benchmark's: a constant bias skews the router's top-k)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bias = torch.randn(shape[-1:], generator=gen, device=device)
+    return {"uniform": torch.randn(shape, generator=gen, device=device).bfloat16(),
+            "skewed": (torch.randn(shape, generator=gen, device=device) * 0.3 + bias).bfloat16()}
+
+
+def _timed(fn, device, reps: int, group) -> float:
+    """The slowest rank's host-wall ms per call of ``fn`` over ``reps``."""
+    _sync(device)
+    _barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(device)
+    return _all_max((time.perf_counter() - t0) / reps * 1e3, group)
+
+
+def _moe(group, device, seed: int, gates: dict) -> dict:
+    """The MoE section (see the module docstring); returns its values."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.comm import WORLD_AXES, cache_stats, clear_caches
+    from repro_torch.models.moe import MoELayer
+    from repro_torch.models.sharding import from_whole, tree_map
+
+    topo, r, n = group.topo, group.rank, group.topo.nranks
+    cfg, M, act, B, S = moe_shapes(device, n)
+    mesh = init_device_mesh(device.type, (topo.npods, topo.ppn), mesh_dim_names=WORLD_AXES)
+    shard, whole = (Shard(0), Shard(0)), (Replicate(), Replicate())
+    base = MoELayer(M, cfg, act)
+    e_local = cfg.n_experts // n
+    mine = moe_params(base, seed + 40, range(r * e_local, (r + 1) * e_local), device)
+    specs = base.params()
+    dp = {k: DTensor.from_local(v, mesh, shard, run_check=False, shape=torch.Size(specs[k].shape),
+                                stride=torch.empty(specs[k].shape, device="meta").stride())
+          if k.startswith("w_") else tree_map(lambda t: from_whole(t, mesh, whole), v) if isinstance(v, dict)
+          else from_whole(v, mesh, whole) for k, v in mine.items()}
+    del mine
+    inputs = moe_inputs((B, S, M), seed + 41, device)
+    xs = {k: from_whole(v, mesh, shard) for k, v in inputs.items()}
+    if r:  # the whole batch stays on rank 0 alone, for the stacked run
+        inputs = dict.fromkeys(inputs)
+    res = {"d_model": M, "experts": cfg.n_experts, "d_ff_expert": cfg.d_ff_expert,
+           "top_k": cfg.top_k, "shared": cfg.n_shared, "batch": [B, S], "ms": {}, "tally": {}}
+    outs = {}
+    with torch.no_grad():
+        for name, x in xs.items():
+            a2a = MoELayer(M, cfg, act, ep_axis=WORLD_AXES)
+            y0 = a2a(dp, x, mesh=mesh).to_local()
+            res["ms"][f"{name}|all_to_all"] = _timed(lambda: a2a(dp, x, mesh=mesh), device, MOE_TIMED, group)
+            first = None
+            for strategy in MOE_STRATEGIES:
+                layer = MoELayer(M, cfg, act, dispatch="exchange", strategy=strategy)
+                y = layer(dp, x, mesh=mesh).to_local()
+                res["tally"][f"{name}|{strategy}"] = layer.tally.read()
+                if strategy == "auto":
+                    res[f"{name}|auto_picked"] = next(iter(layer.dispatcher._strategies.values()))
+                gates[f"moe {name} {strategy}: bitwise the mesh all_to_all"] = torch.equal(y, y0)
+                first = y if first is None else first
+                gates[f"moe {name} {strategy}: bitwise across strategies"] = torch.equal(y, first)
+                res["ms"][f"{name}|{strategy}"] = _timed(lambda: layer(dp, x, mesh=mesh), device, MOE_TIMED,
+                                                         group)
+            gates[f"moe {name}: finite"] = bool(torch.isfinite(first).all())
+            outs[name] = first
+            del y0
+
+        # the stacked exchange on rank 0, against the gathered rows
+        rows = {name: _gather0(y, group) for name, y in outs.items()}
+        stacked_tally, compare = {}, {}
+        if r == 0:
+            params = moe_params(base, seed + 40, range(cfg.n_experts), device)
+            for name, x in inputs.items():
+                layer = MoELayer(M, cfg, act, dispatch="exchange", strategy="standard")
+                want = layer(params, x, topo)
+                stacked_tally[name] = layer.tally.read()
+                got = torch.cat(rows[name]).to(device)
+                compare[name] = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+                                 "max_abs": float(want.float().abs().max())}
+                gates[f"moe {name}: bitwise the stacked exchange"] = torch.equal(got, want)
+                if name == "uniform":
+                    res["ms"]["uniform|stacked"] = _timed_one(lambda: layer(params, x, topo), device, MOE_TIMED)
+                    # the int8 wire (it rounds the bf16 payload on the
+                    # inter-pod hops), stacked
+                    wired_want = MoELayer(M, cfg, act, dispatch="exchange", strategy="two_step",
+                                          wire="int8")(params, x, topo)
+            del params, want, got
+        res["stacked"] = compare
+        _barrier()
+        # the tallies: summed over the ranks, the stacked run's
+        for name in inputs:
+            for strategy in MOE_STRATEGIES:
+                t = res["tally"][f"{name}|{strategy}"]
+                got = torch.tensor([t["routed"], t["dropped"], t["shipped"]], dtype=torch.int64)
+                dist.all_reduce(got)
+                if r == 0:
+                    want = stacked_tally[name]
+                    gates[f"moe {name} {strategy}: slots routed, dropped, shipped the stacked run's"] = (
+                        got.tolist() == [want["routed"], want["dropped"], want["shipped"]])
+                    res["tally"][f"{name}|{strategy}|summed"] = got.tolist()
+        res["tally"]["stacked"] = stacked_tally
+
+        # the int8 wire: bitwise the stacked int8 run, and not the full
+        # precision output (the codec acted); then planning on the first
+        # call only
+        x = xs["uniform"]
+        wired = MoELayer(M, cfg, act, dispatch="exchange", strategy="two_step", wire="int8")(dp, x, mesh=mesh)
+        wired = _gather0(wired.to_local(), group)
+        if r == 0:
+            got = torch.cat(wired).to(device)
+            full = torch.cat(rows["uniform"]).to(device)
+            res["int8_max_abs_err"] = float((got.float() - full.float()).abs().max())
+            gates["moe int8 wire: bitwise the stacked int8 run"] = torch.equal(got, wired_want)
+            gates["moe int8 wire: not the full-precision output"] = not torch.equal(got, full)
+            del got, full, wired_want
+        clear_caches()
+        layer = MoELayer(M, cfg, act, dispatch="exchange", strategy="standard")
+        for i in range(MOE_REPS):
+            layer(dp, x, mesh=mesh)
+            if i == 0:
+                one = cache_stats()
+        last = cache_stats()
+        res["cache"] = {k: [getattr(one, k), getattr(last, k)] for k in ("plan_misses", "exchange_misses",
+                                                                         "exchange_hits")}
+        gates["moe cache: planning on the first call only"] = (
+            one.plan_misses == last.plan_misses and one.exchange_misses == last.exchange_misses
+            and last.exchange_hits - one.exchange_hits == 2 * (MOE_REPS - 1))
+
+        # the count all-gather alone: one [n] int64 row per rank
+        row = torch.zeros(n, dtype=torch.int64)
+        got = [torch.empty_like(row) for _ in range(n)]
+        res["ms"]["count_all_gather"] = _timed(lambda: dist.all_gather(got, row), torch.device("cpu"), 50, group)
+    if device.type == "cuda":
+        res["device_peak_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
+    return res
+
+
+def _timed_one(fn, device, reps: int) -> float:
+    """ms per call of ``fn`` on this rank alone (host wall)."""
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix: str = "thermal_like",
                mm_cols: int = 8, keep: bool = False) -> dict:
     """The paper's case study on this rank (see the module docstring);
@@ -848,10 +1155,14 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     reductions = _reductions(group, device, part, data, keep, gates, out, launches, predicted)
     t6 = time.perf_counter()
     guards = _guards(group, device, part)
+    sizes = {"n": A.n, "nnz": A.nnz, "rows_per_rank": part.rows_per_rank, "halo_width": part.halo_width}
+    del A, B, part, part_b, data  # the MoE section's memory
+    moe_out = _moe(group, device, seed, gates)
+    t7 = time.perf_counter()
     # on the host the wrappers run the plain versions and launch nothing
     want = predicted if device.type == "cuda" else {"spmv_ell": 0, "spmm_ell": 0}
     gates[f"launches {launches.n} == predicted {want}"] = launches.n == want
-    expect = {"nccl": "A.6.3b", "fused": "A.6.3b item 6", "mismatch": "ranks [1]",
+    expect = {"nccl": "A.6.3b item 5", "fused": "A.6.3b item 6", "mismatch": "ranks [1]",
               "fault_mismatch": "ranks [1]"}
     for name, text in expect.items():
         gates[f"guard {name} raises naming {text!r}"] = text in guards[name]
@@ -863,11 +1174,11 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     return {
         "rank": r, "device": str(device), "started_at": started, "setup_s": setup_s,
         "phase_s": {"exchange": t2 - t1, "spmv": t3 - t2, "solve": t4 - t3, "faults": t5 - t4,
-                    "reductions": t6 - t5},
-        "n": A.n, "nnz": A.nnz, "rows_per_rank": part.rows_per_rank, "halo_width": part.halo_width,
+                    "reductions": t6 - t5, "moe": t7 - t6},
+        **sizes,
         "gates": gates, "exchange_ms": exchange_ms, "solves": solves, "fault_ms": fault_ms,
         "fault_solves": fault_solves, "reductions": reductions, "launches": launches.n,
-        "predicted_launches": predicted, "guards": guards, "memory": memory, **out,
+        "predicted_launches": predicted, "guards": guards, "memory": memory, "moe": moe_out, **out,
     }
 
 

@@ -11,10 +11,16 @@ passes the topology at call time in place of the reference's mesh:
 
 * ``topo=None`` (or one rank): :meth:`MoELayer._dispatch_local`, the
   reference's single-device path -- what ``LMModel`` serves on one card;
-* ``mesh=`` a ``DeviceMesh`` whose expert-parallel axis has more than one
-  chip: :meth:`MoELayer._dispatch_shard_map`, the reference's
+* ``mesh=`` a ``DeviceMesh`` whose expert-parallel axes (``ep_axis``, one
+  name or a tuple) have more than one chip: with ``dispatch="all_to_all"``
+  :meth:`MoELayer._dispatch_shard_map`, the reference's
   ``_dispatch_shard_map`` itself, one rank per chip under ``local_map`` with
-  the all-to-alls as ``torch.distributed`` collectives;
+  the all-to-alls as ``torch.distributed`` collectives; with
+  ``dispatch="exchange"`` (whose ``ep_axis`` is the ``("pod", "local")``
+  world, as in the reference) :meth:`MoELayer._dispatch_exchange_mesh`, the
+  reference's ``_dispatch_exchange`` on that mesh: both hops planned
+  :class:`~repro_torch.comm.IrregularExchange` programs over the mesh's
+  process groups;
 * ``dispatch="all_to_all"``: :meth:`MoELayer._dispatch_all_to_all`, the
   reference's ``_dispatch_shard_map``: the batch is block-sharded over the
   ranks, expert ``e`` lives on rank ``e // (n_experts / nranks)``, and each
@@ -41,13 +47,14 @@ exchange path, of the slots the hops shipped.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch.comm.topology import PodTopology
+from repro_torch.comm.topology import WORLD_AXES, PodTopology, exchange_group_of_mesh
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import MLP, dot
 from repro_torch.models.moe_dispatch import MoEDispatcher
@@ -118,8 +125,10 @@ class MoELayer:
     d_model: int
     cfg: MoEConfig
     act: str = "silu"
-    #: expert-parallel mesh axis of a ``mesh`` call (the reference's default)
-    ep_axis: str = "data"
+    #: expert-parallel mesh axis of a ``mesh`` call, or a tuple of axes
+    #: (e.g. ``("pod", "local")`` to run dispatch over the whole exchange
+    #: mesh); ``dispatch="exchange"`` turns the default into the latter
+    ep_axis: Union[str, Tuple[str, ...]] = "data"
     #: sharded path: "all_to_all" (the block-transpose baseline) or
     #: "exchange" (node-aware IrregularExchange hops, planned per measured
     #: routing pattern -- see repro_torch.models.moe_dispatch)
@@ -138,6 +147,9 @@ class MoELayer:
     def __post_init__(self) -> None:
         if self.dispatch not in DISPATCH_MODES:
             raise ValueError(f"dispatch must be 'all_to_all' or 'exchange', got {self.dispatch!r}")
+        if self.dispatch == "exchange" and self.ep_axis == "data":
+            # exchange dispatch runs over the ("pod", "local") exchange mesh
+            object.__setattr__(self, "ep_axis", WORLD_AXES)
 
     def params(self) -> dict:
         E, M, F_ = self.cfg.n_experts, self.d_model, self.cfg.d_ff_expert
@@ -163,11 +175,16 @@ class MoELayer:
         top_p, top_e = torch.topk(probs, self.cfg.top_k, dim=-1)
         return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
 
+    def _ep_axes(self) -> Tuple[str, ...]:
+        return self.ep_axis if isinstance(self.ep_axis, tuple) else (self.ep_axis,)
+
     def _ep_size(self, mesh) -> int:
-        """Expert-parallel degree of ``mesh``; 1 when its ep axis is absent."""
-        if mesh is None or self.ep_axis not in mesh.mesh_dim_names:
+        """Expert-parallel degree of ``mesh``: the product over the ep axes;
+        1 when any of them is absent."""
+        axes = self._ep_axes()
+        if mesh is None or any(a not in mesh.mesh_dim_names for a in axes):
             return 1
-        return mesh.size(mesh.mesh_dim_names.index(self.ep_axis))
+        return math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
 
     def __call__(self, params, x: torch.Tensor, topo: Optional[PodTopology] = None, mesh=None) -> torch.Tensor:
         """x: [B, S, M].  Routed experts + optional shared experts.
@@ -175,15 +192,16 @@ class MoELayer:
         ``topo`` places the experts and the batch on its stacked ranks; with
         ``None`` or one rank the layer runs the single-device path.  ``mesh``
         (parameters and ``x`` DTensors on it) runs the expert-parallel
-        all-to-all over its ``ep_axis``, as the reference does on its mesh.
+        dispatch over its ``ep_axis``, as the reference does on its mesh: the
+        all-to-all, or the exchange over a ``("pod", "local")`` mesh.
         """
+        sharded = self._ep_size(mesh) > 1
+        # the exchange's errors come before the router reads x
+        shapes = self._mesh_shapes(x.shape, mesh) if sharded and self.dispatch == "exchange" else None
         top_p, top_e = self.route(params, x)
-        if self._ep_size(mesh) > 1:
-            if self.dispatch == "exchange":
-                raise NotImplementedError(
-                    "dispatch='exchange' on a DeviceMesh needs the several-card exchange backend "
-                    "(ROADMAP A.6.3); on one device pass topo="
-                )
+        if shapes is not None:
+            routed = self._dispatch_exchange_mesh(params, x, top_p, top_e, mesh, shapes)
+        elif sharded:
             routed = self._dispatch_shard_map(params, x, top_p, top_e, mesh)
         elif topo is None or topo.nranks == 1:
             routed = self._dispatch_local(params, x, top_p, top_e)
@@ -329,11 +347,13 @@ class MoELayer:
         """The reference's ``_dispatch_shard_map``: one rank per chip, under
         ``local_map`` (the counterpart of ``shard_map``).
 
-        Tokens are sharded over ``("pod", ep)`` where present, experts over
-        ``ep`` and each expert's FFN dim over ``model``.  Each chip runs the
-        two capacity stages of the stacked path on its own tokens
+        Tokens are sharded over ``("pod", ep)`` where present (over the ep
+        axes alone when ``ep_axis`` is a tuple), experts over the ep axes and
+        each expert's FFN dim over ``model``.  Each chip runs the two
+        capacity stages of the stacked path on its own tokens
         (:meth:`_stage_send`, :meth:`_stage_expert` with one stacked rank);
-        the hops are ``all_to_all_single`` over the ``ep`` axis, and the
+        the hops are ``all_to_all_single`` over the ep axes (a tuple of axes
+        flattened into one group, row-major as the reference's), and the
         expert outputs, partial sums over the ``model`` shards of F, are
         summed once on the combined ``[b, S, M]`` output, as in the
         reference.
@@ -353,7 +373,10 @@ class MoELayer:
             )
         e_local = cfg.n_experts // nd
         names = mesh.mesh_dim_names
-        ep_group, k = mesh[ep], cfg.top_k
+        axes = self._ep_axes()
+        ep_group = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
+        batch_axes = axes if isinstance(ep, tuple) else ("pod", ep)
+        k = cfg.top_k
         model = mesh["model"] if "model" in names and mesh.size(names.index("model")) > 1 else None
 
         def a2a(t):
@@ -377,9 +400,9 @@ class MoELayer:
                 out = out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
             return out.to(xl.dtype)
 
-        x_place = tuple(Shard(0) if a in ("pod", ep) else Replicate() for a in names)
-        w_place = tuple(Shard(0) if a == ep else Shard(2) if a == "model" else Replicate() for a in names)
-        wo_place = tuple(Shard(0) if a == ep else Shard(1) if a == "model" else Replicate() for a in names)
+        x_place = tuple(Shard(0) if a in batch_axes else Replicate() for a in names)
+        w_place = tuple(Shard(0) if a in axes else Shard(2) if a == "model" else Replicate() for a in names)
+        wo_place = tuple(Shard(0) if a in axes else Shard(1) if a == "model" else Replicate() for a in names)
         return local_map(
             body, out_placements=list(x_place),
             in_placements=(x_place, x_place, x_place, w_place, w_place, wo_place),
@@ -387,10 +410,10 @@ class MoELayer:
         )(x, top_p, top_e, params["w_in"], params["w_gate"], params["w_out"])
 
     # -- node-aware exchange dispatch ----------------------------------------
-    def _get_dispatcher(self, topo: PodTopology, device) -> MoEDispatcher:
-        if self.dispatcher is None:
+    def _get_dispatcher(self, topo: PodTopology, device, group=None) -> MoEDispatcher:
+        if self.dispatcher is None or self.dispatcher.group != group:
             disp = MoEDispatcher(topo, strategy=self.strategy, wire=self.wire,
-                                 quantum=self.route_quantum, device=device)
+                                 quantum=self.route_quantum, device=device, group=group)
             object.__setattr__(self, "dispatcher", disp)
         return self.dispatcher
 
@@ -434,8 +457,19 @@ class MoELayer:
         # communication for the traffic we actually have
         step = self._get_dispatcher(topo, x.device).step(counts.cpu().numpy(), cap, payload_width=M)
         map_d, map_r = self._device_maps(step.bundle, cap, x.device)
-        ex_d, ex_r = step.exchange_dispatch, step.exchange_return
+        out, drop2 = self._exchange_hops(params, send, send_e, slot, w, step, map_d, map_r, (n, e_local, cap),
+                                         B, S)
+        shipped = 2 * int(step.bundle.widths.sum())
+        self.tally.add(n * t, drop1 + drop2, shipped)
+        return out.to(x.dtype)
 
+    def _exchange_hops(self, params, send, send_e, slot, w, step, map_d, map_r, shape: tuple, B: int, S: int):
+        """The dispatch hop, the splice into the ``[n * cap]`` slot layout,
+        the experts, the return hop and the combine, on the ranks stacked in
+        ``send`` (``map_d`` / ``map_r`` their rows of the bundle's splice
+        maps).  Returns ``(out [B, S, M], dropped)``."""
+        n, e_local, cap = shape
+        ex_d, ex_r = step.exchange_dispatch, step.exchange_return
         if ex_d is not None:
             halo_x, halo_e = ex_d(send), ex_d(send_e)
         else:
@@ -448,7 +482,74 @@ class MoELayer:
 
         halo_b = ex_r(back) if ex_r is not None else back[:, :0]
         ret = _take(_pad_row(torch.cat([back, halo_b], dim=1)), map_r)
-        out = self._stage_combine(ret, slot, w, B, S, self.cfg.top_k)
-        shipped = 2 * int(step.bundle.widths.sum())
-        self.tally.add(n * t, drop1 + drop2, shipped)
-        return out.to(x.dtype)
+        return self._stage_combine(ret, slot, w, B, S, self.cfg.top_k), drop2
+
+    # -- node-aware exchange dispatch on a ("pod", "local") DeviceMesh -------
+    def _mesh_shapes(self, shape, mesh) -> Tuple[int, int, int, int]:
+        """``(n, e_local, t, cap)`` of an exchange dispatch on ``mesh`` for
+        ``x`` of global ``shape``, with the reference's three errors."""
+        cfg = self.cfg
+        names = tuple(mesh.mesh_dim_names)
+        if names != WORLD_AXES:
+            raise ValueError(f'dispatch="exchange" needs the ("pod", "local") exchange mesh, got axes {names}')
+        n = mesh.size()
+        if cfg.n_experts % n:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} is not divisible by the "
+                f"expert-parallel degree {n} (mesh axes {WORLD_AXES!r}); "
+                f"choose n_experts as a multiple of {n}"
+            )
+        B, S, _ = shape
+        if B % n:
+            raise ValueError(f'dispatch="exchange" shards the batch over all {n} ranks; batch {B} is not divisible by {n}')
+        t = B // n * S * cfg.top_k
+        return n, cfg.n_experts // n, t, max(int(t / n * cfg.capacity_factor), 8)
+
+    def _dispatch_exchange_mesh(self, params, x, top_p, top_e, mesh, shapes) -> torch.Tensor:
+        """The reference's ``_dispatch_exchange`` on its ``("pod", "local")``
+        mesh: one rank per process, under ``local_map``.
+
+        Tokens and experts are sharded over both axes (rank ``pod * ppn +
+        local`` holds batch block and expert block of that index).  Each rank
+        runs :meth:`_stage_send` on its own tokens, forms its row of the
+        ``[n, n]`` count matrix and all-gathers the matrix on the host (the
+        reference's one host read of the counts per batch), so every rank
+        buckets the same counts and plans the same exchanges -- a rank that
+        planned another would leave the next collective unmatched.  The two
+        hops are :class:`~repro_torch.comm.IrregularExchange` programs over
+        the mesh's own ``local`` and ``pod`` process groups
+        (:func:`~repro_torch.comm.topology.exchange_group_of_mesh`), on this
+        rank's ``[1, n * cap, M]`` buffers, then the stacked path's splice,
+        experts and combine.  Bitwise the mesh all-to-all
+        (:meth:`_dispatch_shard_map` with the same ``ep_axis``) for
+        ``wire="none"``.  The tally counts this rank's assignments, drops and
+        the slots it sends on both hops; summed over the ranks they are the
+        stacked path's.
+        """
+        import torch.distributed as dist
+        from torch.distributed.tensor.experimental import local_map
+
+        n, e_local, t, cap = shapes
+        S, M = x.shape[1:]
+        group = exchange_group_of_mesh(mesh)
+        r = group.rank
+
+        def body(xl, pl, el, w_in, w_gate, w_out):
+            send, send_e, slot, w, dst, drop1 = self._stage_send(xl, pl, el, n, e_local, t, cap, ranks=1)
+            row = torch.bincount(dst.reshape(-1), minlength=n).cpu()
+            rows = [torch.empty_like(row) for _ in range(n)]
+            dist.all_gather(rows, row)
+            step = self._get_dispatcher(group.topo, xl.device, group).step(
+                torch.stack(rows).numpy(), cap, payload_width=M)
+            map_d, map_r = self._device_maps(step.bundle, cap, xl.device)
+            out, drop2 = self._exchange_hops({"w_in": w_in, "w_gate": w_gate, "w_out": w_out}, send, send_e,
+                                             slot, w, step, map_d[r : r + 1], map_r[r : r + 1], (n, e_local, cap),
+                                             xl.shape[0], S)
+            widths = step.bundle.widths
+            self.tally.add(t, drop1 + drop2, int(widths[r].sum() + widths[:, r].sum()))
+            return out.to(xl.dtype)
+
+        place = (Shard(0), Shard(0))
+        return local_map(body, out_placements=list(place), in_placements=(place,) * 6, device_mesh=mesh,
+                         redistribute_inputs=True)(x, top_p, top_e, params["w_in"], params["w_gate"],
+                                                   params["w_out"])

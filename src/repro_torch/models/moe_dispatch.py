@@ -27,7 +27,10 @@ between that dynamic traffic and the static exchange planner:
   buckets the counts, resolves the strategy (fixed or ``"auto"`` via the
   advisor), and hands back memoized
   :class:`~repro_torch.comm.IrregularExchange` instances for the dispatch
-  and return hops, on the dispatcher's device.
+  and return hops, on the dispatcher's device -- over stacked ranks, or,
+  given an :class:`~repro_torch.comm.topology.ExchangeGroup` (the
+  counterpart of the reference's ``mesh=``), for this process's rank of a
+  ``torch.distributed`` world.
 
 Everything but the exchanges is numpy and bitwise the reference's.
 ``strategy="auto"`` ranks on the reference's default machine,
@@ -252,6 +255,7 @@ class MoEDispatcher:
         message_cap_bytes: int = 16384,
         machine: str = "tpu_v5e_pod",
         decay: float = 0.9,
+        group=None,
     ) -> None:
         if strategy != "auto" and strategy not in STRATEGY_NAMES:
             raise ValueError(
@@ -262,6 +266,9 @@ class MoEDispatcher:
         self.wire = wire
         self.quantum = quantum
         self.device = device
+        #: every rank of the group steps with the same counts, so its
+        #: exchanges are built collectively in one order
+        self.group = group
         self.message_cap_bytes = message_cap_bytes
         self.machine = machine
         self.histogram = ExpertLoadHistogram(topo.nranks, decay=decay)
@@ -295,6 +302,7 @@ class MoEDispatcher:
             device=self.device,
             message_cap_bytes=self.message_cap_bytes,
             wire=self.wire,
+            group=self.group,
         )
 
     def step(

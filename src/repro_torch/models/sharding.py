@@ -324,15 +324,17 @@ def shard_of(t: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
     return t.contiguous()
 
 
+def from_whole(t: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+    """The whole tensor ``t`` (the same on every rank) as a DTensor placed by
+    ``place``: each rank keeps its own shard; nothing is communicated."""
+    return DTensor.from_local(shard_of(t, mesh, place), mesh, place, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
 def distribute_params(params: dict, mesh, rules: Rules, specs: dict) -> dict:
     """A one-card parameter tree (the same on every rank, e.g. drawn from one
-    seed) as DTensors placed by ``specs``' rules.  Each rank keeps its own
-    shard; nothing is communicated."""
-    def one(t, place):
-        return DTensor.from_local(shard_of(t, mesh, place), mesh, place, run_check=False,
-                                  shape=t.shape, stride=t.stride())
-
-    return tree_map(one, params, param_shardings(specs, mesh, rules))
+    seed) as DTensors placed by ``specs``' rules (:func:`from_whole`)."""
+    return tree_map(lambda t, place: from_whole(t, mesh, place), params, param_shardings(specs, mesh, rules))
 
 
 def param_count(tree) -> int:

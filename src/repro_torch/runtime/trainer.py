@@ -37,7 +37,11 @@ the parameters, as the reference's ``OptState`` shardings do), the working
 copy and its gradients are DTensors placed by
 :func:`~repro_torch.models.sharding.param_shardings`, and the batch by
 :func:`batch_sharding`.  The loss, clip's global norm and AdamW run on the
-DTensors; :class:`Trainer` itself runs on one card.
+DTensors.  :class:`Trainer` takes the mesh too (``mesh=``, the reference's
+``Trainer(cfg, mesh, ...)``): every rank draws the whole state from the seed
+and keeps its shards, and checkpoints hold whole arrays (gathered from every
+rank, written by rank 0), so a checkpoint written on one mesh restores on
+another, or on none.
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.data import SyntheticTokens
 from repro_torch.models.lm import LMModel, on_mesh
 from repro_torch.models.sharding import (
+    distribute_params,
+    from_whole,
     meta_dtensor,
     named_sharding,
     param_shardings,
@@ -176,20 +182,37 @@ class SimulatedFailure(RuntimeError):
 
 class Trainer:
     """The step loop over :class:`SyntheticTokens` on ``device`` (default:
-    the CUDA device; raises without one)."""
+    the CUDA device; raises without one).
+
+    ``mesh`` (a ``("data", "model")`` ``DeviceMesh`` over the process group
+    this rank belongs to, e.g. from
+    :func:`repro_torch.launch.mesh.make_host_mesh`) shards the model
+    (``LMModel(tp=model)``), the state and each batch as the reference's
+    ``Trainer(cfg, mesh, ...)`` does; every rank of the mesh runs the loop.
+    """
 
     def __init__(self, model_cfg: ModelConfig, cfg: TrainerConfig,
-                 opt_cfg: Optional[AdamWConfig] = None, device: DeviceLike = None):
+                 opt_cfg: Optional[AdamWConfig] = None, device: DeviceLike = None, mesh=None):
+        import torch.distributed as dist
+
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = LMModel(model_cfg)
+        self.mesh = mesh
+        names = mesh.mesh_dim_names if mesh is not None else ()
+        self.model = LMModel(model_cfg, tp=mesh.size(names.index("model")) if "model" in names else 1)
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=cfg.steps)
-        self.step_fn = build_train_step(self.model, self.opt_cfg, impl=cfg.impl, remat=cfg.remat)
+        self.step_fn = build_train_step(self.model, self.opt_cfg, impl=cfg.impl, remat=cfg.remat, mesh=mesh)
         self.data = SyntheticTokens(
             vocab_size=model_cfg.vocab_size, batch=cfg.batch, seq_len=cfg.seq_len,
             seed=cfg.seed, device=self.device,
         )
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        if mesh is not None:
+            self._rules = rules_for_mesh(mesh)
+            self._batch_place = batch_sharding(mesh, self._rules, cfg.batch, cfg.seq_len)
+        # on a mesh every rank gathers the whole state for a checkpoint, and
+        # rank 0 writes it
+        writer = mesh is None or dist.get_rank() == 0
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir, writer=writer) if cfg.checkpoint_dir else None
         self.watchdog = StragglerWatchdog()
         self.history: list = []
 
@@ -199,10 +222,33 @@ class Trainer:
         zero moments."""
         gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         params = self.model.init(gen, dtype=torch.float32, device=self.device)
+        if self.mesh is not None:
+            params = distribute_params(params, self.mesh, self._rules, self.model.param_specs())
         return {"params": params, "opt": adamw_init(params)}
 
     def state_template(self) -> Dict[str, Any]:
-        return state_template(self.model)
+        return state_template(self.model, self.mesh)
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        """The step's batch, on a mesh each rank's shard of it as DTensors."""
+        batch = self.data.batch_at(step)
+        if self.mesh is None:
+            return batch
+        place = self._batch_place
+        return {k: from_whole(v, self.mesh, place) for k, v in batch.items()}
+
+    def _agree(self, escalate: bool) -> bool:
+        """On a mesh, whether any rank's watchdog escalated (an all-reduce
+        MAX over each of the mesh's dims): a straggler checkpoint gathers
+        the state, a collective every rank must enter together."""
+        if self.mesh is None:
+            return escalate
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(escalate)])
+        for dim in range(self.mesh.ndim):
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.get_group(dim))
+        return bool(flag.item())
 
     # ------------------------------------------------------------------
     def run(self, resume: bool = True) -> Dict[str, Any]:
@@ -219,11 +265,12 @@ class Trainer:
             if self.cfg.fail_at_step is not None and step == self.cfg.fail_at_step:
                 raise SimulatedFailure(f"injected failure at step {step}")
             self.watchdog.start_step()
-            batch = self.data.batch_at(step)
+            batch = self.batch_at(step)
             state, metrics = self.step_fn(state, batch)
-            escalate = self.watchdog.end_step(step)
+            escalate = self._agree(self.watchdog.end_step(step))
             if (step + 1) % self.cfg.log_every == 0 or step == start:
-                loss = float(metrics["loss"])
+                loss = metrics["loss"]
+                loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
                 self.history.append({"step": step + 1, "loss": loss})
                 log.info("step %d loss %.4f", step + 1, loss)
             if self.ckpt and (step + 1) % self.cfg.checkpoint_every == 0:

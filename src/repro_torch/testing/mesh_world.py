@@ -3,8 +3,9 @@
 A fake process group moves no data, so only a real group can show that the
 sharded programs' collectives are right.  ``python -m
 repro_torch.testing.mesh_world --out results.json`` spawns ``--world`` (4)
-CPU processes joined by gloo through a ``file://`` store, each on one rank of
-a ``2 x (world / 2)`` ``("data", "model")`` mesh.  Every rank runs, for each
+CPU processes joined by gloo through a ``file://`` store
+(:func:`repro_torch.launch.world.run_world`, the launchers' spawner), each on
+one rank of a ``2 x (world / 2)`` ``("data", "model")`` mesh.  Every rank runs, for each
 architecture at its tiny preset (``LMModel(cfg, tp=model)``; the MoE's
 ``capacity_factor`` 8, the reference tests' loose capacity, so that the
 sharded and the one-card dispatch drop nothing):
@@ -19,17 +20,38 @@ sharded and the one-card dispatch drop nothing):
   ``(world,)`` ``("data",)`` mesh against ``_dispatch_local``;
 * ``train`` -- one sharded :class:`~repro_torch.runtime.trainer.TrainStep`
   of a dense config against the one-card step: the losses, and the updated
-  masters by :func:`~repro_torch.testing.trajectory.compare_trajectories`.
+  masters by :func:`~repro_torch.testing.trajectory.compare_trajectories`;
+* ``moe_exchange`` -- on a ``(2, world / 2)`` ``("pod", "local")`` mesh, the
+  MoE case of :func:`moe_case` (uniform and skewed inputs): the all-to-all
+  with ``ep_axis=("pod", "local")`` and ``dispatch="exchange"`` for every
+  strategy and ``auto``, each rank's shard bitwise across them, the whole
+  outputs (rank 0) and each layer's tally; the reference's three errors;
+  five calls of one exchange layer (planning on the first only); the bf16
+  wire beside full precision;
+* ``launchers`` -- the train and serve launchers' programs with ``--mesh
+  2x(world / 2) --device cpu`` in this world: stablelm-3b tiny trained
+  ``TRAIN_STEPS`` steps as a spawned launcher rank runs it (rank 0's printed
+  closing line kept), and on rank 0 alone (``1x1``, checkpointed); that
+  checkpoint resumed on the mesh to ``2 * TRAIN_STEPS`` with rank 1's
+  straggler watchdog forced to escalate at step ``STRAGGLER_STEP``, and on
+  rank 0 alone under the same escalation (the ``1x1`` continuation), rank 0
+  comparing the two runs' straggler and final checkpoints; hymba-1.5b tiny
+  served with ``--impl chunked``;
+* ``collectives`` -- each collective a DTensor program issues
+  (:func:`repro_torch.launch.world.collective`) on this world's CPU tensors.
 
-Each rank writes its maximum absolute errors; the JSON at ``--out`` holds the
-list of every rank's results.
+Each rank writes its maximum absolute errors (and the sections' values); the
+JSON at ``--out`` holds the list of every rank's results.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import shutil
 import tempfile
 import time
 from typing import List, Optional
@@ -41,15 +63,24 @@ import torch
 ARCHS = ("stablelm-3b", "qwen3-32b", "chatglm3-6b", "deepseek-coder-33b", "deepseek-v2-lite-16b",
          "mamba2-780m", "hymba-1.5b", "llama-3.2-vision-90b", "whisper-large-v3", "llama4-scout-17b-a16e")
 B, S = 4, 32
+#: the ("pod", "local") MoE case: the reference tests' widths and inputs
+#: (tests/test_moe_dispatch.py) with 8 experts, two on each of 4 ranks
+MOE_M, MOE_B, MOE_S = 16, 8, 16
+MOE_CFG = dict(n_experts=8, top_k=2, d_ff_expert=32)
+EXCHANGE_STRATEGIES = ("standard", "two_step", "three_step", "split", "auto")
+#: steps of the launchers' training runs (the resumed runs go on to twice it)
+TRAIN_STEPS = 10
+#: the 0-based step of the resumed runs at which a watchdog escalates: the
+#: runs checkpoint step ``STRAGGLER_STEP + 1`` as a straggler's
+STRAGGLER_STEP = TRAIN_STEPS + 1
+#: the launchers' options common to every run in the world
+LAUNCH_ARGS = ("--preset", "tiny", "--device", "cpu")
 
 
 def _shard(t: torch.Tensor, mesh, rules, logical):
-    from torch.distributed.tensor import DTensor
-
     from repro_torch.models import sharding as sh
 
-    place = sh.named_sharding(mesh, rules, logical, t.shape)
-    return DTensor.from_local(sh.shard_of(t, mesh, place), mesh, place, run_check=False)
+    return sh.from_whole(t, mesh, sh.named_sharding(mesh, rules, logical, t.shape))
 
 
 def _err(got, want) -> float:
@@ -162,41 +193,196 @@ def _train(mesh, rules, tp: int) -> dict:
             "noise_driven": cmp["noise_driven"], "elements": cmp["elements"]}
 
 
-def _rank(rank: int, world: int, init: str, out_dir: str, archs: List[str]) -> None:
+def moe_case(seed: int = 0) -> tuple:
+    """``(params, inputs)`` of the ``("pod", "local")`` MoE sections as
+    float32 numpy arrays, drawn as the reference's tests draw theirs: the
+    router scaled by 2, the experts by 0.1, then uniform inputs and skewed
+    ones (a constant bias pulls the router's top-k towards a few experts)."""
+    rng = np.random.default_rng(seed)
+    E, F, M = MOE_CFG["n_experts"], MOE_CFG["d_ff_expert"], MOE_M
+    params = {"router": rng.standard_normal((M, E)) * 2.0, "w_in": rng.standard_normal((E, M, F)) * 0.1,
+              "w_gate": rng.standard_normal((E, M, F)) * 0.1, "w_out": rng.standard_normal((E, F, M)) * 0.1}
+    inputs = {"uniform": rng.standard_normal((MOE_B, MOE_S, M)),
+              "skewed": rng.standard_normal((MOE_B, MOE_S, M)) * 0.3 + rng.standard_normal(M)}
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            {k: v.astype(np.float32) for k, v in inputs.items()})
+
+
+def _raises(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return f"ValueError: {e}"
+    return "did not raise"
+
+
+def _moe_exchange(world: int, rank: int, dm_mesh) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.comm import WORLD_AXES, cache_stats, clear_caches
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import MoELayer
+    from repro_torch.models.sharding import from_whole
+
+    mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=WORLD_AXES)
+    cfg = MoEConfig(**MOE_CFG)
+    params, inputs = moe_case()
+    shard, whole = (Shard(0), Shard(0)), (Replicate(), Replicate())
+    dp = {k: from_whole(torch.from_numpy(v), mesh, whole if k == "router" else shard) for k, v in params.items()}
+    xs = {k: from_whole(torch.from_numpy(v), mesh, shard) for k, v in inputs.items()}
+    res = {"bitwise": {}, "tally": {}, "outputs": {}}
+    with torch.no_grad():
+        for name, x in xs.items():
+            base = MoELayer(MOE_M, cfg, ep_axis=WORLD_AXES)
+            outs = {"all_to_all": base(dp, x, mesh=mesh)}
+            res["tally"][f"{name}|all_to_all"] = base.tally.read()
+            for strategy in EXCHANGE_STRATEGIES:
+                layer = MoELayer(MOE_M, cfg, dispatch="exchange", strategy=strategy)
+                outs[strategy] = layer(dp, x, mesh=mesh)
+                res["tally"][f"{name}|{strategy}"] = layer.tally.read()
+                res["bitwise"][f"{name}|{strategy}"] = torch.equal(outs[strategy].to_local(),
+                                                                   outs["all_to_all"].to_local())
+            for key, y in outs.items():
+                y = y.full_tensor()
+                if rank == 0:
+                    res["outputs"][f"{name}|{key}"] = y.tolist()
+
+        # the reference's errors: a mesh other than ("pod", "local"), experts
+        # not divisible by the ranks, a batch not divisible by them
+        E6 = dict(MOE_CFG, n_experts=6)
+        bad = {"router": torch.zeros(MOE_M, 6), "w_in": torch.zeros(6, MOE_M, 32),
+               "w_gate": torch.zeros(6, MOE_M, 32), "w_out": torch.zeros(6, 32, MOE_M)}
+        bad = {k: from_whole(v, mesh, whole if k == "router" else shard) for k, v in bad.items()}
+        x_dm = from_whole(torch.from_numpy(inputs["uniform"]), dm_mesh, (Shard(0), Replicate()))
+        router_dm = {"router": from_whole(torch.from_numpy(params["router"]), dm_mesh, whole)}
+        x6 = from_whole(torch.from_numpy(inputs["uniform"][:6]), mesh, shard)
+        res["errors"] = {
+            "mesh": _raises(lambda: MoELayer(MOE_M, cfg, dispatch="exchange", ep_axis=("data", "model"))(
+                router_dm, x_dm, mesh=dm_mesh)),
+            "experts_exchange": _raises(lambda: MoELayer(MOE_M, MoEConfig(**E6), dispatch="exchange")(
+                bad, xs["uniform"], mesh=mesh)),
+            "experts_all_to_all": _raises(lambda: MoELayer(MOE_M, MoEConfig(**E6), ep_axis=WORLD_AXES)(
+                bad, xs["uniform"], mesh=mesh)),
+            "batch": _raises(lambda: MoELayer(MOE_M, cfg, dispatch="exchange")(dp, x6, mesh=mesh)),
+        }
+
+        # five batches of one routing distribution pay planning once
+        clear_caches()
+        layer = MoELayer(MOE_M, cfg, dispatch="exchange", strategy="three_step")
+        for i in range(5):
+            layer(dp, xs["uniform"], mesh=mesh)
+            if i == 0:
+                first = cache_stats()
+        last = cache_stats()
+        res["cache"] = {k: [getattr(first, k), getattr(last, k)]
+                        for k in ("plan_misses", "exchange_misses", "exchange_hits")}
+        wired = MoELayer(MOE_M, cfg, dispatch="exchange", strategy="two_step", wire="bf16")(dp, xs["uniform"],
+                                                                                             mesh=mesh)
+        full = MoELayer(MOE_M, cfg, ep_axis=WORLD_AXES)(dp, xs["uniform"], mesh=mesh)
+        res["bf16_max_abs_err"] = float((wired.to_local() - full.to_local()).abs().max())
+    return res
+
+
+@contextlib.contextmanager
+def _escalates_at(step: int):
+    """This process's straggler watchdogs report their budget spent at
+    ``step`` (as a rank that fell behind three steps running would)."""
+    from repro_torch.runtime.watchdog import StragglerWatchdog
+
+    end = StragglerWatchdog.end_step
+    StragglerWatchdog.end_step = lambda self, s: end(self, s) or s == step
+    try:
+        yield
+    finally:
+        StragglerWatchdog.end_step = end
+
+
+def _checkpoints_agree(got_dir: str, want_dir: str, step: int, start: int, lr: float) -> dict:
+    """The checkpoints of ``step`` in two directories: their manifests'
+    extras and, by :func:`compare_trajectories` (marks from the moments at
+    ``step``, ``lr`` an upper bound of each step's rate since ``start``), the
+    parameters."""
+    from repro_torch.testing.trajectory import compare_trajectories, noisy_steps
+
+    def load(d):
+        path = os.path.join(d, f"step_{step:08d}")
+        with open(os.path.join(path, "manifest.json")) as f, np.load(os.path.join(path, "arrays.npz")) as z:
+            return json.load(f)["extra"], {k: z[k] for k in z.files}
+
+    (got_extra, got), (want_extra, want) = load(got_dir), load(want_dir)
+    part = lambda a, pre: {k[len(pre):]: v for k, v in a.items() if k.startswith(pre)}
+    noisy = noisy_steps(None, part(got, "opt/.mu/"), part(want, "opt/.mu/"), part(want, "opt/.nu/"), step)
+    cmp = compare_trajectories(part(got, "params/"), part(want, "params/"), noisy, lr * (step - start))
+    return {"extra": [got_extra, want_extra], "ok": bool(cmp["ok"]),
+            "out_of_tolerance": sorted(cmp["out_of_tolerance"]), "worst": cmp["max_err_over_max_abs"]}
+
+
+def _launchers(rank: int, world: int, out_dir: str) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.world import _launcher_rank
+
+    mesh = ["--mesh", f"2x{world // 2}"]
+    lm = ["--arch", "stablelm-3b", *LAUNCH_ARGS]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        ran = _launcher_rank(rank, torch.device("cpu"), "repro_torch.launch.train",
+                             [*lm, "--steps", str(TRAIN_STEPS), *mesh])
+    res = {"train": ran["history"], "printed": printed.getvalue()}
+    one, two = os.path.join(out_dir, "ckpt_1x1"), os.path.join(out_dir, "ckpt_mesh")
+    if rank == 0:  # TRAIN_STEPS on one rank alone, checkpointed
+        res["train_1x1"] = train.main([*lm, "--steps", str(TRAIN_STEPS), "--ckpt", one])["history"]
+        shutil.copytree(one, two)
+    dist.barrier()
+    more = ["--steps", str(2 * TRAIN_STEPS), "--resume"]
+    with _escalates_at(STRAGGLER_STEP) if rank == 1 else contextlib.nullcontext():
+        res["resumed"] = train.main([*lm, *more, "--ckpt", two, *mesh])["history"]
+    if rank == 0:
+        with _escalates_at(STRAGGLER_STEP):
+            res["resumed_1x1"] = train.main([*lm, *more, "--ckpt", one])["history"]
+        peak_lr = train.parse_args([]).lr
+        res["checkpoints"] = {step: _checkpoints_agree(two, one, step, TRAIN_STEPS, peak_lr)
+                              for step in (STRAGGLER_STEP + 1, 2 * TRAIN_STEPS)}
+    dist.barrier()
+    out = serve.main(["--arch", "hymba-1.5b", *LAUNCH_ARGS, "--impl", "chunked", *mesh])
+    res["serve_tokens"] = out["tokens"].tolist()
+    return res
+
+
+def _collectives(rank: int) -> dict:
+    from repro_torch.launch.world import PROBES, collective
+
+    return {name: collective(rank, torch.device("cpu"), name)["ok"] for name in PROBES}
+
+
+def _rank(rank: int, device: torch.device, out_dir: str, archs: List[str]) -> dict:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.models import sharding as sh
 
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
-    try:
-        tp = world // 2
-        mesh = init_device_mesh("cpu", (2, tp), mesh_dim_names=("data", "model"))
-        rules = sh.rules_for_mesh(mesh)
-        # a (1, world) mesh: the tiny presets' 2 key/value heads fewer than
-        # the world's chips on "model", so each chip picks its own
-        wide = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
-        res = {"rank": rank, "serve": {a: _serve(a, mesh, rules, tp) for a in archs},
-               "serve_wide": _serve("qwen3-32b", wide, sh.rules_for_mesh(wide), world),
-               "moe": _moe(world), "train": _train(mesh, rules, tp)}
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+    world = dist.get_world_size()
+    tp = world // 2
+    mesh = init_device_mesh("cpu", (2, tp), mesh_dim_names=("data", "model"))
+    rules = sh.rules_for_mesh(mesh)
+    # a (1, world) mesh: the tiny presets' 2 key/value heads fewer than
+    # the world's chips on "model", so each chip picks its own
+    wide = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+    return {"rank": rank, "serve": {a: _serve(a, mesh, rules, tp) for a in archs},
+            "serve_wide": _serve("qwen3-32b", wide, sh.rules_for_mesh(wide), world),
+            "moe": _moe(world), "train": _train(mesh, rules, tp),
+            "moe_exchange": _moe_exchange(world, rank, mesh), "launchers": _launchers(rank, world, out_dir),
+            "collectives": _collectives(rank)}
 
 
 def run(world: int = 4, archs=ARCHS) -> list:
     """Spawn the world; every rank's results, in rank order."""
-    import torch.multiprocessing as mp
+    from repro_torch.launch.world import run_world
 
     with tempfile.TemporaryDirectory() as d:
-        mp.spawn(_rank, args=(world, f"file://{d}/store", d, list(archs)), nprocs=world)
-        out = []
-        for r in range(world):
-            with open(os.path.join(d, f"rank{r}.json")) as f:
-                out.append(json.load(f))
-    return out
+        return run_world(_rank, world, device="cpu", timeout_s=280.0, args=(d, list(archs)))
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -273,6 +273,33 @@ def test_sharded_paths_raise_the_reference_errors():
     torch.testing.assert_close(one, MoELayer(M, MoEConfig(**SHARD_CFG))(_t(params), x), rtol=0, atol=0)
 
 
+class _Mesh:
+    """The axis names and sizes of a mesh, as the port's and the reference's
+    ``_ep_size`` read them (a ``DeviceMesh`` / a ``jax.sharding.Mesh``)."""
+
+    def __init__(self, **sizes):
+        self.mesh_dim_names = self.axis_names = tuple(sizes)
+        self.shape = sizes
+
+    def size(self, dim: int) -> int:
+        return self.shape[self.mesh_dim_names[dim]]
+
+
+@pytest.mark.parametrize("ep_axis", ["data", "local", ("pod", "local"), ("pod", "local", "model"), ("data", "local")])
+@pytest.mark.parametrize("dispatch", ["all_to_all", "exchange"])
+def test_expert_parallel_axes_are_the_reference_ones(ep_axis, dispatch):
+    """``ep_axis`` is a mesh axis or a tuple of them, and the degree their
+    product (1 when one is absent); the exchange dispatch's default is the
+    ``("pod", "local")`` world, as in the reference."""
+    cfg = dict(n_experts=16, top_k=2, d_ff_expert=32)
+    mesh = _Mesh(pod=2, local=4, model=2)
+    for kw in ({}, {"ep_axis": ep_axis}):
+        port = MoELayer(M, MoEConfig(**cfg), dispatch=dispatch, **kw)
+        ref = RefMoELayer(M, RefMoEConfig(**cfg), dispatch=dispatch, **kw)
+        assert port.ep_axis == ref.ep_axis and port._ep_axes() == ref._ep_axes()
+        assert port._ep_size(mesh) == ref._ep_size(mesh)
+
+
 # ---------------------------------------------------------------------------
 # llama4-scout at the tiny preset, at its own capacity
 # ---------------------------------------------------------------------------

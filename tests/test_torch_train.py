@@ -48,6 +48,7 @@ from repro_torch.checkpoint import CheckpointManager, flatten_state, latest_step
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import SyntheticTokens
+from repro_torch.launch import train as train_launcher
 from repro_torch.launch.presets import tiny
 from repro_torch.models.convert import from_reference
 from repro_torch.models.lm import LMModel
@@ -615,10 +616,29 @@ def test_launcher_trains_tiny_on_cpu():
     assert last.startswith("first loss ") and final < first
 
 
-def test_launcher_mesh_other_than_1x1_raises():
-    proc = _launch("--preset", "tiny", "--device", "cpu", "--steps", "1", "--mesh", "2x4")
-    assert proc.returncode != 0
-    assert "A.6" in proc.stderr and "2x4" in proc.stderr
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_launcher_mesh_of_cuda_ranks_raises_naming_the_collective(launcher):
+    """gloo has no CUDA path for DTensor's all-gather (``launch.mesh.
+    GLOO_CUDA_MISSING``, probed on the card): a CUDA mesh raises before it
+    spawns, naming it and the NCCL transport's ROADMAP item."""
+    from repro_torch.launch import serve as serve_launcher
+
+    main = {"train": train_launcher.main, "serve": serve_launcher.main}[launcher]
+    with pytest.raises(NotImplementedError, match=r"all_gather.*A\.6\.3b item 5"):
+        main(["--preset", "tiny", "--mesh", "2x2"])
+
+
+def test_launcher_mesh_other_than_the_world_raises(tmp_path):
+    """In a process group that is already initialised, the launcher runs as
+    one of its ranks, and a ``--mesh`` of another size raises."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="world of 4 processes; this one has 1"):
+            train_launcher.main(["--preset", "tiny", "--device", "cpu", "--steps", "1", "--mesh", "2x2"])
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

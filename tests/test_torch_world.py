@@ -29,9 +29,10 @@ own ``[1, L]`` block, and the test holds what every rank delivered to:
   ``+exchange:`` suffix, iterations within one, ``x`` within 1e-4, the
   clean history bitwise;
 * the world's own gates (rank 0's stacked checks, launch counts, the
-  reductions) and its guards: NCCL and the fused solve raise naming ROADMAP
-  A.6.3b, and a rank planning another strategy or holding another fault
-  plan makes every rank raise naming it.
+  reductions, the MoE exchange dispatch on the world's ``("pod", "local")``
+  mesh, narrowed for the host) and its guards: NCCL and the fused solve raise
+  naming ROADMAP A.6.3b items 5 and 6, and a rank planning another strategy
+  or holding another fault plan makes every rank raise naming it.
 
 In-process worlds at ``2x2`` and ``2x4`` hold the reduction tree bitwise to
 ``NumpyReductions`` of the stacked operands, and its int8-compressed form
@@ -201,7 +202,7 @@ def test_solve_matches_reference(worlds, topo, solver, strategy):
 
 
 @pytest.mark.parametrize("part", ["exchange", "stacked", "spmv", "cg", "bicgstab", "launches", "faults",
-                                  "reductions"])
+                                  "reductions", "moe"])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_world_gates(worlds, topo, part):
     gates = {f"rank {r['rank']}: {k}": ok for r in worlds[topo] for k, ok in r["gates"].items()
@@ -209,7 +210,7 @@ def test_world_gates(worlds, topo, part):
     assert gates and all(gates.values()), [k for k, ok in gates.items() if not ok]
 
 
-@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b"), ("fused", "A.6.3b item 6"),
+@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b item 5"), ("fused", "A.6.3b item 6"),
                                           ("mismatch", "ranks [1]"), ("fault_mismatch", "ranks [1]")])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_guards_raise_under_a_group(worlds, topo, guard, names):
@@ -234,9 +235,9 @@ def test_probe_world_gathers_every_rank():
 
 
 def test_no_fallback_without_a_world_or_a_card():
-    with pytest.raises(NotImplementedError, match="A.6.3b"):
+    with pytest.raises(NotImplementedError, match="A.6.3b item 5"):
         world.run_world(world.probe, PodTopology(1, 2), device="cpu", backend="nccl")
-    with pytest.raises(NotImplementedError, match="A.6.3b"):
+    with pytest.raises(NotImplementedError, match="A.6.3b item 5"):
         make_exchange_group(PodTopology(1, 2), backend="nccl")
     with pytest.raises(RuntimeError, match="initialised"):
         make_exchange_group(PodTopology(1, 2))
