@@ -19,8 +19,12 @@ before it and read just after:
   experts of 8192, top-1, one expert per process, bf16) dispatched by the
   exchange over the world's ``("pod", "local")`` ``DeviceMesh``; no kernel
   (the experts are GEMMs, as in the reference); and the train and serve
-  launchers' ``--mesh 2x2`` on this card, which raise before they spawn
-  (gloo has no CUDA path for DTensor's all-gather, probed here);
+  launchers' ``--mesh 2x2`` on 4 CUDA ranks of this card, joined by the
+  group that stages every collective through host memory around gloo
+  (plain gloo has no CUDA path for DTensor's all-gather, probed here):
+  stablelm-3b and hymba-1.5b served at full width in bf16 with B3 and B4
+  per rank on head and batch shards, checked in float32 against one
+  process, and stablelm-3b's 100m preset trained against ``1x1``;
 * the same case study solved whole on the device: CG and BiCGStab as
   replayed CUDA graphs (``repro_torch.solve.fused``); kernel B1;
 * the serving executor draining coalesced batches of the case study's
@@ -184,8 +188,10 @@ Phases, each of which fails the run on any error:
     all-to-all, bitwise the stacked exchange, the stacked run's slot
     counts, the int8 wire bitwise the stacked int8 run, planning once; ms
     per call);
-    then the gloo probe and the launchers' ``--mesh`` raise; last, so no
-    other process shares the card with a profiled phase;
+    then the collective probe over plain gloo and the staged group, and
+    the launchers' ``--mesh 2x2`` on CUDA ranks (serve at full width, bf16
+    and a float32 check, train 100m); last, so no other process shares the
+    card with a profiled phase;
 22. one JSON line of the kernels (B3 eight times: at hymba's shapes, at
     llama4-scout's, at MLA's prefill, at whisper's encoder, decoder self-
     and cross-attention, and at the vlm's self- and cross-attention; each
@@ -3002,6 +3008,11 @@ EXAMPLE_RUNS = (
 )
 
 
+#: example runs at once in phase examples (a run that resumes another's
+#: checkpoint runs after it, in the same lane)
+EXAMPLE_LANES = 3
+
+
 def phase_examples(ctx) -> None:
     """The six examples of ``repro_torch.examples`` as users start them
     (``python -m repro_torch.examples.<name>``, on the CUDA device), each in
@@ -3009,40 +3020,50 @@ def phase_examples(ctx) -> None:
     this process, whose profiler phase ``fused`` still needs.  Each must exit
     0 (its own asserts hold), print the reference's expected line, and pass
     its launch gate on the counts it prints last (``REPRO_EXAMPLE_LAUNCHES``);
-    the resumed train_lm run must start from step 300.  Wall seconds per run
-    go to ``chip_smoke.json``, each run's output to ``chiprun_out/examples/``.
+    the resumed train_lm run must start from step 300.  ``EXAMPLE_LANES``
+    runs go at once (the two train_lm runs one after the other), so a run's
+    wall seconds, in ``chip_smoke.json``, include the others' contention;
+    each run's output goes to ``chiprun_out/examples/``.
     """
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     out_dir = os.path.join(HERE, "chiprun_out", "examples")
     os.makedirs(out_dir, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"), "REPRO_EXAMPLE_LAUNCHES": "1"}
     ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_examples_"), "ckpt")
     runs = {}
+
+    def run(name, args, expect, gate) -> None:
+        args = [a.format(ckpt=ckpt) for a in args]
+        label = " ".join([name, *args]).replace(ckpt, "CKPT")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                              capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
+        seconds = time.perf_counter() - t0
+        fname = label.replace(" ", "_").replace("-", "").replace("/", "")
+        with open(os.path.join(out_dir, f"{fname}.txt"), "w") as f:
+            f.write(f"$ {label}\n{proc.stdout}\n--- stderr ---\n{proc.stderr}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        launches = json.loads(lines[-1])["launches"]
+        checks = {"expected line": expect in proc.stdout, "launch gate": gate(launches)}
+        if "--resume" in args:
+            checks["resumed from step 300"] = "resumed from step 300" in proc.stderr
+        runs[label] = {"seconds": seconds, "launches": launches, "checks": checks}
+        log(f"[examples] {label}: {seconds:.2f} s, launches {launches}, checks {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"{label}: " + ", ".join(k for k, ok in checks.items() if not ok)
+                                 + "\n" + "\n".join(lines[-20:]))
+
+    # the train_lm runs share a checkpoint: one lane, in order, started first
+    chains = [[r for r in EXAMPLE_RUNS if r[0] == "train_lm"]] + [[r] for r in EXAMPLE_RUNS if r[0] != "train_lm"]
     try:
-        for name, args, expect, gate in EXAMPLE_RUNS:
-            args = [a.format(ckpt=ckpt) for a in args]
-            label = " ".join([name, *args]).replace(ckpt, "CKPT")
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
-                                  capture_output=True, text=True, timeout=600, cwd=HERE, env=env)
-            seconds = time.perf_counter() - t0
-            fname = label.replace(" ", "_").replace("-", "").replace("/", "")
-            with open(os.path.join(out_dir, f"{fname}.txt"), "w") as f:
-                f.write(f"$ {label}\n{proc.stdout}\n--- stderr ---\n{proc.stderr}")
-            if proc.returncode != 0:
-                raise AssertionError(f"{label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
-            lines = proc.stdout.strip().splitlines()
-            launches = json.loads(lines[-1])["launches"]
-            checks = {"expected line": expect in proc.stdout, "launch gate": gate(launches)}
-            if "--resume" in args:
-                checks["resumed from step 300"] = "resumed from step 300" in proc.stderr
-            runs[label] = {"seconds": seconds, "launches": launches, "checks": checks}
-            log(f"[examples] {label}: {seconds:.2f} s, launches {launches}, checks {checks}")
-            if not all(checks.values()):
-                raise AssertionError(f"{label}: " + ", ".join(k for k, ok in checks.items() if not ok)
-                                     + "\n" + "\n".join(lines[-20:]))
+        with ThreadPoolExecutor(EXAMPLE_LANES) as pool:
+            for _ in pool.map(lambda chain: [run(*r) for r in chain], chains):
+                pass
     finally:
         shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
         ctx["details"]["examples"] = runs
@@ -3276,49 +3297,216 @@ def phase_mesh(ctx) -> None:
 #: phase ``world``: the case study on a gloo world of one process per rank
 WORLD_TOPO = "4x4"
 WORLD_TIMEOUT_S = 600
-#: the launchers in phase world: a DATAxMODEL mesh of that many processes
-#: on the card, with the tiny presets (stablelm-3b trained, hymba-1.5b
-#: served), as a user starts them
+#: the launchers in phase world: a DATAxMODEL mesh of that many CUDA ranks on
+#: this card, joined by the staged group (``repro_torch.comm.staged``), as a
+#: user starts them: stablelm-3b and hymba-1.5b served at full width and
+#: depth in bf16 (B3 and B4 per rank on head and batch shards), the same two
+#: at 2 layers in float32 against one process (the correctness gate), and
+#: stablelm-3b's 100m preset trained (it launches no kernel; each rank draws
+#: the state whole before it shards it, so full width would be 4 x 11.2 GB of
+#: float32 masters at once).  The serve worlds run a 1024-token prompt and 2
+#: tokens: every decode step re-gathers each layer's weight shards through
+#: host memory (the rules shard weights over ``data``), so at 2048 and 16
+#: tokens the launcher decoded for 71.8 s (stablelm-3b) and 60.0 s
+#: (hymba-1.5b) after prefills of 27.8 and 16.9 s (H100 80GB HBM3, 700 W,
+#: torch 2.11), which would put the script past its time limit
 LAUNCH_MESH = "2x2"
-LAUNCH_TRAIN = ["--arch", "stablelm-3b", "--preset", "tiny", "--steps", "10"]
-LAUNCH_SERVE = ["--arch", "hymba-1.5b", "--preset", "tiny"]
+LAUNCH_SERVE_ARCHS = ("stablelm-3b", "hymba-1.5b")
+LAUNCH_SERVE = ["--preset", "full", "--batch", "4", "--prompt-len", "1024", "--gen", "2", "--impl", "kernel"]
+LAUNCH_SERVE_F32 = ["--preset", "full", "--layers", "2", "--batch", "4", "--prompt-len", "1024", "--gen", "2",
+                    "--impl", "kernel", "--dtype", "float32"]
+#: the f32 gate: rank 0's gathered prefill logits within this share of
+#: max |logits| of one process (the serve phases' float32 tolerance)
+TOL_LAUNCH_F32 = 1e-3
+LAUNCH_TRAIN = ["--arch", "stablelm-3b", "--preset", "100m", "--batch", "8", "--seq", "512"]
+LAUNCH_TRAIN_STEPS = 10
+#: the checkpoint of the mesh run resumed on one process to this step
+LAUNCH_RESUME_STEPS = 12
+
+
+def _losses_agree(got: list, want: list, lr: float) -> dict:
+    """Two launcher runs' loss histories, by ``compare_trajectories`` on the
+    loss values (``lr`` an upper bound of each step's rate), as
+    ``tests/test_torch_mesh.py`` holds them."""
+    from repro_torch.testing.trajectory import compare_trajectories
+
+    if [h["step"] for h in got] != [h["step"] for h in want]:
+        return {"ok": False, "steps": [[h["step"] for h in got], [h["step"] for h in want]]}
+    loss = lambda hist: {"loss": np.array([h["loss"] for h in hist], np.float64)}
+    cmp = compare_trajectories(loss(got), loss(want), {"loss": np.zeros(len(want), bool)}, lr * len(want))
+    return {"ok": bool(cmp["ok"]), "worst": cmp["max_err_over_max_abs"]}
+
+
+def _one_process_serve(argv: list) -> tuple:
+    """The launcher's serve of ``argv`` in this process, of the model the
+    mesh serves: ``LMModel(tp=M)`` pads the heads to a multiple of the
+    ``model`` axis (hymba-1.5b's 25 to 26, as in the reference), so ``--mesh
+    1x1`` would serve another model.  ``(generate's output, launches)``."""
+    import torch
+
+    from repro_torch.examples import launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import parse_mesh
+
+    args = serve.parse_args(argv)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    before = launch_counts()
+    model, params = serve.build(args.arch, args.preset, args.seed, dev, layers=args.layers,
+                                dtype=None if args.dtype is None else getattr(torch, args.dtype),
+                                tp=parse_mesh(LAUNCH_MESH)[1])
+    prompts, _ = serve.make_context(model.cfg.vocab_size, args.batch, args.prompt_len, 0, 0, args.seed)
+    out = serve.generate(model, params, torch.as_tensor(prompts, device=dev), args.gen, impl=args.impl)
+    out = {"tokens": out["tokens"].cpu().tolist(), "logits": out["logits"][0].cpu().numpy()}
+    return out, {k: v - before[k] for k, v in launch_counts().items()}
 
 
 def world_launchers(ctx) -> dict:
-    """The launchers' ``--mesh`` on the card: first which collectives of a
-    DTensor program gloo runs on CUDA tensors (``probe_collectives``, one
-    world of 2 processes per collective; the plain ``torch.distributed``
-    all-gather beside them, logged), which must be all but
-    ``GLOO_CUDA_MISSING``; then ``launch.train`` and ``launch.serve`` with
-    ``--mesh LAUNCH_MESH`` on the CUDA device, as a user starts them, which
-    must raise before they spawn, naming the missing collective and ROADMAP
-    A.6.3b item 5 (no rank is carried to the host unasked)."""
+    """The launchers' ``--mesh`` on CUDA ranks of this card.
+
+    1. Timed, one world after the other: ``launch.serve --mesh
+       LAUNCH_MESH`` with ``LAUNCH_SERVE`` (bf16, ``--impl kernel``) for each
+       of ``LAUNCH_SERVE_ARCHS``, as a user starts it.  Gates: every rank
+       holds the same tokens, each rank launched B3 once per layer (all by
+       wgmma) and B4 once per SSM layer, as many as one process's prefill of
+       the same model (so none in decode), and its gathered prefill logits
+       are finite.  The tokens against one process in bf16 are logged, not
+       gated: random bf16 layers amplify rounding.
+    2. Then at once, for their gates (their seconds include the others'):
+       ``probe_collectives`` over plain gloo and over the staged group (one
+       world of 2 CUDA ranks per collective), which must fail exactly
+       ``GLOO_CUDA_MISSING`` and run all of ``PROBES`` with the right values
+       respectively; the serves at 2 layers in float32 (``LAUNCH_SERVE_F32``),
+       rank 0's gathered prefill logits within ``TOL_LAUNCH_F32`` of max
+       |logits| of one process on the card; ``launch.train`` with
+       ``LAUNCH_TRAIN`` for ``LAUNCH_TRAIN_STEPS`` on the mesh, checkpointed,
+       its losses on every rank agreeing with the ``1x1`` run's (loss values
+       by ``compare_trajectories``), no kernel launched on any rank.  This
+       process runs the one-process references meanwhile.
+    3. The mesh's checkpoint resumes on ``1x1`` to ``LAUNCH_RESUME_STEPS``,
+       agreeing with the ``1x1`` run's own resumed as far.
+    Logged beside the card's name and power limit: each world's seconds,
+    the slowest rank's prefill and decode, each rank's device peak, B3's
+    shapes per rank, and rank 0's staged collectives (calls, ms, bytes).
+    """
+    import contextlib
+    import io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
     from repro_torch.launch.mesh import GLOO_CUDA_MISSING
-    from repro_torch.launch.world import COLLECTIVES, probe_collectives
+    from repro_torch.launch.world import COLLECTIVES, PROBES, probe_collectives
 
     card = ctx["details"]["card"]
-    t0 = time.perf_counter()
-    probe = probe_collectives()
-    seconds = time.perf_counter() - t0
-    log(f"[world] gloo collectives on CUDA tensors, as DTensor issues them: {json.dumps(probe)} "
-        f"({seconds:.2f} s; {card})")
-    checks = {f"gloo on CUDA: every DTensor collective but {list(GLOO_CUDA_MISSING)} runs": all(
-        (probe[k] != "ok") == (k in GLOO_CUDA_MISSING) for k in COLLECTIVES)}
-    raised = {}
-    for name, main, argv in (("train", train.main, LAUNCH_TRAIN), ("serve", serve.main, LAUNCH_SERVE)):
-        t0 = time.perf_counter()
-        try:
-            main([*argv, "--mesh", LAUNCH_MESH])
-            raised[name] = "did not raise"
-        except NotImplementedError as e:
-            raised[name] = str(e)
-        checks[f"{name} --mesh {LAUNCH_MESH} on CUDA raises before it spawns, naming "
-               f"{GLOO_CUDA_MISSING} and A.6.3b item 5"] = (
-            all(c in raised[name] for c in GLOO_CUDA_MISSING) and "A.6.3b item 5" in raised[name]
-            and time.perf_counter() - t0 < 5.0)
-    log(f"[world] launchers --mesh {LAUNCH_MESH} on CUDA: {json.dumps(raised)}")
-    return {"probe": probe, "probe_s": seconds, "raised": raised, "checks": checks}
+    checks, out = {}, {"worlds": {}}
+
+    def world(tag: str, main, argv: list) -> dict:
+        t1 = time.perf_counter()
+        res = main([*argv, "--mesh", LAUNCH_MESH])  # rank 0 prints the launcher's lines
+        ranks = res["ranks"]
+        rec = {"seconds": time.perf_counter() - t1, "launches": [r["launches"] for r in ranks],
+               "b3_routes": [r["b3_routes"] for r in ranks], "b3_shapes": [r["b3_shapes"] for r in ranks],
+               "device_peak_bytes": [r["device_peak_bytes"] for r in ranks], "staged": ranks[0]["staged"]}
+        if "prefill_s" in ranks[0]:
+            rec.update(prefill_s=max(r["prefill_s"] for r in ranks), decode_s=max(r["decode_s"] for r in ranks))
+        out["worlds"][tag] = rec
+        timing = (f", prefill {rec['prefill_s']:.3f} s, decode {rec['decode_s']:.3f} s (slowest rank, host wall)"
+                  if "prefill_s" in rec else "")
+        staged_ms = {k: f"{v['calls']} calls {v['seconds'] * 1e3:.1f} ms {v['bytes'] / 1e6:.1f} MB"
+                     for k, v in sorted(rec["staged"].items(), key=lambda kv: -kv[1]["seconds"])}
+        log(f"[world] {tag} --mesh {LAUNCH_MESH} on {[r['device'] for r in ranks]}: world {rec['seconds']:.2f} s"
+            f"{timing}; launches per rank {rec['launches']}, B3 routes {rec['b3_routes']}, B3 shapes on rank 0 "
+            f"{rec['b3_shapes'][0]}; device peak allocated per rank {rec['device_peak_bytes']} B; rank 0's staged "
+            f"collectives {json.dumps(staged_ms)} ({card}, torch {torch.__version__})")
+        return res
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    bf16 = {arch: world(f"serve {arch} bf16", serve.main, ["--arch", arch, *LAUNCH_SERVE])["ranks"]
+            for arch in LAUNCH_SERVE_ARCHS}
+
+    lr = train.parse_args([]).lr
+    steps = ["--steps", str(LAUNCH_TRAIN_STEPS)]
+    with tempfile.TemporaryDirectory(prefix="launch_train_") as d:
+        on_mesh, alone = os.path.join(d, "mesh"), os.path.join(d, "one")
+        jobs = {f"probe {b}": (lambda b=b: probe_collectives(backend=b)) for b in ("gloo", "staged")}
+        for arch in LAUNCH_SERVE_ARCHS:
+            jobs[f"serve {arch} f32 2 layers"] = (
+                lambda arch=arch: world(f"serve {arch} f32 2 layers", serve.main, ["--arch", arch, *LAUNCH_SERVE_F32]))
+        jobs["train"] = lambda: world("train stablelm-3b 100m", train.main, [*LAUNCH_TRAIN, *steps, "--ckpt", on_mesh])
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futures = {tag: pool.submit(job) for tag, job in jobs.items()}
+            # meanwhile, in this process: the one-process references
+            refs = {(arch, kind): _one_process_serve(["--arch", arch, *argv]) for arch in LAUNCH_SERVE_ARCHS
+                    for kind, argv in (("bf16", LAUNCH_SERVE), ("f32", LAUNCH_SERVE_F32))}
+            release()
+            with contextlib.redirect_stdout(io.StringIO()):
+                one = train.main([*LAUNCH_TRAIN, *steps, "--ckpt", alone])["history"]
+            done = {tag: f.result() for tag, f in futures.items()}
+        out["concurrent_s"] = time.perf_counter() - t1
+        log(f"[world] the probes, the f32 serve and train worlds and the one-process references, at once: "
+            f"{out['concurrent_s']:.2f} s")
+
+        probe = {b: done[f"probe {b}"] for b in ("gloo", "staged")}
+        out["probe"] = probe
+        log(f"[world] collectives on CUDA tensors, as DTensor issues them: {json.dumps(probe)} ({card})")
+        checks[f"plain gloo on CUDA: every DTensor collective but {list(GLOO_CUDA_MISSING)} runs"] = all(
+            (probe["gloo"][k] != "ok") == (k in GLOO_CUDA_MISSING) for k in COLLECTIVES)
+        checks[f"staged on CUDA: all {len(PROBES)} collectives run with the right values"] = all(
+            probe["staged"][k] == "ok" for k in PROBES)
+
+        for arch in LAUNCH_SERVE_ARCHS:
+            cfg, ranks = get_config(arch), bf16[arch]
+            ref, ref_launches = refs[(arch, "bf16")]
+            want = {"flash_attention": cfg.n_layers, "ssd_chunked": cfg.n_layers if cfg.ssm else 0}
+            same = sum(a == b for x, y in zip(ranks[0]["tokens"], ref["tokens"]) for a, b in zip(x, y))
+            log(f"[world] serve {arch} bf16: one process launched {ref_launches}; tokens equal to one process's "
+                f"{same} of {sum(map(len, ref['tokens']))} (logged, not gated)")
+            checks[f"serve {arch} bf16: every rank holds the same tokens"] = all(
+                r["tokens"] == ranks[0]["tokens"] for r in ranks)
+            checks[f"serve {arch} bf16: every rank launched B3 {want['flash_attention']} and B4 "
+                   f"{want['ssd_chunked']}, as one process's prefill (none in decode)"] = all(
+                all(r["launches"][k] == n == ref_launches[k] for k, n in want.items()) for r in ranks)
+            checks[f"serve {arch} bf16: every B3 launch by wgmma"] = all(
+                r["b3_routes"] == {"wgmma": want["flash_attention"]} for r in ranks)
+            checks[f"serve {arch} bf16: gathered prefill logits finite on every rank"] = all(
+                bool(np.isfinite(np.asarray(r["prefill_logits"], np.float32)).all()) for r in ranks)
+
+            tag = f"serve {arch} f32 2 layers"
+            want_logits = refs[(arch, "f32")][0]["logits"]
+            got = np.asarray(done[tag]["ranks"][0]["prefill_logits"], np.float32)
+            err = float(np.abs(got - want_logits).max()) / float(np.abs(want_logits).max())
+            out["worlds"][tag]["max_err_over_max_abs"] = err
+            log(f"[world] {tag}: rank 0's prefill logits {list(got.shape)} vs one process: max |diff| / max |logits| "
+                f"= {err:.3e}")
+            checks[f"{tag}: rank 0's prefill logits within {TOL_LAUNCH_F32} of max |logits| of one process"] = (
+                got.shape == want_logits.shape and err <= TOL_LAUNCH_F32)
+
+        res = done["train"]
+        agree = [_losses_agree(r["history"], one, lr) for r in res["ranks"]]
+        log(f"[world] train 100m: losses on the mesh {[h['loss'] for h in res['history']]}, one process "
+            f"{[h['loss'] for h in one]}; agreement per rank {json.dumps(agree)}")
+        checks["train 100m --mesh 2x2: every rank's losses agree with 1x1 on the card"] = all(a["ok"] for a in agree)
+        checks["train 100m --mesh 2x2: no kernel launched on any rank"] = all(
+            not any(r["launches"].values()) for r in res["ranks"])
+        resume = [*LAUNCH_TRAIN, "--steps", str(LAUNCH_RESUME_STEPS), "--resume"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            from_mesh = train.main([*resume, "--ckpt", on_mesh])["history"]
+            from_one = train.main([*resume, "--ckpt", alone])["history"]
+        resumed = _losses_agree(from_mesh, from_one, lr)
+        log(f"[world] train 100m: the mesh's checkpoint resumed on 1x1 {[(h['step'], h['loss']) for h in from_mesh]}, "
+            f"1x1's own {[(h['step'], h['loss']) for h in from_one]}: {json.dumps(resumed)}")
+        checks[f"train 100m: the mesh's checkpoint resumes on 1x1 to step {LAUNCH_RESUME_STEPS}, agreeing with "
+               f"1x1's own"] = resumed["ok"] and from_mesh[-1]["step"] == LAUNCH_RESUME_STEPS
+    release()
+    out["checks"] = checks
+    return out
 
 
 def phase_world(ctx) -> None:
@@ -3370,7 +3558,9 @@ def phase_world(ctx) -> None:
       wire bitwise the stacked int8 run and not the full-precision output,
       no planning after the first of five calls.
 
-    Then :func:`world_launchers`: the gloo probe and the launchers' raise.
+    Then :func:`world_launchers`: the collective probe over plain gloo and
+    over the staged group, and the train and serve launchers' ``--mesh
+    2x2`` on CUDA ranks of this card.
 
     Logged beside the card's name and power limit: ms per staged exchange
     per strategy, ms per checked vs unchecked exchange, ms per dot (the

@@ -67,7 +67,8 @@ class ExchangeGroup:
     ``local`` joins the ``ppn`` ranks of this rank's pod (the ``a2a_local``
     hops), ``pod`` the ``npods`` ranks of its pod-local index (the
     ``a2a_pod`` hops); world rank ``r`` is ``topo.rank_of(pod, local)``,
-    pod-major.  Every group is gloo: its collectives take host tensors.
+    pod-major.  Every group is gloo or staged (:data:`BACKENDS`); the
+    exchange hands them host tensors either way.
     """
 
     topo: PodTopology
@@ -85,15 +86,21 @@ class ExchangeGroup:
         return self.topo.local_of(self.rank)
 
 
+#: the backends an exchange group runs over: gloo, and the group that
+#: stages every collective through host memory around gloo
+#: (:mod:`repro_torch.comm.staged`), whose collectives also take CUDA tensors
+BACKENDS: Tuple[str, ...] = ("gloo", "staged")
+
+
 def check_backend(backend: str) -> None:
-    """Only gloo runs: NCCL raises, naming its ROADMAP item."""
+    """Only :data:`BACKENDS` run: NCCL raises, naming its ROADMAP item."""
     if backend == "nccl":
         raise NotImplementedError(
             "the NCCL transport is ROADMAP A.6.3b item 5: one card cannot hold a NCCL world of two "
-            "ranks, so only backend='gloo' (staged through host memory) runs"
+            f"ranks, so only the backends {BACKENDS} (staged through host memory) run"
         )
-    if backend != "gloo":
-        raise ValueError(f"unknown backend {backend!r}; the exchange runs over 'gloo'")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the exchange runs over one of {BACKENDS}")
 
 
 def make_exchange_group(topo: PodTopology, backend: str = "gloo", timeout=None) -> ExchangeGroup:
@@ -109,6 +116,10 @@ def make_exchange_group(topo: PodTopology, backend: str = "gloo", timeout=None) 
     import torch.distributed as dist
 
     check_backend(backend)
+    if backend == "staged":
+        from repro_torch.comm.staged import register
+
+        register()
     if not dist.is_initialized():
         raise RuntimeError("make_exchange_group needs an initialised torch.distributed world")
     world = dist.get_world_size()
@@ -139,6 +150,10 @@ def exchange_group_of_mesh(mesh) -> ExchangeGroup:
     names = tuple(mesh.mesh_dim_names or ())
     if names != WORLD_AXES:
         raise ValueError(f"an exchange group needs a {WORLD_AXES} mesh, got axes {names}")
+    # first, before any collective: a group of another backend (the dry-run's
+    # fake one, NCCL) would fail later inside its own collectives
+    backend = dist.get_backend(mesh.get_group("local"))
+    check_backend(backend)
     topo = PodTopology(npods=mesh.size(0), ppn=mesh.size(1))
     world = dist.get_world_size()
     if world != topo.nranks:
@@ -146,7 +161,5 @@ def exchange_group_of_mesh(mesh) -> ExchangeGroup:
     layout = mesh.mesh.reshape(-1).tolist()
     if layout != [topo.rank_of(p, l) for p in range(topo.npods) for l in range(topo.ppn)]:
         raise ValueError(f"the mesh lays the ranks out as {layout}, not pod-major")
-    backend = dist.get_backend(mesh.get_group("local"))
-    check_backend(backend)
     return ExchangeGroup(topo=topo, rank=dist.get_rank(), local=mesh.get_group("local"),
                          pod=mesh.get_group("pod"), backend=backend)

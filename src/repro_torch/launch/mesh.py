@@ -56,33 +56,24 @@ def init_fake_world(world_size: int, rank: int = 0) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
 
 
-#: the collectives of a DTensor program that gloo has no CUDA path for, as
-#: ``repro_torch.launch.world.probe_collectives`` found them on the card's
-#: torch (2.11): ``all_gather`` as DTensor issues it
+#: the collectives of a DTensor program that plain gloo has no CUDA path
+#: for, as ``repro_torch.launch.world.probe_collectives`` found them on the
+#: card's torch (2.11): ``all_gather`` as DTensor issues it
 #: (``_functional_collectives.all_gather_tensor``) ends each process of the
 #: world with a segmentation fault, while reduce-scatter, all-to-all and
-#: all-reduce run
+#: all-reduce run.  The launchers' worlds therefore run over the staged group
+#: (:mod:`repro_torch.comm.staged`), which moves CUDA tensors through host
+#: memory itself; this stays the record of plain gloo, which the probe checks
 GLOO_CUDA_MISSING: Tuple[str, ...] = ("all_gather",)
-
-
-def check_mesh_device(device_type: str, data: int, model: int) -> None:
-    """Raise before a launcher spawns a ``data x model`` world of CUDA ranks
-    whose DTensor programs need a collective gloo cannot run on CUDA tensors
-    (:data:`GLOO_CUDA_MISSING`); the CPU, asked for, runs."""
-    if device_type == "cuda" and data * model > 1 and GLOO_CUDA_MISSING:
-        raise NotImplementedError(
-            f"mesh {data}x{model} on CUDA: the sharded programs issue {', '.join(GLOO_CUDA_MISSING)}, which the "
-            "gloo backend has no CUDA path for (the process dies), and one card cannot hold a NCCL world: "
-            "CUDA ranks wait for the NCCL transport, ROADMAP A.6.3b item 5; pass --device cpu for a mesh "
-            "of host ranks"
-        )
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     """The launchers' ``("data", "model")`` mesh: ``None`` (one device, no
-    mesh) for ``1x1``; otherwise a ``DeviceMesh`` of ``device_type`` over
-    the initialised default process group, whose world must hold
-    ``data * model`` processes (one rank each).
+    mesh) for ``1x1``; otherwise a ``DeviceMesh`` of ``device_type``
+    (``"cpu"`` or ``"cuda"``) over the initialised default process group,
+    whose world must hold ``data * model`` processes (one rank each); its
+    dimension groups take the default group's backend (the launchers'
+    worlds: the staged group).
 
     The reference's ``make_host_mesh`` lays its mesh over forced host
     devices of one process; the port's ranks are processes, which
@@ -91,7 +82,6 @@ def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     """
     if (data, model) == (1, 1):
         return None
-    check_mesh_device(device_type, data, model)
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 

@@ -39,15 +39,23 @@ sequential, and ``--chaos SEED`` re-runs the simulation under a seeded fault
 storm -- as the reference's launcher does.
 
 ``--mesh DxM`` other than ``1x1`` serves on a ``("data", "model")`` mesh of
-``D * M`` processes, one rank each, joined by gloo (spawned by
+``D * M`` processes, one rank each, joined by the process group that
+stages every collective through host memory around gloo
+(:mod:`repro_torch.comm.staged`; spawned by
 :func:`repro_torch.launch.world.run_launcher`, or this process's rank of a
 process group already initialised), as the reference's launcher passes its
 mesh: the model built with ``tp=M``, its weights drawn whole from the seed
 and sharded by the reference's rules, the prompts sharded over ``data``,
-``prefill`` / ``decode_step`` given the mesh.  Rank 0 prints.  The ranks
-run on the host (``--device cpu``); a mesh of CUDA ranks raises before it
-spawns (:func:`repro_torch.launch.mesh.check_mesh_device`: gloo has no CUDA
-path for the all-gather DTensor issues, ROADMAP A.6.3b item 5).
+``prefill`` / ``decode_step`` given the mesh; with ``--impl kernel`` each
+rank runs B3 and B4 on its own batch rows and heads.  Rank 0 prints.  The
+ranks run on the CUDA device (every rank on ``cuda:(rank % device_count)``,
+so one card holds them all) or, with ``--device cpu``, on the host:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --preset full \\
+        --batch 4 --prompt-len 2048 --gen 16 --mesh 2x2  # 4 CUDA ranks
+
+``--dtype float32`` draws the weights and runs the activations in float32
+(default: the config's dtype).
 """
 
 from __future__ import annotations
@@ -291,6 +299,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--impl", choices=("kernel", "chunked", "dot"), default="kernel")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                    help="weights and activations (default: the config's)")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--mesh", default="1x1", help="DATAxMODEL, e.g. 2x2: that many processes")
     ap.add_argument("--layers", type=int, default=None,
@@ -344,7 +354,8 @@ def run(args: argparse.Namespace, device: DeviceLike = None, mesh=None) -> dict:
     """This rank's serve: the launcher's build, prompts and ``generate``;
     rank 0 (or the only process) prints and runs ``--advise-dispatch``."""
     tp = mesh.size(mesh.mesh_dim_names.index("model")) if mesh is not None else 1
-    model, params = build(args.arch, args.preset, args.seed, device, layers=args.layers, tp=tp)
+    dtype = None if args.dtype is None else getattr(torch, args.dtype)
+    model, params = build(args.arch, args.preset, args.seed, device, dtype=dtype, layers=args.layers, tp=tp)
     device = params["embed"].device
     cfg = model.cfg
     prompts, ctx = make_context(cfg.vocab_size, args.batch, args.prompt_len, model.ctx_len(), cfg.d_model,
@@ -368,8 +379,10 @@ def run(args: argparse.Namespace, device: DeviceLike = None, mesh=None) -> dict:
 
 
 def summary(out: dict) -> dict:
-    """What a rank of a ``--mesh`` world returns: its tokens and times."""
-    return {"tokens": out["tokens"].cpu().tolist(), "prefill_s": out["prefill_s"], "decode_s": out["decode_s"]}
+    """What a rank of a ``--mesh`` world returns: its tokens, the prefill's
+    gathered last-position logits ``[B, vocab]`` (float32) and its times."""
+    return {"tokens": out["tokens"].cpu().tolist(), "prefill_logits": out["logits"][0].cpu().tolist(),
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"]}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -8,14 +8,15 @@ the reference, elastic resharding: checkpoints hold whole arrays, so a run
 resumes on another ``--mesh``.
 
 ``--mesh DxM`` other than ``1x1`` trains on a ``("data", "model")`` mesh of
-``D * M`` processes, one rank each, joined by gloo (spawned by
+``D * M`` processes, one rank each, joined by the process group that
+stages every collective through host memory around gloo
+(:mod:`repro_torch.comm.staged`; spawned by
 :func:`repro_torch.launch.world.run_launcher`; in a process group that is
 already initialised, this process is one rank of it and the world must
 hold ``D * M``), as the reference's ``Trainer(cfg, mesh, ...)``.  Rank 0
-prints the closing line.  The ranks run on the host (``--device cpu``); a
-mesh of CUDA ranks raises before it spawns
-(:func:`repro_torch.launch.mesh.check_mesh_device`: gloo has no CUDA path
-for the all-gather DTensor issues, ROADMAP A.6.3b item 5).
+prints the closing line.  The ranks run on the CUDA device (every rank on
+``cuda:(rank % device_count)``, so one card holds them all) or, with
+``--device cpu``, on the host.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --preset tiny \\
         --device cpu --steps 50 --ckpt /tmp/run1
@@ -23,6 +24,8 @@ for the all-gather DTensor issues, ROADMAP A.6.3b item 5).
         --device cpu --steps 50 --mesh 2x2 --ckpt /tmp/run1 --resume
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --preset full \\
         --batch 2 --seq 4096 --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --preset 100m \\
+        --steps 10 --batch 8 --seq 512 --mesh 2x2 --ckpt /tmp/run2   # 4 CUDA ranks
 """
 
 from __future__ import annotations

@@ -8,11 +8,13 @@ use it), joins them through a ``file://`` store in a fresh temporary
 directory (two worlds on one machine never share a TCP port), builds each
 rank's :class:`~repro_torch.comm.topology.ExchangeGroup` and calls
 ``fn(group, device, *args)`` there.  Each rank uses one CPU thread.  The
-backend is gloo: NCCL refuses two ranks of one communicator on one card,
-so every hop stages its payload through host memory (the paper's
-staged-through-host path).  A rank that raises ends the world: the others
-are killed and :class:`WorldError` carries that rank's number and
-traceback, within ``timeout_s``.
+backend is gloo, or the group that stages every collective through host
+memory around gloo (``backend="staged"``, :mod:`repro_torch.comm.staged`,
+which the launchers' ``--mesh`` worlds run on): NCCL refuses two ranks of
+one communicator on one card, so every hop stages its payload through host
+memory (the paper's staged-through-host path).  A rank that raises ends
+the world: the others are killed and :class:`WorldError` carries that
+rank's number and traceback, within ``timeout_s``.
 
 ``python -m repro_torch.launch.world --topo 4x4 --rows 1048576 --out DIR``
 runs :func:`case_study` on the card (``--device cpu`` on the host): every
@@ -48,8 +50,9 @@ then holds its own ``[1, L]`` block and runs
   compressed tree with one history on every rank and the stacked loop's
   status; ms per dot, tree vs one all-gather over the world;
 * B1/B2 launches per rank against a count predicted from the calls made;
-* the guards: NCCL, the fused solve, a rank with another strategy and a rank
-  with another fault plan each raise;
+* the guards: NCCL, a ``("pod", "local")`` mesh of fake groups handed to
+  ``exchange_group_of_mesh``, the fused solve, a rank with another strategy
+  and a rank with another fault plan each raise;
 * the MoE exchange dispatch (on CUDA ranks one llama4-scout layer at full
   width, one expert per rank in bf16, batch ``nranks x 1024``; on the host
   the same layer narrowed) on the world's ``("pod", "local")``
@@ -90,8 +93,10 @@ import torch.distributed as dist
 from repro_torch.comm.compression import Compressor, int8_scale
 from repro_torch.comm.exchange import execute_numpy
 from repro_torch.comm.faults import ExchangeIntegrityError, FaultPlan, FaultSpec
+from repro_torch.comm.staged import BACKEND as STAGED
+from repro_torch.comm.staged import register as register_staged
 from repro_torch.comm.strategies import STRATEGY_NAMES, IrregularExchange, planned
-from repro_torch.comm.topology import PodTopology, check_backend, make_exchange_group
+from repro_torch.comm.topology import PodTopology, check_backend, exchange_group_of_mesh, make_exchange_group
 from repro_torch.core.device import device_for_rank, resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.spmv_ell import spmm_ell, spmv_ell
@@ -156,6 +161,8 @@ def _rank_main(rank: int, fn: Callable, topo: Union[PodTopology, int], device: O
         timeline = {"entered": time.time()}
         torch.set_num_threads(1)
         timeout = timedelta(seconds=timeout_s)
+        if backend == STAGED:
+            register_staged()
         dist.init_process_group(backend, init_method=store, rank=rank, world_size=_nranks(topo),
                                 timeout=timeout)
         timeline["joined"] = time.time()
@@ -231,7 +238,9 @@ def run_world(fn: Callable, topo: Union[PodTopology, int], *, device: Optional[s
     entered (its imports done), joined the store, built its groups and held
     its device.
     ``device="cpu"`` runs every rank on the host; left out, rank ``r`` runs
-    on ``cuda:(r % device_count)``.  ``timeout_s`` bounds the whole world
+    on ``cuda:(r % device_count)``.  ``backend`` is ``"gloo"`` or
+    ``"staged"`` (every collective staged through host memory, so DTensor
+    programs run on CUDA ranks too).  ``timeout_s`` bounds the whole world
     and each of its collectives; past it every rank is killed and
     :class:`TimeoutError` raised.  A rank that raises ends the world with
     :class:`WorldError`.
@@ -277,21 +286,24 @@ def run_launcher(module: str, argv: Optional[Sequence[str]] = None) -> dict:
     module's ``parse_args(argv)``, then its ``run(args, device, mesh)`` on a
     ``--mesh`` of ``D x M`` ranks.  With one rank, or in a process group
     already initialised (this process one rank of it), it runs here;
-    otherwise it spawns ``D * M`` processes (:func:`run_world`, raising
-    first where the device cannot hold such a mesh) and returns rank 0's
-    ``summary(out)`` and kernel launches with every rank's under
-    ``"ranks"``."""
+    otherwise it spawns ``D * M`` processes joined by the staged group
+    (:func:`run_world` with ``backend="staged"``, on the host and on CUDA
+    ranks alike; without ``--device`` a machine with no card raises before
+    it spawns) and returns rank 0's ``summary(out)`` and kernel launches
+    with every rank's under ``"ranks"``."""
     import importlib
 
-    from repro_torch.launch.mesh import check_mesh_device, make_host_mesh, parse_mesh
+    from repro_torch.launch.mesh import make_host_mesh, parse_mesh
 
     mod = importlib.import_module(module)
     argv = list(sys.argv[1:] if argv is None else argv)
     args = mod.parse_args(argv)
     data, model = parse_mesh(args.mesh)
     if data * model > 1 and not dist.is_initialized():
-        check_mesh_device("cpu" if args.device == "cpu" else "cuda", data, model)
-        ranks = run_world(_launcher_rank, data * model, device=args.device, args=(module, argv), timeout_s=3600.0)
+        if args.device is None:
+            device_for_rank(0)  # no card: raise here, before any rank is spawned
+        ranks = run_world(_launcher_rank, data * model, device=args.device, backend=STAGED, args=(module, argv),
+                          timeout_s=3600.0)
         return {**ranks[0], "ranks": ranks}
     device = args.device
     if device is None and dist.is_initialized():
@@ -301,18 +313,31 @@ def run_launcher(module: str, argv: Optional[Sequence[str]] = None) -> dict:
 
 
 def _launcher_rank(rank: int, device: torch.device, module: str, argv: list) -> dict:
-    """One rank of a launcher's spawned world."""
+    """One rank of a launcher's spawned world: its ``summary``, its kernel
+    launches, B3's by route and by shape (``flash_attention.by_route``,
+    ``by_shape``: ``[q, k, v shapes, causal, window, launches]``), its
+    staged collectives (``staged.stats``: calls, host seconds and bytes per
+    collective) and its device's peak allocated bytes (``None`` on the
+    host)."""
     import importlib
 
+    from repro_torch.comm import staged
     from repro_torch.examples import launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.mesh import make_host_mesh, parse_mesh
 
     mod = importlib.import_module(module)
-    before = launch_counts()
+    before, routes, shapes = launch_counts(), Counter(flash_attention.by_route), Counter(flash_attention.by_shape)
+    collectives = staged.stats()
     args = mod.parse_args(argv)
     out = mod.run(args, device, make_host_mesh(*parse_mesh(args.mesh), device.type))
+    was = lambda name: Counter(collectives.get(name, {}))
     return {"rank": rank, "device": str(device), **mod.summary(out),
-            "launches": {k: v - before[k] for k, v in launch_counts().items()}}
+            "launches": {k: v - before[k] for k, v in launch_counts().items()},
+            "b3_routes": dict(Counter(flash_attention.by_route) - routes),
+            "b3_shapes": [[*key, n] for key, n in (Counter(flash_attention.by_shape) - shapes).items()],
+            "staged": {name: dict(Counter(c) - was(name)) for name, c in staged.stats().items()},
+            "device_peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None}
 
 
 def probe(group, device: torch.device, fail_rank: int = -1) -> dict:
@@ -333,11 +358,14 @@ COLLECTIVES = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
 PROBES = COLLECTIVES + ("all_gather_c10d",)
 
 
-def collective(rank: int, device: torch.device, name: str) -> dict:
+def collective(rank: int, device: torch.device, name: str, misshape_rank: int = -1) -> dict:
     """One collective of a DTensor program, as DTensor issues it
-    (``_functional_collectives`` on the world group), on this rank's
-    ``[world]`` tensor of ``device`` holding its rank: ``{"ok": the values
-    every rank should get}``."""
+    (``_functional_collectives`` on the world group, of whichever backend),
+    on this rank's ``[world]`` tensor of ``device`` holding its rank:
+    ``{"ok": the values every rank should get, "values": what this rank
+    got, "backend": the world's}``.  With ``all_gather_c10d``, rank
+    ``misshape_rank`` hands the all-gather an output one element short,
+    which gloo refuses (how a backend's own error ends the world)."""
     from torch.distributed import _functional_collectives as funcol
 
     world = dist.get_world_size()
@@ -355,23 +383,33 @@ def collective(rank: int, device: torch.device, name: str) -> dict:
         out, want = funcol.all_reduce(t, "sum", grp), torch.full((world,), total, device=device)
     elif name == "all_gather_c10d":
         out, want = torch.empty(world * world, device=device), ranks.repeat_interleave(world)
-        dist.all_gather_into_tensor(out, t)
+        dist.all_gather_into_tensor(out[1:] if rank == misshape_rank else out, t)
     else:
         raise ValueError(f"unknown collective {name!r}; one of {PROBES}")
     out = funcol.wait_tensor(out) if isinstance(out, funcol.AsyncCollectiveTensor) else out
-    return {"rank": rank, "ok": bool(torch.equal(out, want))}
+    return {"rank": rank, "ok": bool(torch.equal(out, want)), "values": out.tolist(),
+            "backend": dist.get_backend()}
 
 
-def probe_collectives(device: Optional[str] = None, nranks: int = 2, timeout_s: float = 120.0) -> dict:
-    """Which of :data:`PROBES` gloo runs on ``device`` tensors (left out,
-    each rank's CUDA device): ``{name: "ok" | "wrong values" | the world's
-    error}``, one world per collective (a collective without a path may end
-    its process), the worlds at once."""
+def collectives(rank: int, device: torch.device) -> dict:
+    """Every one of :data:`PROBES` in turn on this world: ``{name:
+    collective(rank, device, name)}``."""
+    return {name: collective(rank, device, name) for name in PROBES}
+
+
+def probe_collectives(device: Optional[str] = None, nranks: int = 2, timeout_s: float = 120.0,
+                      backend: str = "gloo") -> dict:
+    """Which of :data:`PROBES` the ``backend`` group (``"gloo"`` or
+    ``"staged"``) runs on ``device`` tensors (left out, each rank's CUDA
+    device): ``{name: "ok" | "wrong values" | the world's error}``, one
+    world per collective (a collective without a path may end its
+    process), the worlds at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(name: str) -> str:
         try:
-            ranks = run_world(collective, nranks, device=device, timeout_s=timeout_s, args=(name,))
+            ranks = run_world(collective, nranks, device=device, backend=backend, timeout_s=timeout_s,
+                              args=(name,))
         except (WorldError, TimeoutError) as e:
             return f"{type(e).__name__}: {str(e).splitlines()[-1][:200]}"
         return "ok" if all(r["ok"] for r in ranks) else "wrong values"
@@ -915,11 +953,29 @@ def _reductions(group, device, part, data: dict, keep: bool, gates: dict, out: d
     return summary
 
 
+def _fake_mesh(topo: PodTopology, device: torch.device):
+    """A ``("pod", "local")`` ``DeviceMesh`` of this world whose dimension
+    groups run over the dry-run's fake backend, which moves no data."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers "fake")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.comm.topology import WORLD_AXES
+
+    local, _ = dist.new_subgroups_by_enumeration(
+        [[topo.rank_of(p, l) for l in range(topo.ppn)] for p in range(topo.npods)], backend="fake")
+    pod, _ = dist.new_subgroups_by_enumeration(
+        [[topo.rank_of(p, l) for p in range(topo.npods)] for l in range(topo.ppn)], backend="fake")
+    layout = torch.arange(topo.nranks).reshape(topo.npods, topo.ppn)
+    return DeviceMesh.from_group([pod, local], device.type, mesh=layout, mesh_dim_names=WORLD_AXES)
+
+
 def _guards(group, device, part) -> dict:
-    """Each refusal under a group raises with its ROADMAP item or the ranks
-    at fault; returns ``{guard: message}``."""
+    """Each refusal under a group raises with its ROADMAP item, the ranks
+    at fault or the backend it cannot serve; returns ``{guard: message}``."""
     cases = {
         "nccl": lambda: make_exchange_group(group.topo, backend="nccl"),
+        # a mesh of groups that move no data: refused before any collective
+        "mesh_backend": lambda: exchange_group_of_mesh(_fake_mesh(group.topo, device)),
         "fused": lambda: fused_cg(DistributedSpMV(part, strategy="standard", device=device, group=group),
                                   torch.zeros((1, part.rows_per_rank), device=device)),
         # rank 1 plans another strategy: every rank raises at construction
@@ -934,7 +990,7 @@ def _guards(group, device, part) -> dict:
     for name, make in cases.items():
         try:
             make()
-        except (NotImplementedError, RuntimeError) as e:
+        except (NotImplementedError, RuntimeError, ValueError) as e:
             got[name] = f"{type(e).__name__}: {e}"
         else:
             got[name] = "did not raise"
@@ -1162,8 +1218,8 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     # on the host the wrappers run the plain versions and launch nothing
     want = predicted if device.type == "cuda" else {"spmv_ell": 0, "spmm_ell": 0}
     gates[f"launches {launches.n} == predicted {want}"] = launches.n == want
-    expect = {"nccl": "A.6.3b item 5", "fused": "A.6.3b item 6", "mismatch": "ranks [1]",
-              "fault_mismatch": "ranks [1]"}
+    expect = {"nccl": "A.6.3b item 5", "mesh_backend": "unknown backend 'fake'", "fused": "A.6.3b item 6",
+              "mismatch": "ranks [1]", "fault_mismatch": "ranks [1]"}
     for name, text in expect.items():
         gates[f"guard {name} raises naming {text!r}"] = text in guards[name]
     memory = {"host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,

@@ -200,7 +200,9 @@ def _attend_on_mesh(q, k, v, **kw) -> torch.Tensor:
             Hl = ql.shape[2]
             idx = (block_index(mesh, q_place, 2) * Hl + torch.arange(Hl, device=ql.device)) // (H // KV)
             kl, vl = kl[:, :, idx], vl[:, :, idx]
-        return attend(ql, kl, vl, **kw)
+        # a shard may be a strided view of its whole; the kernel B3 takes
+        # contiguous q/k/v only
+        return attend(ql.contiguous(), kl.contiguous(), vl.contiguous(), **kw)
 
     return local_map(local, out_placements=list(q_place), in_placements=(q_place, kv_place, kv_place),
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)

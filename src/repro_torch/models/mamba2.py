@@ -39,7 +39,10 @@ def _ssd_on_mesh(ssd_fn):
         px = placements(mesh, x_spec)
         pl = placements(mesh, PartitionSpec(*x_spec[:3]))
         pb = placements(mesh, PartitionSpec(x_spec[0], None, None))
-        return local_map(lambda x, la, bb, cc: ssd_fn(x, la, bb, cc, chunk), out_placements=list(px),
+        # a shard may be a strided view of its whole; the kernel B4 takes
+        # contiguous inputs only
+        scan = lambda *shards: ssd_fn(*(t.contiguous() for t in shards), chunk)
+        return local_map(scan, out_placements=list(px),
                          in_placements=(px, pl, pb, pb), device_mesh=mesh, redistribute_inputs=True)(xdt, loga, b, c)
 
     return run

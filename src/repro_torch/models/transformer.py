@@ -117,9 +117,10 @@ class CachedAttention:
                 ks = torch.cat([ks[:, S - r:], ks[:, S - W:S - r]], dim=1)
                 vs = torch.cat([vs[:, S - r:], vs[:, S - W:S - r]], dim=1)
             else:
-                pad = (0, 0, 0, 0, 0, W - S)
-                ks = torch.nn.functional.pad(ks, pad)
-                vs = torch.nn.functional.pad(vs, pad)
+                # zeros after the prompt, as a cat (on a mesh, torch 2.11's
+                # DTensor cannot plan the sharding of a pad)
+                ks = torch.cat([ks, ks.new_zeros((ks.shape[0], W - S, *ks.shape[2:]))], dim=1)
+                vs = torch.cat([vs, vs.new_zeros((vs.shape[0], W - S, *vs.shape[2:]))], dim=1)
         return out, {"k": ks, "v": vs}
 
     def decode(self, params, x, positions, cache, pos: int):

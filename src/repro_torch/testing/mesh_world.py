@@ -1,10 +1,12 @@
-"""A gloo world of CPU processes that holds the sharded programs to one-card runs.
+"""A world of CPU processes that holds the sharded programs to one-card runs.
 
 A fake process group moves no data, so only a real group can show that the
 sharded programs' collectives are right.  ``python -m
 repro_torch.testing.mesh_world --out results.json`` spawns ``--world`` (4)
-CPU processes joined by gloo through a ``file://`` store
-(:func:`repro_torch.launch.world.run_world`, the launchers' spawner), each on
+CPU processes joined through a ``file://`` store by the launchers' process
+group, which stages every collective through host memory around gloo
+(:func:`repro_torch.launch.world.run_world` with ``backend="staged"``, the
+launchers' spawner and backend), each on
 one rank of a ``2 x (world / 2)`` ``("data", "model")`` mesh.  Every rank runs, for each
 architecture at its tiny preset (``LMModel(cfg, tp=model)``; the MoE's
 ``capacity_factor`` 8, the reference tests' loose capacity, so that the
@@ -38,7 +40,8 @@ sharded and the one-card dispatch drop nothing):
   comparing the two runs' straggler and final checkpoints; hymba-1.5b tiny
   served with ``--impl chunked``;
 * ``collectives`` -- each collective a DTensor program issues
-  (:func:`repro_torch.launch.world.collective`) on this world's CPU tensors.
+  (:func:`repro_torch.launch.world.collectives`) on this world's CPU
+  tensors, over its staged group.
 
 Each rank writes its maximum absolute errors (and the sections' values); the
 JSON at ``--out`` holds the list of every rank's results.
@@ -352,9 +355,12 @@ def _launchers(rank: int, world: int, out_dir: str) -> dict:
 
 
 def _collectives(rank: int) -> dict:
-    from repro_torch.launch.world import PROBES, collective
+    import torch.distributed as dist
 
-    return {name: collective(rank, torch.device("cpu"), name)["ok"] for name in PROBES}
+    from repro_torch.launch.world import collectives
+
+    got = collectives(rank, torch.device("cpu"))
+    return {"backend": dist.get_backend(), **{name: r["ok"] for name, r in got.items()}}
 
 
 def _rank(rank: int, device: torch.device, out_dir: str, archs: List[str]) -> dict:
@@ -379,10 +385,11 @@ def _rank(rank: int, device: torch.device, out_dir: str, archs: List[str]) -> di
 
 def run(world: int = 4, archs=ARCHS) -> list:
     """Spawn the world; every rank's results, in rank order."""
+    from repro_torch.comm.staged import BACKEND as STAGED
     from repro_torch.launch.world import run_world
 
     with tempfile.TemporaryDirectory() as d:
-        return run_world(_rank, world, device="cpu", timeout_s=280.0, args=(d, list(archs)))
+        return run_world(_rank, world, device="cpu", backend=STAGED, timeout_s=280.0, args=(d, list(archs)))
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -2,8 +2,9 @@
 versions, the exchange, SpMV and CG on the card against the same code on
 the CPU, tiny serves (hymba, llama4-scout, deepseek-v2-lite's MLA,
 llama-3.2-vision, whisper) through the kernels against the plain route, and
-a tiny train step on the card against the same step on the CPU, and rank 0 of a
-sharded tiny prefill over a fake process group against its meta record.
+a tiny train step on the card against the same step on the CPU, rank 0 of a
+sharded tiny prefill over a fake process group against its meta record, and
+the staged process group's collectives on CUDA ranks.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode).  The file imports no JAX, so it runs on a GPU machine
@@ -743,3 +744,17 @@ print(json.dumps({{"meta": meta, "card": card}}))
     assert card["collective_ops"] == meta["collective_ops"] > 0
     predicted = mem["temp_bytes"] + mem["output_bytes"]
     assert abs(predicted - card["peak_beyond_arguments"]) <= 0.1 * card["peak_beyond_arguments"]
+
+
+def test_staged_group_runs_every_collective_on_cuda_ranks(dev):
+    """Two processes on this card over the staged group (every tensor
+    staged through host memory around gloo): each collective a DTensor
+    program issues, on CUDA tensors, with the right values (plain gloo
+    has no CUDA path for DTensor's all-gather, ``GLOO_CUDA_MISSING``)."""
+    from repro_torch.comm import staged
+    from repro_torch.launch import world
+
+    ranks = world.run_world(world.collectives, 2, backend=staged.BACKEND, timeout_s=120.0)
+    for r in ranks:
+        for name in world.PROBES:
+            assert r[name]["ok"] and r[name]["backend"] == staged.BACKEND, (name, r[name])

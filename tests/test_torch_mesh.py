@@ -1,7 +1,8 @@
 """The sharded programs' values, on a real process group.
 
-One spawned gloo world of 4 CPU processes on a 2 x 2 ``("data", "model")``
-mesh (``python -m repro_torch.testing.mesh_world``, rendezvous through a
+One spawned world of 4 CPU processes, joined by the launchers' staged group
+(every collective staged through host memory around gloo), on a 2 x 2
+``("data", "model")`` mesh (``python -m repro_torch.testing.mesh_world``, rendezvous through a
 ``file://`` store in a temporary directory, so workers running at once never
 share a port) runs, on every rank:
 
@@ -278,10 +279,14 @@ def test_serve_launcher_on_a_mesh_gives_one_rank_tokens(world):
 
 
 def test_collectives_probe_takes_every_collective_on_the_host(world):
-    """``world.collective``: each collective a DTensor program issues, on
-    the host (on the card ``world.probe_collectives`` finds the ones gloo
-    cannot run on CUDA tensors: ``launch.mesh.GLOO_CUDA_MISSING``)."""
+    """``world.collectives``: each collective a DTensor program issues, on
+    the host, over this world's staged group (the launchers' backend, which
+    stages every tensor through host memory around gloo).  Over plain gloo
+    the same probe passes on the host (``tests/test_torch_staged.py``
+    holds the two bitwise); on the card ``world.probe_collectives`` runs it
+    over both backends, and plain gloo lacks the ones in
+    ``launch.mesh.GLOO_CUDA_MISSING``."""
     from repro_torch.launch.world import PROBES
 
     for r in world:
-        assert r["collectives"] == dict.fromkeys(PROBES, True), r["rank"]
+        assert r["collectives"] == {"backend": "staged", **dict.fromkeys(PROBES, True)}, r["rank"]

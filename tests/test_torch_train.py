@@ -617,15 +617,21 @@ def test_launcher_trains_tiny_on_cpu():
 
 
 @pytest.mark.parametrize("launcher", ["train", "serve"])
-def test_launcher_mesh_of_cuda_ranks_raises_naming_the_collective(launcher):
-    """gloo has no CUDA path for DTensor's all-gather (``launch.mesh.
-    GLOO_CUDA_MISSING``, probed on the card): a CUDA mesh raises before it
-    spawns, naming it and the NCCL transport's ROADMAP item."""
+def test_launcher_mesh_without_a_card_raises_before_spawning(launcher, monkeypatch):
+    """A ``--mesh`` world runs its ranks on the CUDA device unless
+    ``--device cpu`` asks for the host: on a box with no card the launcher
+    raises before it spawns any rank, and carries nothing to the host."""
     from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import world
 
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the mesh would run on it")
+    spawned = []
+    monkeypatch.setattr(world, "run_world", lambda *a, **k: spawned.append(a))
     main = {"train": train_launcher.main, "serve": serve_launcher.main}[launcher]
-    with pytest.raises(NotImplementedError, match=r"all_gather.*A\.6\.3b item 5"):
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
         main(["--preset", "tiny", "--mesh", "2x2"])
+    assert not spawned
 
 
 def test_launcher_mesh_other_than_the_world_raises(tmp_path):

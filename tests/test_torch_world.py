@@ -210,8 +210,9 @@ def test_world_gates(worlds, topo, part):
     assert gates and all(gates.values()), [k for k, ok in gates.items() if not ok]
 
 
-@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b item 5"), ("fused", "A.6.3b item 6"),
-                                          ("mismatch", "ranks [1]"), ("fault_mismatch", "ranks [1]")])
+@pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b item 5"), ("mesh_backend", "unknown backend 'fake'"),
+                                          ("fused", "A.6.3b item 6"), ("mismatch", "ranks [1]"),
+                                          ("fault_mismatch", "ranks [1]")])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_guards_raise_under_a_group(worlds, topo, guard, names):
     for r in worlds[topo]:
