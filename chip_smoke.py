@@ -14,7 +14,9 @@ before it and read just after:
 * the same case study on a real process group (``repro_torch.launch.world``):
   16 processes of one rank each, all on this card, joined by gloo and
   staged through host memory; kernels B1/B2 at ``g = 1`` in every rank,
-  counted per rank in the child processes against a predicted count; in
+  counted per rank in the child processes against a predicted count, and
+  B1 replayed in the fused CG / BiCGStab's CUDA graphs (one graph per
+  stretch between two staged hops), counted per rank; in
   the same world one llama4-scout MoE layer at full width (d_model 5120, 16
   experts of 8192, top-1, one expert per process, bf16) dispatched by the
   exchange over the world's ``("pod", "local")`` ``DeviceMesh``; no kernel
@@ -180,8 +182,11 @@ Phases, each of which fails the run on any error:
    activity here;
 21. the world (``world``): the case study on 16 processes over gloo in one
     child process (see ``phase_world``): every rank's halos, SpMV and solves
-    bitwise the stacked run's rows; checks, faults and the recovery ladder
-    agreed by every rank and bitwise the stacked guarded exchange; the
+    bitwise the stacked run's rows; the fused CG / BiCGStab on the group,
+    bitwise the grouped host loop and the stacked host loop in the tree's
+    order, B1 by replays only, one host read per block (ms per iteration
+    against the host loop, capture seconds); checks, faults and the recovery
+    ladder agreed by every rank and bitwise the stacked guarded exchange; the
     on-pod-then-inter-pod reduction tree, plain and int8-compressed; its
     launches as predicted, the guards; the MoE exchange dispatch at full
     width on the world's mesh (bitwise across strategies and the mesh
@@ -3023,7 +3028,8 @@ def phase_examples(ctx) -> None:
     the resumed train_lm run must start from step 300.  ``EXAMPLE_LANES``
     runs go at once (the two train_lm runs one after the other), so a run's
     wall seconds, in ``chip_smoke.json``, include the others' contention;
-    each run's output goes to ``chiprun_out/examples/``.
+    each run's output goes to ``chiprun_out/examples/``.  Phase mesh's
+    children start first and run beside them (:func:`start_mesh_children`).
     """
     import shutil
     import tempfile
@@ -3034,6 +3040,7 @@ def phase_examples(ctx) -> None:
     env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"), "REPRO_EXAMPLE_LAUNCHES": "1"}
     ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_examples_"), "ckpt")
     runs = {}
+    start_mesh_children(ctx)
 
     def run(name, args, expect, gate) -> None:
         args = [a.format(ckpt=ckpt) for a in args]
@@ -3199,10 +3206,52 @@ print(json.dumps(out))
 """
 
 
+def start_mesh_children(ctx) -> dict:
+    """Start phase mesh's three children, unless they run already: the two
+    meta dry-runs (CPU only) and rank 0's program on the card, all at once,
+    their output in files under a fresh directory.  Phase examples starts
+    them, so they run beside it; a child still running when this script
+    exits is killed then."""
+    import atexit
+    import tempfile
+
+    if "mesh_children" in ctx:
+        return ctx["mesh_children"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+
+    def spawn(name: str, cmd: list, env: dict) -> tuple:
+        files = [open(os.path.join(out_dir, f"{name}.{part}"), "w+") for part in ("out", "err")]
+        return subprocess.Popen(cmd, stdout=files[0], stderr=files[1], text=True, cwd=HERE, env=env), files
+
+    procs = {kind: spawn(kind, [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MESH_ARCH, "--mesh",
+                                kind, "--out", out_dir], {**env, "CUDA_VISIBLE_DEVICES": ""})
+             for kind in MESH_SIZES}
+    procs["rank0"] = spawn("rank0", [sys.executable, "-c", MESH_RANK0, MESH_ARCH], env)
+    atexit.register(lambda: [p.kill() for p, _ in procs.values() if p.poll() is None])
+    ctx["mesh_children"] = {"out_dir": out_dir, "procs": procs, "t0": time.perf_counter()}
+    return ctx["mesh_children"]
+
+
+def _finish_child(proc, files, timeout_s: float = 900.0) -> tuple:
+    """``(stdout, stderr)`` of a child of :func:`start_mesh_children`, once
+    it has ended."""
+    proc.wait(timeout=timeout_s)
+    out = []
+    for f in files:
+        f.seek(0)
+        out.append(f.read())
+        f.close()
+    return tuple(out)
+
+
 def phase_mesh(ctx) -> None:
     """The mesh half of the port (``repro_torch.models.sharding``,
     ``launch.mesh``, the dry-run's ``--mesh single|multi``), in child
     processes: a process group is global to its process.
+
+    Its three children run beside phase examples, which starts them
+    (:func:`start_mesh_children`); this phase waits for them and checks.
 
     1. On meta tensors: ``python -m repro_torch.launch.dryrun --arch
        stablelm-3b --mesh single`` and ``--mesh multi``, the two at once,
@@ -3212,8 +3261,8 @@ def phase_mesh(ctx) -> None:
        of its arguments' local shards from ``spec_for``
        (``dryrun.spec_argument_bytes``), and every sharded cell issuing
        collectives.
-    2. On the card: rank 0's program of stablelm-3b prefill_32k on the 16x16
-       mesh at full width (``dryrun.run_on_card``): a fake group of 256
+    2. On the card, meanwhile: rank 0's program of stablelm-3b prefill_32k
+       on the 16x16 mesh at full width (``dryrun.run_on_card``): a fake group of 256
        standing at rank 0 on a CUDA mesh, its local shards drawn from a seed
        on the card, ``impl="chunked"``.  A fake group leaves every gathered
        buffer uninitialised, so the run is gated on memory and FLOPs, not on
@@ -3224,22 +3273,17 @@ def phase_mesh(ctx) -> None:
        counted FLOPs equal the record's.  Its CUDA-event time is logged.
     Nothing is caught: any failure fails the phase.
     """
-    import tempfile
-
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
     from repro_torch.models.lm import LMModel
 
     card = ctx["details"]["card"]
-    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    t0 = time.perf_counter()
-    meta = {kind: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", MESH_ARCH, "--mesh", kind, "--out", out_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE, env={**env, "CUDA_VISIBLE_DEVICES": ""})
-        for kind in MESH_SIZES}
-    outs = {kind: p.communicate(timeout=900) for kind, p in meta.items()}
-    meta_s = time.perf_counter() - t0
+    children = start_mesh_children(ctx)
+    out_dir, procs = children["out_dir"], children["procs"]
+    outs = {name: _finish_child(*procs[name]) for name in procs}
+    waited_s = time.perf_counter() - children["t0"]
+    meta = {kind: procs[kind][0] for kind in MESH_SIZES}
+    rank0, rank0_out = procs["rank0"][0], outs["rank0"]
     for kind, p in meta.items():
         if p.returncode != 0:
             raise AssertionError(f"dry-run --mesh {kind}: exit {p.returncode}\n{outs[kind][0][-3000:]}"
@@ -3264,20 +3308,18 @@ def phase_mesh(ctx) -> None:
                 mem["argument_bytes"] == want
             checks[f"{shape_name} x {kind}: {rec['collective_ops']} collectives > 0"] = rec["collective_ops"] > 0
 
-    t1 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", MESH_RANK0, MESH_ARCH], capture_output=True, text=True,
-                          timeout=900, cwd=HERE, env=env)
-    card_s = time.perf_counter() - t1
-    if proc.returncode != 0:
-        raise AssertionError(f"rank 0's program: exit {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    if rank0.returncode != 0:
+        raise AssertionError(f"rank 0's program: exit {rank0.returncode}\n{rank0_out[0][-3000:]}"
+                             f"\n{rank0_out[1][-3000:]}")
+    run = json.loads(rank0_out[0].strip().splitlines()[-1])
     rec = records[("single", "prefill_32k")]
     mem = rec["memory"]
     predicted = mem["temp_bytes"] + mem["output_bytes"]
     log(f"[mesh] rank 0 of 256, {MESH_ARCH} prefill_32k (32 x 32768, chunked) on the card: arguments "
         f"{run['argument_bytes']} B, peak beyond them {run['peak_beyond_arguments']} B (predicted temp + output "
         f"{predicted} B, ratio {predicted / run['peak_beyond_arguments']:.4f}), counted FLOPs {run['flops']:.6e}, "
-        f"collectives {run['collective_ops']} ops, {run['ms']:.3f} ms (CUDA events, median of 3) ({card})")
+        f"collectives {run['collective_ops']} ops, {run['ms']:.3f} ms (CUDA events, median of 3, beside phase "
+        f"examples) ({card})")
     checks[f"card: argument bytes {run['argument_bytes']} = meta {mem['argument_bytes']}"] = \
         run["argument_bytes"] == mem["argument_bytes"]
     checks[f"card: peak beyond arguments {run['peak_beyond_arguments']} within {TOL_DRYRUN_MEM:.0%} of "
@@ -3286,8 +3328,9 @@ def phase_mesh(ctx) -> None:
     checks[f"card: counted FLOPs {run['flops']:.0f} = meta {rec['counted_flops_per_chip']:.0f}"] = \
         run["flops"] == rec["counted_flops_per_chip"]
     ctx["details"]["mesh"] = {"records": {f"{k}|{s}": r for (k, s), r in records.items()}, "rank0": run,
-                              "meta_seconds": meta_s, "card_seconds": card_s}
-    log(f"[mesh] the two meta dry-runs took {meta_s:.1f} s (at once), rank 0's program {card_s:.1f} s")
+                              "children_seconds": waited_s}
+    log(f"[mesh] the two meta dry-runs and rank 0's program, started with phase examples and run beside it, "
+        f"had all ended {waited_s:.1f} s after their start")
     for name, ok in checks.items():
         log(f"[mesh] {name}: {ok}")
     if not all(checks.values()):
@@ -3319,9 +3362,9 @@ LAUNCH_SERVE_F32 = ["--preset", "full", "--layers", "2", "--batch", "4", "--prom
 #: max |logits| of one process (the serve phases' float32 tolerance)
 TOL_LAUNCH_F32 = 1e-3
 LAUNCH_TRAIN = ["--arch", "stablelm-3b", "--preset", "100m", "--batch", "8", "--seq", "512"]
-LAUNCH_TRAIN_STEPS = 10
+LAUNCH_TRAIN_STEPS = 5
 #: the checkpoint of the mesh run resumed on one process to this step
-LAUNCH_RESUME_STEPS = 12
+LAUNCH_RESUME_STEPS = 7
 
 
 def _losses_agree(got: list, want: list, lr: float) -> dict:
@@ -3363,9 +3406,10 @@ def _one_process_serve(argv: list) -> tuple:
 def world_launchers(ctx) -> dict:
     """The launchers' ``--mesh`` on CUDA ranks of this card.
 
-    1. Timed, one world after the other: ``launch.serve --mesh
-       LAUNCH_MESH`` with ``LAUNCH_SERVE`` (bf16, ``--impl kernel``) for each
-       of ``LAUNCH_SERVE_ARCHS``, as a user starts it.  Gates: every rank
+    1. Timed, the worlds at once (each one's seconds include the other's):
+       ``launch.serve --mesh LAUNCH_MESH`` with ``LAUNCH_SERVE`` (bf16,
+       ``--impl kernel``) for each of ``LAUNCH_SERVE_ARCHS``, as a user
+       starts it.  Gates: every rank
        holds the same tokens, each rank launched B3 once per layer (all by
        wgmma) and B4 once per SSM layer, as many as one process's prefill of
        the same model (so none in decode), and its gathered prefill logits
@@ -3427,8 +3471,10 @@ def world_launchers(ctx) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    bf16 = {arch: world(f"serve {arch} bf16", serve.main, ["--arch", arch, *LAUNCH_SERVE])["ranks"]
-            for arch in LAUNCH_SERVE_ARCHS}
+    with ThreadPoolExecutor(len(LAUNCH_SERVE_ARCHS)) as pool:
+        bf16 = dict(zip(LAUNCH_SERVE_ARCHS, pool.map(
+            lambda arch: world(f"serve {arch} bf16", serve.main, ["--arch", arch, *LAUNCH_SERVE])["ranks"],
+            LAUNCH_SERVE_ARCHS)))
 
     lr = train.parse_args([]).lr
     steps = ["--steps", str(LAUNCH_TRAIN_STEPS)]
@@ -3527,7 +3573,8 @@ def phase_world(ctx) -> None:
       ``matmat_looped``, ``w`` equal across strategies and bitwise the
       stacked operator's row, and within 1e-5 of a float64 CSR product;
     * CG and BiCGStab (``shifted_system``) with each strategy and ``auto``,
-      barrier and overlap: converged to 1e-6, histories bitwise across them
+      barrier, and CG on two_step also overlapped: converged to 1e-6,
+      histories bitwise across them
       and across ranks, true residual under 1e-5, and the stacked host loop's
       status, iterations within one and ``x`` within 1e-4;
     * checks, faults and the recovery ladder (every strategy x barrier/split
@@ -3545,10 +3592,27 @@ def phase_world(ctx) -> None:
       partials, ``Compressor()``'s dot one value on every rank within one
       quantum of the stacked ``TorchReductions``, a CG on the compressed
       tree with one history on every rank and the stacked loop's status;
+    * the fused whole-solve on the group (after the host loops, so after
+      ``fused_profile`` too, and profiling nothing): ``fused_cg`` and
+      ``fused_bicgstab`` on ``DistributedSpMV(group=)`` for each strategy
+      (barrier, codec none; CG also split-phase on two_step and with the
+      int8 wire on two_step and three_step), a first solve that warms up
+      and captures one CUDA graph per stretch of device work between two
+      staged hops (the split phase: the on-pod sub-exchange's too), on
+      two_step a second that replays them: history, ``x``, status,
+      iterations and matvecs bitwise the grouped host loop of the same
+      operator, and (rank 0) bitwise the stacked host loop in the group
+      tree's summation order (``reductions=NumpyReductions``); converged to
+      1e-6 with a true residual under 1e-5; B1 only by replays (two per
+      matvec of each replayed init and block, none eager beyond the
+      warm-up's); host reads at most one per block plus the slack; a
+      checked solve, a persistent fault every rank raises as the stacked
+      fused solve does, a transient one resumed from the same checkpoint on
+      the same rung;
     * each rank's B1/B2 launches equal to the count predicted from its calls
-      (2 B1 per matvec, 2 B2 per ``matmat``);
-    * the guards (NCCL, the fused solve, a rank with another strategy, a
-      rank with another fault plan) raise;
+      (2 B1 per matvec, 2 B2 per ``matmat``, the fused solves' warm-ups);
+    * the guards (NCCL, a rank with another strategy, a rank with another
+      fault plan) raise;
     * the MoE section: one llama4-scout layer at full width (the world's
       layer on CUDA ranks) on the 4 x 4 ``("pod", "local")`` ``DeviceMesh``,
       one expert per process, uniform and skewed routing: each rank's
@@ -3566,8 +3630,9 @@ def phase_world(ctx) -> None:
     per strategy, ms per checked vs unchecked exchange, ms per dot (the
     tree, compressed, and one all-gather over the world), ms per CG
     iteration (plain, checked, retried, compressed reductions; the slowest
-    rank's host wall), the world's start and total seconds, memory per
-    rank.  It runs last, after
+    rank's host wall), ms per fused CG / BiCGStab iteration against the
+    host loop's per strategy and the capture seconds, the world's start and
+    total seconds, memory per rank.  It runs last, after
     ``fused``: placed right after ``mesh`` it cost ``fused``'s profiler two
     B1 records (ROADMAP §C).  The child runs in a session of its own, so a
     timeout kills every rank with it.
@@ -3618,6 +3683,17 @@ def phase_world(ctx) -> None:
         else:
             log(f"[world] {key}: {json.dumps(res)}")
     log(f"[world] reductions: {json.dumps(r0['reductions']['values'])}")
+    fused = r0["fused"]
+    for key, row in fused.items():
+        if key == "checks":
+            log(f"[world] fused checks: {json.dumps(row)}")
+        else:
+            log(f"[world] fused {key}: {row['status']} in {row['iterations']} iterations, "
+                f"{row['ms_per_iteration']:.4f} ms/iteration fused ({row['timed']}) vs "
+                f"{row['host_ms_per_iteration']:.4f} host loop (slowest rank, host wall); first solve "
+                f"{row['first_solve_s']:.3f} s, its warm-up and capture {row['capture_s']} s; host reads "
+                f"{row['host_reads']}; B1 {row['b1_replayed']} by replays of {row['program_runs']}, "
+                f"{row['b1_eager']} eager beyond the {row['b1_warm_up']} of the warm-up ({card})")
     recoveries = Counter(v["recovery"] for x in ranks for v in x["fault_records"].values())
     log(f"[world] recoveries over every rank and case: {dict(recoveries)}")
     mem = [x["memory"] for x in ranks]
@@ -3658,11 +3734,16 @@ def phase_world(ctx) -> None:
             for x in ranks),
         f"{gates_of('moe')} moe gates ran, the full-width layer": gates_of("moe") > 0 and all(
             x["moe"]["d_model"] == get_config(MOE_ARCH).d_model for x in ranks),
+        f"{gates_of('fused')} fused gates ran, CG and BiCGStab of every strategy, B1 by replays on every rank": (
+            gates_of("fused") > 0 and all(
+                x["fused"][f"{solver}|{s}|none|barrier"]["b1_replayed"] > 0
+                and x["fused"][f"{solver}|{s}|none|barrier"]["b1_eager"] == 0
+                for x in ranks for solver in ("cg", "bicgstab") for s in STRATEGIES)),
     }
     ctx["details"]["world"] = {
         "seconds": seconds, "start_s": rec["start_s"], "total_s": rec["total_s"],
         "exchange_ms": r0["exchange_ms"], "solves": r0["solves"], "fault_ms": r0["fault_ms"],
-        "fault_solves": r0["fault_solves"], "reductions": r0["reductions"], "memory": mem,
+        "fault_solves": r0["fault_solves"], "fused": fused, "reductions": r0["reductions"], "memory": mem,
         "launches": [x["launches"] for x in ranks], "setup_s": [x["setup_s"] for x in ranks],
         "phase_s": [x["phase_s"] for x in ranks], "spmv_rel_err": r0["spmv_rel_err"], "moe": moe,
     }

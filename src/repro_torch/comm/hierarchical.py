@@ -18,7 +18,9 @@ an index move over those axes, and every function returns the stacked
 per-rank result (replicated results as a broadcast view).
 :func:`dot_hierarchical_group` is the same reduction tree over a process
 group of one rank per process
-(:class:`~repro_torch.comm.topology.ExchangeGroup`).
+(:class:`~repro_torch.comm.topology.ExchangeGroup`), run on the host;
+:func:`dot_tree_steps` is that tree as a hop generator on the rank's device,
+for the fused solve.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.compression import Compressor, int8_dequantize, int8_quantize, int8_scale
+from repro_torch.comm.hops import Hop, run_hops
 from repro_torch.comm.topology import PodTopology
 
 
@@ -118,46 +121,108 @@ def dot_hierarchical(
     return compressor.decompress(q.to(torch.int32).sum(), scale)
 
 
-def _row_sum(values: np.ndarray) -> float:
-    """One level of the tree: float64 values summed as numpy sums a row of a
-    ``[rows, n]`` array along its last axis (its pairwise order), which is
-    the order ``NumpyReductions``' ``reshape(npods, ppn).sum(axis=1)`` and
-    its final ``.sum()`` take."""
-    return float(np.asarray(values, dtype=np.float64).reshape(1, -1).sum(axis=1)[0])
+#: numpy's float64 add-reduction, which :func:`ordered_sum` follows: the
+#: row in buffers of ``np.getbufsize()`` (8192) elements added left to right
+#: onto 0, each buffer summed pairwise in blocks of at most ``PW_BLOCKSIZE``
+#: (128) elements with eight accumulators
+_NP_BUFFER = 8192
+_NP_BLOCK = 128
+
+
+def _pairwise(a: torch.Tensor) -> torch.Tensor:
+    """numpy's ``pairwise_sum`` of each length-``m`` row of ``a [rows, B,
+    m]``: ``[rows, B]``."""
+    rows, nb, m = a.shape
+    if m < 8:
+        s = a.new_zeros((rows, nb))
+        for i in range(m):
+            s = s + a[:, :, i]
+        return s
+    if m <= _NP_BLOCK:
+        k8 = m - m % 8
+        blocks = a[:, :, :k8].reshape(rows, nb, k8 // 8, 8)
+        r = blocks[:, :, 0]
+        for i in range(1, k8 // 8):
+            r = r + blocks[:, :, i]
+        r = r[..., 0::2] + r[..., 1::2]
+        r = r[..., 0::2] + r[..., 1::2]
+        s = r[..., 0] + r[..., 1]
+        for i in range(k8, m):
+            s = s + a[:, :, i]
+        return s
+    half = m // 2
+    half -= half % 8
+    if 2 * half == m:  # both halves alike: one batch of twice the rows
+        h = _pairwise(a.reshape(rows, nb * 2, half)).view(rows, nb, 2)
+        return h[..., 0] + h[..., 1]
+    return _pairwise(a[:, :, :half]) + _pairwise(a[:, :, half:])
+
+
+def ordered_sum(v: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``v [rows, n]`` in numpy's order (``v.numpy().sum(axis=1)``
+    of float64 rows, bitwise): ``[rows]`` on ``v``'s device.
+
+    Every add is one elementwise tensor op, so the sum is the same bits on
+    the host and on the card, and a CUDA graph can hold it: the reduction
+    tree's partials and levels take it on both sides of a process group's
+    fused solve (:mod:`repro_torch.solve.fused`).
+    """
+    rows, n = v.shape
+    full, rest = divmod(n, _NP_BUFFER)
+    sums = []
+    if full:
+        sums.append(_pairwise(v[:, : full * _NP_BUFFER].reshape(rows, full, _NP_BUFFER)))
+    if rest:
+        sums.append(_pairwise(v[:, full * _NP_BUFFER :].reshape(rows, 1, rest)))
+    out = v.new_zeros(rows)
+    for s in sums:
+        for j in range(s.shape[1]):
+            out = out + s[:, j]
+    return out
+
+
+def dot_tree_steps(partial: torch.Tensor, group, compressor: Optional[Compressor] = None):
+    """The reduction tree over a process group as a hop generator
+    (:mod:`repro_torch.comm.hops`): ``partial`` is this rank's ``[1]``
+    float64 share of ``<x, y>`` on its device, and the generator returns
+    the world sum, a 0-d float64 tensor there, the same bits on every rank.
+
+    The ``ppn`` partials of this rank's pod are all-gathered over
+    ``group.local`` and summed in index order (the pod sum), then the
+    ``npods`` pod sums over ``group.pod``: one scalar per pod crosses the
+    inter-pod groups, and each level sums in numpy's order
+    (:func:`ordered_sum`), so the result is bitwise ``_tree_sum`` of the
+    gathered partials.  With a ``compressor`` the pod sum is int8-quantized
+    on the inter-pod hop under one scale agreed over the pods (an all-reduce
+    MAX of the finite magnitudes,
+    :func:`~repro_torch.comm.compression.int8_scale`'s formula), and the
+    ``int32`` codes are summed over ``group.pod`` and dequantized.
+    """
+    topo = group.topo
+    local = partial.new_empty(topo.ppn)
+    yield Hop("all_gather", (partial,), (local,), group=group.local)
+    pod = ordered_sum(local.view(1, -1))
+    if compressor is None:
+        pods = partial.new_empty(topo.npods)
+        yield Hop("all_gather", (pod,), (pods,), group=group.pod)
+        return ordered_sum(pods.view(1, -1))[0]
+    amax = torch.where(torch.isfinite(pod), pod.abs(), torch.zeros_like(pod))
+    yield Hop("all_reduce", (amax,), (amax,), group=group.pod, op="max")
+    scale = int8_scale(amax[0], compressor.qmax)
+    q = int8_quantize(pod, scale, compressor.qmax).to(torch.int32)
+    yield Hop("all_reduce", (q,), (q,), group=group.pod, op="sum")
+    return int8_dequantize(q[0], scale)
 
 
 def dot_hierarchical_group(partial: float, group, compressor: Optional[Compressor] = None) -> float:
     """:func:`dot_hierarchical` over a process group: ``partial`` is this
-    rank's float64 share of ``<x, y>``, and every rank returns the world sum.
-
-    The ``ppn`` partials of this rank's pod are all-gathered over
-    ``group.local`` and summed in index order (the pod sum), then the
-    ``npods`` pod sums over ``group.pod`` in index order: one scalar per pod
-    crosses the inter-pod groups, and the result is bitwise the stacked
-    partials' rank -> pod -> world tree (``NumpyReductions``).  With a
-    ``compressor`` the pod sum is int8-quantized on the inter-pod hop under
-    one scale agreed over the pods (an all-reduce MAX of the finite
-    magnitudes, :func:`~repro_torch.comm.compression.int8_scale`'s
-    formula), and the ``int32`` codes are summed over ``group.pod`` and
-    dequantized; every rank holds the same bits either way.
+    rank's float64 share of ``<x, y>``, and every rank returns the world sum
+    of :func:`dot_tree_steps` (run on the host), bitwise the stacked
+    partials' rank -> pod -> world tree (``NumpyReductions``) without a
+    ``compressor``; every rank holds the same bits either way.
     """
-    import torch.distributed as dist
-
-    topo = group.topo
     mine = torch.tensor([float(partial)], dtype=torch.float64)
-    local = [torch.empty(1, dtype=torch.float64) for _ in range(topo.ppn)]
-    dist.all_gather(local, mine, group=group.local)
-    pod = torch.tensor([_row_sum(torch.cat(local).numpy())], dtype=torch.float64)
-    if compressor is None:
-        pods = [torch.empty(1, dtype=torch.float64) for _ in range(topo.npods)]
-        dist.all_gather(pods, pod, group=group.pod)
-        return _row_sum(torch.cat(pods).numpy())
-    amax = torch.where(torch.isfinite(pod), pod.abs(), torch.zeros_like(pod))
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group.pod)
-    scale = int8_scale(amax[0], compressor.qmax)
-    q = int8_quantize(pod, scale, compressor.qmax).to(torch.int32)
-    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group.pod)
-    return float(int8_dequantize(q[0], scale))
+    return float(run_hops(dot_tree_steps(mine, group, compressor)))
 
 
 def all_gather_hierarchical(x: torch.Tensor, topo: PodTopology) -> torch.Tensor:

@@ -86,6 +86,7 @@ from repro_torch.comm.exchange import (
     split_phase,
 )
 from repro_torch.comm.fusion import fuse
+from repro_torch.comm.hops import Hop, run_hops
 from repro_torch.core.device import DeviceLike, as_device_tensor, device_for_rank, resolve_device
 
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -388,17 +389,16 @@ class _Program:
         return out, torch.stack(viols)
 
 
-def _bytes_of(parts) -> torch.Tensor:
-    """``[rows, ...]`` tensors as one ``[rows, nbytes]`` uint8 host tensor
-    (each row's bytes in ``parts`` order): what a gloo hop carries."""
+def _bytes_on_device(parts) -> torch.Tensor:
+    """``[rows, ...]`` tensors as one ``[rows, nbytes]`` uint8 tensor on their
+    device (each row's bytes in ``parts`` order): what a hop carries."""
     rows = [p.reshape(p.shape[0], -1).view(torch.uint8) for p in parts]
-    return (rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)).cpu()
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 
-def _from_bytes(raw: torch.Tensor, like, device: torch.device) -> list:
-    """Inverse of :func:`_bytes_of` for tensors shaped and typed as ``like``
-    (each ``(shape, dtype)``), copied to ``device``."""
-    raw = raw.to(device)
+def _from_bytes(raw: torch.Tensor, like) -> list:
+    """Inverse of :func:`_bytes_on_device` for tensors shaped and typed as
+    ``like`` (each ``(shape, dtype)``), on ``raw``'s device."""
     if len(like) == 1:  # the whole buffer: fresh, so aligned for any dtype
         (shape, dtype), = like
         return [raw.view(dtype).reshape(shape)]
@@ -406,7 +406,7 @@ def _from_bytes(raw: torch.Tensor, like, device: torch.device) -> list:
     for shape, dtype in like:
         n = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
         # a fresh buffer, so the view starts aligned for its dtype
-        part = torch.empty((raw.shape[0], n), dtype=torch.uint8, device=device)
+        part = torch.empty((raw.shape[0], n), dtype=torch.uint8, device=raw.device)
         out.append(part.copy_(raw[:, at : at + n]).view(dtype).reshape(shape))
         at += n
     return out
@@ -434,15 +434,18 @@ class _RankProgram:
 
     On an inter-pod hop of a checked call the sender's check triple of each
     wire block (:func:`_wire_check`, taken before encoding) crosses in the
-    same bytes as the payload and its int8 scales (one :func:`_bytes_of`
+    same bytes as the payload and its int8 scales (one :func:`_bytes_on_device`
     layout for all of them); the receiver decodes, applies this rank's row
     of the fault masks (:meth:`faults_on_device`), and computes the hop's
     violation from its own triple of what arrived.  On-pod hops are never
     checked, and a rank that receives nothing in a hop records 0 for it.
 
-    :meth:`steps` issues each hop asynchronously and yields its pending
-    work, so :meth:`IrregularExchange.start` can leave the inter-pod
-    program's first hop in flight while the on-pod program runs.
+    :meth:`segments` is the program split at its hops: the device work
+    between two hops reads and writes only tensors that stay put, so the
+    fused solve captures a CUDA graph around each stretch and stages the
+    hops between the replays, and :meth:`IrregularExchange.start` can leave
+    the inter-pod program's first hop in flight while the on-pod program
+    runs.
     """
 
     def __init__(self, sp: StagePlan, device: torch.device, group, tag: int):
@@ -484,7 +487,7 @@ class _RankProgram:
                     ai += 1
                 self.ops.append(("permute", sum(blks), rnds))
         #: the checked hops, in :class:`_Program`'s order (the columns of
-        #: :meth:`steps`'s violation vector)
+        #: :meth:`segments`'s violation vector)
         self.hops: Tuple[tuple, ...] = tuple(
             (op_index, stage_kind, round_index)
             for _, op_index, stage_kind, round_index, _, _ in faults_mod.iter_inter_hops(sp)
@@ -497,15 +500,16 @@ class _RankProgram:
         each mask this rank's receiver row."""
         return _faults_on_device(self._faults, self.sp, self.device, codec, faults, rank=self.group.rank)
 
-    def steps(self, local: torch.Tensor, codec: str, verify: bool = False,
-              injections: Optional[Dict[tuple, tuple]] = None):
-        """Generator over the program's hops: yields each hop's pending
-        works once issued, resumes after the caller waited on them, and
-        returns ``([1, out_size, *feat], viols)``: ``viols`` is ``None``
-        unless ``verify``, else this rank's ``[len(hops)]`` float64 violations
-        on the device (``> 0`` failed)."""
-        import torch.distributed as dist
-
+    def segments(self, local: torch.Tensor, codec: str, verify: bool = False,
+                 injections: Optional[Dict[tuple, tuple]] = None):
+        """The program as a hop generator (:mod:`repro_torch.comm.hops`):
+        the device work up to each hop, then a :class:`~repro_torch.comm.hops.Hop`
+        that sends device bytes made here and fills device tensors read
+        after it (an unencoded hop lands straight in the scratch); a
+        ``permute`` op yields one hop, empty where this rank moves nothing.
+        Returns ``([1, out_size, *feat], viols)``: ``viols`` is ``None``
+        unless ``verify``, else this rank's ``[len(hops)]`` float64
+        violations on the device (``> 0`` failed)."""
         topo, L, E, device = self.topo, self.L, self.E, self.device
         feat = tuple(local.shape[2:])
         nfeat = int(np.prod(feat, dtype=np.int64))
@@ -535,7 +539,7 @@ class _RankProgram:
         def unpack(raw: torch.Tensor, parts: list, dtype) -> tuple:
             """Received bytes laid out as :func:`pack`'s ``parts``: the
             decoded blocks and the sender's check triples (or ``None``)."""
-            got = _from_bytes(raw, [(tuple(p.shape), p.dtype) for p in parts], device)
+            got = _from_bytes(raw, [(tuple(p.shape), p.dtype) for p in parts])
             pre = got.pop() if verify else None
             if not encoded:
                 return got[0], pre
@@ -550,9 +554,9 @@ class _RankProgram:
                                                             encoded)
             return got
 
-        def land(dest: torch.Tensor, raw: torch.Tensor) -> None:
-            """Received bytes of an unencoded hop, copied straight into ``dest``."""
-            dest.view(-1).view(torch.uint8).copy_(raw.view(-1))
+        def landing(dest: torch.Tensor) -> torch.Tensor:
+            """``dest``'s bytes: where an unencoded hop lands."""
+            return dest.view(-1).view(torch.uint8)
 
         for op_i, (kind, width, arg) in enumerate(self.ops):
             if kind == "gather":
@@ -566,15 +570,11 @@ class _RankProgram:
                 blocks = seg.reshape(groups, blk * nfeat)
                 wired = kind == "a2a_pod" and (encoded or verify or (op_i, None) in injections)
                 parts = pack(blocks, wired)
-                send = _bytes_of(parts)
-                recv = torch.empty_like(send)
-                work = dist.all_to_all_single(
-                    recv, send, group=self.group.pod if kind == "a2a_pod" else self.group.local,
-                    async_op=True,
-                )
-                yield [work]
+                send = _bytes_on_device(parts)
+                recv = torch.empty_like(send) if wired else landing(ext[L : L + width])
+                yield Hop("a2a", (send,), (recv,),
+                          group=self.group.pod if kind == "a2a_pod" else self.group.local)
                 if not wired:
-                    land(ext[L : L + width], recv)
                     continue
                 got, pre = unpack(recv, parts, blocks.dtype)
                 if encoded:  # the own-pod block never crossed pods: full precision
@@ -583,7 +583,7 @@ class _RankProgram:
                 got = settle(got, pre, (op_i, None), (groups, blk) + feat)
                 ext[L : L + width] = got.view((width,) + feat)
             else:  # permute
-                works, pending, at = [], [], L
+                transfers, pending, at = [], [], L
                 for ri, (blk, sel, dst, src, inter, tag) in enumerate(arg):
                     dest, at = ext[at : at + blk], at + blk
                     if not blk:
@@ -598,25 +598,21 @@ class _RankProgram:
                     key = (op_i, ri)
                     wired = inter and (encoded or verify or key in injections)
                     parts = pack(send.reshape(1, blk * nfeat), wired)
-                    ops, recv = [], None
-                    if dst is not None:
-                        ops.append(dist.P2POp(dist.isend, _bytes_of(parts), dst, tag=tag))
+                    recv = None
                     if src is not None:
                         nbytes = sum(p[0].numel() * p.dtype.itemsize for p in parts)
-                        recv = torch.empty((1, nbytes), dtype=torch.uint8)
-                        ops.append(dist.P2POp(dist.irecv, recv, src, tag=tag))
-                    if ops:
-                        works += dist.batch_isend_irecv(ops)
+                        recv = (torch.empty((1, nbytes), dtype=torch.uint8, device=device) if wired
+                                else landing(dest))
+                    transfers.append((_bytes_on_device(parts) if dst is not None else None, dst, recv, src,
+                                      tag))
                     pending.append((dest, None, recv, parts if wired else None, key))
-                yield works
+                yield Hop("p2p", transfers=tuple(transfers))
                 for dest, own, recv, parts, key in pending:
                     if own is not None:
                         dest.copy_(own)
                     elif recv is None:  # nothing arrives: zeros, as ppermute gives
                         dest.zero_()
-                    elif parts is None:
-                        land(dest, recv)
-                    else:
+                    elif parts is not None:  # an unencoded hop landed in dest already
                         got, pre = unpack(recv, parts, dest.dtype)
                         got = settle(got, pre, key, (dest.shape[0],) + feat)
                         dest.copy_(got.view(dest.shape))
@@ -628,26 +624,28 @@ class _RankProgram:
             return out, torch.zeros(0, dtype=torch.float64, device=device)
         return out, torch.stack(viols)
 
+    def steps(self, local: torch.Tensor, codec: str, verify: bool = False,
+              injections: Optional[Dict[tuple, tuple]] = None):
+        """:meth:`segments` with each hop issued here: yields each hop's
+        pending works, resumes after the caller waited on them, and returns
+        what :meth:`segments` returns (one yield per hop on every rank, so a
+        split-phase exchange stops at the same hop everywhere)."""
+        seg = self.segments(local, codec, verify, injections)
+        try:
+            hop = next(seg)
+            while True:
+                works, land = hop.stage()
+                yield works
+                land()
+                hop = seg.send(None)
+        except StopIteration as stop:
+            return stop.value
+
     def run(self, local: torch.Tensor, codec: str = "none", verify: bool = False,
             injections: Optional[Dict[tuple, tuple]] = None):
         """``local [1, L, *feat] -> ([1, out_size, *feat], viols)``, each hop
-        waited on before the next (:meth:`steps`)."""
-        return _drive(self.steps(local, codec, verify, injections))
-
-
-def _drive(steps, works=None):
-    """Run a :meth:`_RankProgram.steps` generator to its end and return what
-    it returns; ``works`` are the pending works of a hop it already
-    yielded."""
-    try:
-        if works is None:
-            works = next(steps)
-        while True:
-            for w in works:
-                w.wait()
-            works = steps.send(None)
-    except StopIteration as stop:
-        return stop.value
+        waited on before the next (:meth:`segments`)."""
+        return run_hops(self.segments(local, codec, verify, injections))
 
 
 def _agree_on_violations(viols: np.ndarray) -> np.ndarray:
@@ -1217,14 +1215,16 @@ class IrregularExchange:
             if remote_ex.guarded:
                 injections, delay = remote_ex._injections(remote_ex._calls)
                 remote_ex._calls += 1
-            steps = remote_ex._program.steps(local, remote_ex.wire, remote_ex.verify, injections)
+            steps = remote_ex._program.segments(local, remote_ex.wire, remote_ex.verify, injections)
             try:
-                first, done = next(steps), None
+                # one first hop on every rank (an empty one too), so a
+                # split-phase exchange stops at the same hop everywhere
+                first, done = next(steps).stage(), None
             except StopIteration as stop:
                 first, done = None, stop.value
 
             def drive() -> tuple:
-                return done if first is None else _drive(steps, first)
+                return done if first is None else run_hops(steps, first)
 
             def settle() -> torch.Tensor:
                 if not remote_ex.guarded:

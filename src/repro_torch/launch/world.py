@@ -29,7 +29,8 @@ then holds its own ``[1, L]`` block and runs
   ``matmat_looped``, ``w`` equal across strategies and bitwise the stacked
   operator's row;
 * CG (``spd_system``) and BiCGStab (``shifted_system``) with every strategy
-  and ``auto``, barrier and overlap: converged, histories bitwise equal
+  and ``auto``, barrier and overlap (on CUDA ranks overlap for CG on
+  ``FAULT_SOLVE_STRATEGY`` only): converged, histories bitwise equal
   across them and across ranks, the true residual, and the stacked host
   loop's status, iterations (within one) and ``x`` (within 1e-4);
 * checks, faults and the recovery ladder: every strategy x barrier/split x
@@ -44,6 +45,14 @@ then holds its own ``[1, L]`` block and runs
   on every rank with the stacked raise's hop and one violation; CG checked
   and CG through a retried fault, converged with the clean history bitwise
   and one status on every rank; ms per checked vs unchecked exchange;
+* the fused whole-solve (``fused_cg`` / ``fused_bicgstab`` on the group's
+  operators, :func:`_fused_solves`): for every strategy and codec, a first
+  solve that captures and a second that replays, bitwise the grouped host
+  loop and the stacked host loop in the group tree's order, B1 only by
+  graph replays on CUDA ranks, one host read per block; a checked solve, a
+  persistent fault every rank raises as the stacked fused solve does, a
+  transient fault every rank resumes on the same rung; ms per iteration
+  fused vs host loop and the capture seconds;
 * the reductions: the on-pod-then-inter-pod tree bitwise ``_tree_sum`` of
   the gathered partials; with ``Compressor()`` one value on every rank,
   within one quantum of the stacked ``TorchReductions``; a CG on the
@@ -51,8 +60,8 @@ then holds its own ``[1, L]`` block and runs
   status; ms per dot, tree vs one all-gather over the world;
 * B1/B2 launches per rank against a count predicted from the calls made;
 * the guards: NCCL, a ``("pod", "local")`` mesh of fake groups handed to
-  ``exchange_group_of_mesh``, the fused solve, a rank with another strategy
-  and a rank with another fault plan each raise;
+  ``exchange_group_of_mesh``, a rank with another strategy and a rank with
+  another fault plan each raise;
 * the MoE exchange dispatch (on CUDA ranks one llama4-scout layer at full
   width, one expert per rank in bf16, batch ``nranks x 1024``; on the host
   the same layer narrowed) on the world's ``("pod", "local")``
@@ -75,6 +84,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import math
 import multiprocessing.connection
 import os
 import resource
@@ -100,10 +110,10 @@ from repro_torch.comm.topology import PodTopology, check_backend, exchange_group
 from repro_torch.core.device import device_for_rank, resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.spmv_ell import spmm_ell, spmv_ell
-from repro_torch.solve.fused import fused_cg
+from repro_torch.solve.fused import fused_bicgstab, fused_cg
 from repro_torch.solve.krylov import bicgstab, cg
 from repro_torch.solve.problems import shifted_system, spd_system
-from repro_torch.solve.reductions import GroupReductions, TorchReductions, _tree_sum
+from repro_torch.solve.reductions import GroupReductions, NumpyReductions, TorchReductions, _tree_sum
 from repro_torch.sparse.matrices import GENERATORS
 from repro_torch.sparse.partition import partition_csr
 from repro_torch.sparse.spmv import DistributedSpMV
@@ -125,6 +135,12 @@ MAXITER = 1000
 #: compressed-reduction CG
 FAULT_CODECS = ("none", "int8")
 FAULT_SOLVE_STRATEGY = "two_step"
+#: the fused section's codecs (:func:`_fused_case`), the strategies of its
+#: int8 cases on CUDA ranks, and the iterations of its persistent-fault
+#: solve (it raises after its dispatch, whatever its length)
+FUSED_CODECS = ("none", "int8")
+FUSED_CARD_INT8 = ("two_step", "three_step")
+FUSED_DETECT_MAXITER = 10
 #: the compressed reductions' CG tolerance (int8 pod sums, ~0.4% per dot)
 TOL_COMPRESSED = 1e-4
 MAXITER_COMPRESSED = 200
@@ -663,11 +679,13 @@ def _spmv(group, device, A, part, data: dict, keep: bool, gates: dict, out: dict
 
 
 def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict, out: dict,
-            launches: _Launches, predicted: dict, histories: dict) -> dict:
+            launches: _Launches, predicted: dict, histories: dict, host_runs: dict) -> dict:
     """CG on ``spd_system`` and BiCGStab on ``shifted_system`` with every
-    strategy and ``auto``, barrier and overlap; rank 0 holds the result to
-    the stacked host loop.  Returns each run's summary; ``histories`` gets
-    each solver's (common) residual history."""
+    strategy and ``auto``, barrier and overlap (on CUDA ranks overlap for
+    CG on :data:`FAULT_SOLVE_STRATEGY` only: :func:`_overlapped`); rank 0 holds
+    the result to the stacked host loop.  Returns each run's summary;
+    ``histories`` gets each solver's (common) residual history,
+    ``host_runs`` each run's result by ``(solver, strategy, overlap)``."""
     r = group.rank
     summary = {}
     for solver, fn, M, part, rhs in (("cg", cg, systems_[0], parts[0], "b"),
@@ -675,7 +693,7 @@ def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict,
         b = torch.as_tensor(data[rhs][r : r + 1], device=device)
         runs = {}
         for strat in STRATEGY_NAMES + ("auto",):
-            for overlap in (False, True):
+            for overlap in (False, True) if _overlapped(device, solver, strat) else (False,):
                 op = DistributedSpMV(part, strategy=strat, device=device, overlap=overlap, group=group)
                 _sync(device)
                 _barrier()
@@ -685,7 +703,7 @@ def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict,
                 _sync(device)
                 wall = time.perf_counter() - t0
                 predicted["spmv_ell"] += 2 * res.matvecs  # diag + off per matvec
-                runs[(strat, overlap)] = res
+                runs[(strat, overlap)] = host_runs[(solver, strat, overlap)] = res
                 summary[f"{solver}|{strat}|{'overlap' if overlap else 'barrier'}"] = {
                     "strategy": op.strategy, "status": res.status, "iterations": res.iterations,
                     "matvecs": res.matvecs, "final_residual": res.final_residual,
@@ -874,6 +892,225 @@ def _fault_solves(group, device, A, part, data: dict, seed: int, clean: tuple, k
     return summary
 
 
+def _overlapped(device: torch.device, solver: str, strategy: str) -> bool:
+    """Whether the host-loop solves run ``(solver, strategy)`` split-phase
+    too: on the host all of them; on CUDA ranks CG on
+    :data:`FAULT_SOLVE_STRATEGY` alone (the phase's time on the card: the
+    histories are bitwise equal across strategies and modes anyway)."""
+    return device.type != "cuda" or (solver == "cg" and strategy == FAULT_SOLVE_STRATEGY)
+
+
+def _fused_case(device: torch.device, solver: str, strategy: str, codec: str, mode: str) -> bool:
+    """Whether the fused section runs ``(solver, strategy, codec, mode)``:
+    barrier with every codec and the split phase (``"overlap"``) with
+    ``none`` on the host; on CUDA ranks barrier with ``none`` for every
+    strategy, and for CG the split phase on :data:`FAULT_SOLVE_STRATEGY`
+    and the int8 wire on :data:`FUSED_CARD_INT8` (the phase's time on the
+    card)."""
+    if device.type != "cuda":
+        return mode == "barrier" or codec == "none"
+    if codec == "none":
+        return mode == "barrier" or (solver == "cg" and strategy == FAULT_SOLVE_STRATEGY)
+    return mode == "barrier" and solver == "cg" and strategy in FUSED_CARD_INT8
+
+
+def _fused_cached(device: torch.device, solver: str, strategy: str, codec: str, mode: str) -> bool:
+    """Whether a second, cached solve follows the first of a fused case:
+    on the host always; on CUDA ranks for CG on :data:`FAULT_SOLVE_STRATEGY`,
+    barrier, wire none (the phase's time on the card), the other cases
+    timed by their first solve less its warm-up and capture."""
+    return device.type != "cuda" or (solver, strategy, codec, mode) == ("cg", FAULT_SOLVE_STRATEGY, "none", "barrier")
+
+
+def _timed_solve(fn, device: torch.device, group) -> tuple:
+    """``(fn(), the slowest rank's host-wall seconds)`` of one collective solve."""
+    _sync(device)
+    _barrier()
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(device)
+    return res, _all_max(time.perf_counter() - t0, group)
+
+
+def _error_fields(solve) -> Optional[dict]:
+    """The fields of the ``ExchangeIntegrityError`` that ``solve()`` raises
+    (None if it raises none)."""
+    try:
+        solve()
+    except ExchangeIntegrityError as e:
+        return {**e.diagnostics(), "violation": e.violation}
+    return None
+
+
+def _fused_solves(group, device, systems_, parts, data: dict, seed: int, host_runs: dict, host_summary: dict,
+                  keep: bool, gates: dict, out: dict, launches: _Launches, predicted: dict) -> dict:
+    """The fused whole-solve over the group (``fused_cg`` / ``fused_bicgstab``
+    on ``DistributedSpMV(group=)``): for every strategy, codec and mode
+    (:func:`_fused_case`) a first solve (on CUDA it warms up and captures)
+    and, where :func:`_fused_cached`, a second that replays, each held
+    bitwise to the grouped host loop of the same operator (history, ``x``,
+    status, iterations, matvecs) and, on rank 0, the gathered ``x`` and the
+    history to the stacked host loop in the group tree's summation order
+    (``reductions=NumpyReductions``); converged, with a true residual under
+    :data:`TOL_TRUE` (codec none); B1 launched by graph replays only, two
+    per matvec of each replayed program, and one host read per block.  Then
+    :func:`_fused_checks`.  Returns the summary: ms per iteration fused vs
+    host loop, capture seconds, host reads, B1 counts."""
+    from repro_torch.solve import fused as F
+
+    r, topo = group.rank, group.topo
+    cuda = device.type == "cuda"
+    summary = {}
+    for solver, host_fn, fused_fn, M, part, rhs in (
+            ("cg", cg, fused_cg, systems_[0], parts[0], "b"),
+            ("bicgstab", bicgstab, fused_bicgstab, systems_[1], parts[1], "b2")):
+        b = torch.as_tensor(data[rhs][r : r + 1], device=device)
+        full = torch.as_tensor(data[rhs], device=device) if r == 0 else None
+        per_iter = 1 if solver == "cg" else 2  # matvecs per iteration
+        warm_up = 2 * (1 + per_iter) if cuda else 0  # B1 of the warm-up's init and one iteration, eagerly
+        for codec in FUSED_CODECS:
+            stacked = None
+            for strat, mode in ((s, m) for s in STRATEGY_NAMES for m in ("barrier", "overlap")):
+                if not _fused_case(device, solver, strat, codec, mode):
+                    continue
+                key = f"{solver}|{strat}|{codec}|{mode}"
+                overlap = mode == "overlap"
+                op = DistributedSpMV(part, strategy=strat, device=device, group=group, wire=codec, overlap=overlap)
+                if codec == "none":
+                    host = host_runs[(solver, strat, overlap)]
+                    host_ms = host_summary[f"{solver}|{strat}|{mode}"]["ms_per_iteration"]
+                else:
+                    with launches.counted():
+                        host, host_s = _timed_solve(lambda: host_fn(op, b, tol=TOL_SOLVE, maxiter=MAXITER),
+                                                    device, group)
+                    predicted["spmv_ell"] += 2 * host.matvecs
+                    host_ms = host_s / max(host.iterations, 1) * 1e3
+                runs = {}
+                for name in ("first", "cached") if _fused_cached(device, solver, strat, codec, mode) else ("first",):
+                    eager0, graph0, progs0 = spmv_ell.launches, F.graph_launches["spmv_ell"], dict(F.program_runs)
+                    with launches.counted():
+                        res, wall = _timed_solve(lambda: fused_fn(op, b, tol=TOL_SOLVE, maxiter=MAXITER), device,
+                                                 group)
+                    ran = {k: F.program_runs[k] - progs0[k] for k in progs0}
+                    first = name == "first"
+                    runs[name] = dict(res=res, wall=wall, reads=F.host_reads, ran=ran,
+                                      eager=spmv_ell.launches - eager0 - (warm_up if first else 0),
+                                      replayed=F.graph_launches["spmv_ell"] - graph0,
+                                      capture_s=_all_max(F.last_capture_s, group) if cuda and first else 0.0)
+                    predicted["spmv_ell"] += warm_up if first else 0
+                f = runs["first"]
+                c = runs.get("cached", f)  # the solve timed: the replays alone where there is one
+                res = c["res"]
+                want_b1 = 2 * (c["ran"]["init"] + c["ran"]["block"] * F.U * per_iter)
+                bound = math.ceil(res.iterations / F.U) + F.HOST_READ_SLACK
+                gates[f"fused {key}: converged"] = res.converged
+                gates[f"fused {key}: history, x, status, iterations, matvecs bitwise the grouped host loop"] = (
+                    res.residuals == host.residuals and _same_bits(res.x, host.x)
+                    and (res.status, res.iterations, res.matvecs) == (host.status, host.iterations, host.matvecs))
+                if c is not f:
+                    gates[f"fused {key}: the cached solve == the first, bitwise"] = (
+                        res.residuals == f["res"].residuals and _same_bits(res.x, f["res"].x))
+                gates[f"fused {key}: every rank holds the same history and status"] = _all_same(
+                    (res.residuals, res.status), group)
+                gates[f"fused {key}: host reads {c['reads']} <= blocks + slack {bound}"] = c["reads"] <= bound
+                if cuda:
+                    gates[f"fused {key}: B1 only by replays, {c['replayed']} == 2 x matvecs of the replayed "
+                          f"programs {want_b1}, none eager beyond the warm-up's {warm_up}"] = (
+                        c["replayed"] == want_b1 and c["eager"] == 0)
+                else:  # the eager body on the host: no graph
+                    gates[f"fused {key}: no graph on the host"] = f["replayed"] == c["replayed"] == 0
+                row = {"strategy": strat, "codec": codec, "mode": mode, "status": res.status,
+                       "iterations": res.iterations, "matvecs": res.matvecs,
+                       "ms_per_iteration": (c["wall"] - c["capture_s"]) / max(res.iterations, 1) * 1e3,
+                       "timed": "cached solve" if c is not f else "first solve less its warm-up and capture",
+                       "host_ms_per_iteration": host_ms, "first_solve_s": f["wall"], "solve_s": c["wall"],
+                       "capture_s": f["capture_s"] if cuda else None,
+                       "host_reads": c["reads"], "program_runs": c["ran"], "b1_replayed": c["replayed"],
+                       "b1_eager": c["eager"], "b1_warm_up": warm_up}
+                summary[key] = row
+                if keep:
+                    out.setdefault("fused_runs", {})[key] = {
+                        "x": res.x.cpu().numpy().tolist(), "residuals": list(res.residuals), "status": res.status,
+                        "iterations": res.iterations, "host_residuals": list(host.residuals),
+                        "host_x": host.x.cpu().numpy().tolist()}
+                xs = _gather_rows(res.x, group)
+                if r == 0:
+                    x = torch.stack(xs).to(device)
+                    if stacked is None or codec != "none":  # every strategy and mode of codec none alike
+                        st_op = DistributedSpMV(part, strategy=strat, device=device, wire=codec)
+                        stacked = host_fn(st_op, full, tol=TOL_SOLVE, maxiter=MAXITER,
+                                          reductions=NumpyReductions(topo))
+                    gates[f"fused {key}: history and x bitwise the stacked host loop in the tree's order"] = (
+                        stacked.residuals == res.residuals and _same_bits(stacked.x, x))
+                    if codec == "none":
+                        x64 = x.double().cpu().numpy().reshape(-1)
+                        bf = data[rhs].astype(np.float64).reshape(-1)
+                        row["true_residual"] = float(np.linalg.norm(bf - product64(M, x64)) / np.linalg.norm(bf))
+                        gates[f"fused {key}: true residual {row['true_residual']:.3e} <= {TOL_TRUE}"] = (
+                            row["true_residual"] <= TOL_TRUE)
+    summary["checks"] = _fused_checks(group, device, parts[0], data, seed, host_runs, keep, gates, out)
+    return summary
+
+
+def _fused_checks(group, device, part, data: dict, seed: int, host_runs: dict, keep: bool, gates: dict,
+                  out: dict) -> dict:
+    """The fused CG's checks over the group (:data:`FAULT_SOLVE_STRATEGY`):
+    ``verify=True`` clean; a persistent perturbation
+    (:data:`FUSED_DETECT_MAXITER` iterations) that every rank raises with
+    one hop and one violation, the stacked fused raise's; a transient one
+    at matvec call 7 under ``checkpoint_every=5``, which the ladder resumes
+    from the checkpoint on a re-advised strategy: the stacked fused
+    solve's status and the clean history on every rank.  The stacked
+    solves sum their dots in their own order: the hop, the violation and
+    the rung do not depend on it."""
+    r, strat = group.rank, FAULT_SOLVE_STRATEGY
+    b = torch.as_tensor(data["b"][r : r + 1], device=device)
+    full = torch.as_tensor(data["b"], device=device) if r == 0 else None
+    clean = host_runs[("cg", strat, False)]
+    persistent = FaultPlan(seed=seed + 15, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0),))
+    transient = FaultPlan(seed=seed + 16, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0, strategies=(strat,)),),
+                          active_calls=(7,))
+    res = {}
+    checked, wall = _timed_solve(lambda: fused_cg(DistributedSpMV(part, strategy=strat, device=device, group=group,
+                                                                  verify=True), b, tol=TOL_SOLVE, maxiter=MAXITER),
+                                 device, group)
+    res["verify"] = {"status": checked.status, "iterations": checked.iterations,
+                     "ms_per_iteration": wall / max(checked.iterations, 1) * 1e3}
+    gates["fused checks verify: converged, the clean host loop's history and x, bitwise"] = (
+        checked.converged and checked.residuals == clean.residuals and _same_bits(checked.x, clean.x))
+    err = _error_fields(lambda: fused_cg(DistributedSpMV(part, strategy=strat, device=device, group=group,
+                                                         verify=True, faults=persistent), b, tol=TOL_SOLVE,
+                                         maxiter=FUSED_DETECT_MAXITER))
+    want = None
+    if r == 0:
+        want = _error_fields(lambda: fused_cg(DistributedSpMV(part, strategy=strat, device=device, verify=True,
+                                                              faults=persistent), full, tol=TOL_SOLVE,
+                                              maxiter=FUSED_DETECT_MAXITER))
+    want = _from_rank0(want, group)
+    res["detect"] = {"error": err, "stacked_error": want}
+    gates["fused checks detect: every rank raises the stacked fused raise (hop and violation)"] = (
+        err is not None and err == want)
+    gates["fused checks detect: every rank the same error"] = _all_same(err, group)
+    resumed = fused_cg(DistributedSpMV(part, strategy=strat, device=device, group=group, verify=True,
+                                       faults=transient), b, tol=TOL_SOLVE, maxiter=MAXITER, checkpoint_every=5)
+    stacked_status = None
+    if r == 0:
+        stacked_status = fused_cg(DistributedSpMV(part, strategy=strat, device=device, verify=True, faults=transient),
+                                  full, tol=TOL_SOLVE, maxiter=MAXITER, checkpoint_every=5).status
+    stacked_status = _from_rank0(stacked_status, group)
+    res["resume"] = {"status": resumed.status, "iterations": resumed.iterations, "stacked_status": stacked_status}
+    gates[f"fused checks resume: {resumed.status!r} == stacked {stacked_status!r}, resumed once, the clean history"] = (
+        resumed.converged and "+resume:1" in resumed.status and resumed.status == stacked_status
+        and resumed.residuals == clean.residuals)
+    gates["fused checks resume: every rank the same status and history"] = _all_same(
+        (resumed.status, resumed.residuals), group)
+    if keep:
+        out["fused_checks"] = {"verify": {"residuals": list(checked.residuals), "x": checked.x.cpu().numpy().tolist()},
+                               "detect": err, "resume": {"status": resumed.status,
+                                                         "residuals": list(resumed.residuals)}}
+    return res
+
+
 def _flat_dot(red: GroupReductions, x: torch.Tensor, y: torch.Tensor) -> float:
     """The tree's baseline: every rank's float64 partial all-gathered over
     the whole world and summed rank -> pod -> world on every rank."""
@@ -976,8 +1213,6 @@ def _guards(group, device, part) -> dict:
         "nccl": lambda: make_exchange_group(group.topo, backend="nccl"),
         # a mesh of groups that move no data: refused before any collective
         "mesh_backend": lambda: exchange_group_of_mesh(_fake_mesh(group.topo, device)),
-        "fused": lambda: fused_cg(DistributedSpMV(part, strategy="standard", device=device, group=group),
-                                  torch.zeros((1, part.rows_per_rank), device=device)),
         # rank 1 plans another strategy: every rank raises at construction
         "mismatch": lambda: IrregularExchange(part.pattern, "two_step" if group.rank == 1 else "standard",
                                               device=device, group=group),
@@ -1201,9 +1436,13 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     t2 = time.perf_counter()
     _spmv(group, device, A, part, data, keep, gates, out, launches, predicted)
     t3 = time.perf_counter()
+    host_runs = {}
     solves = _solves(group, device, (A, B), (part, part_b), data, keep, gates, out, launches, predicted,
-                     histories)
+                     histories, host_runs)
     t4 = time.perf_counter()
+    fused = _fused_solves(group, device, (A, B), (part, part_b), data, seed, host_runs, solves, keep, gates,
+                          out, launches, predicted)
+    t4f = time.perf_counter()
     fault_ms = _faults(group, device, part, seed, keep, gates, out)
     fault_solves = _fault_solves(group, device, A, part, data, seed, histories["cg"], keep, gates, out,
                                  launches, predicted)
@@ -1218,8 +1457,8 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     # on the host the wrappers run the plain versions and launch nothing
     want = predicted if device.type == "cuda" else {"spmv_ell": 0, "spmm_ell": 0}
     gates[f"launches {launches.n} == predicted {want}"] = launches.n == want
-    expect = {"nccl": "A.6.3b item 5", "mesh_backend": "unknown backend 'fake'", "fused": "A.6.3b item 6",
-              "mismatch": "ranks [1]", "fault_mismatch": "ranks [1]"}
+    expect = {"nccl": "A.6.3b item 5", "mesh_backend": "unknown backend 'fake'", "mismatch": "ranks [1]",
+              "fault_mismatch": "ranks [1]"}
     for name, text in expect.items():
         gates[f"guard {name} raises naming {text!r}"] = text in guards[name]
     memory = {"host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
@@ -1229,11 +1468,11 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
                       device_reserved_bytes=torch.cuda.memory_reserved(device))
     return {
         "rank": r, "device": str(device), "started_at": started, "setup_s": setup_s,
-        "phase_s": {"exchange": t2 - t1, "spmv": t3 - t2, "solve": t4 - t3, "faults": t5 - t4,
-                    "reductions": t6 - t5, "moe": t7 - t6},
+        "phase_s": {"exchange": t2 - t1, "spmv": t3 - t2, "solve": t4 - t3, "fused": t4f - t4,
+                    "faults": t5 - t4f, "reductions": t6 - t5, "moe": t7 - t6},
         **sizes,
         "gates": gates, "exchange_ms": exchange_ms, "solves": solves, "fault_ms": fault_ms,
-        "fault_solves": fault_solves, "reductions": reductions, "launches": launches.n,
+        "fault_solves": fault_solves, "fused": fused, "reductions": reductions, "launches": launches.n,
         "predicted_launches": predicted, "guards": guards, "memory": memory, "moe": moe_out, **out,
     }
 

@@ -36,6 +36,20 @@ has ended.
   hop's ``delay_s`` is not modelled here: the reference's traced program
   cannot sleep either, so only the host path pays it.
 
+Over a process group (``DistributedSpMV(group=)``, one rank per process)
+the init and the block are hop generators (:mod:`repro_torch.comm.hops`):
+each halo exchange and each node-aware dot stops the device program at a
+collective, whose payload stages through host memory over gloo.  On CUDA
+each stretch of device work between two hops is a graph of its own,
+captured in order into one shared pool, and a dispatch replays them in
+order with the staged hops between the replays: the host still reads one
+done flag per block and decides nothing per iteration.  The dots sum in the
+group tree's order (:func:`repro_torch.solve.reductions.fused_dot`), so
+every rank holds the same scalars, takes the same stop decision and
+matches the grouped host loop bitwise; the checked hops' violations are
+agreed by one all-reduce MAX per block (per iteration when checkpoints are
+armed), so every rank keeps the same checkpoints and raises the same error.
+
 On the CPU the same init and block functions run eagerly (the plain
 version the tests use).  On CUDA capture is the path: a failed capture or
 replay raises.  The private ``capture=False`` of :func:`_fused_solve` runs
@@ -45,13 +59,18 @@ Each solve counts its reads of device state in the module attribute
 :data:`host_reads` (reset at the start of a solve); for ``n`` iterations
 without a resume it is at most ``ceil(n / U) + HOST_READ_SLACK``.  The
 kernel wrappers count no launch while a graph is captured, so
-:data:`graph_launches` counts the launches of the graphs' replays.
+:data:`graph_launches` counts the launches of the graphs' replays, and
+:data:`program_runs` the runs of the init and of a block.  The fused scalars
+equal the host loop's bitwise: on the CPU the roots are taken on the host
+(:func:`_root`), as torch's CPU ``sqrt`` is not always correctly rounded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -64,6 +83,7 @@ from repro_torch.comm.faults import (
     advise_alternative,
     run_ladder,
 )
+from repro_torch.comm.hops import Hop, run_hops
 from repro_torch.core.device import DeviceLike, as_device_tensor, resolve_device
 from repro_torch.kernels.spmv_ell import spmv_ell
 from repro_torch.solve.krylov import (
@@ -72,8 +92,8 @@ from repro_torch.solve.krylov import (
     _finish_status,
     _recovery_baseline,
 )
-from repro_torch.solve.operator import refuse_group, traceable_operator
-from repro_torch.solve.reductions import traceable_dot
+from repro_torch.solve.operator import traceable_operator
+from repro_torch.solve.reductions import fused_dot
 from repro_torch.sparse.spmv import DistributedSpMV
 
 #: iterations per captured block, chosen on the H100 by the block sweep of
@@ -91,6 +111,10 @@ HOST_READ_SLACK = 4
 host_reads = 0
 #: kernel launches made by graph replays, per kernel wrapper
 graph_launches: Dict[str, int] = {"spmv_ell": 0}
+#: runs of the init and of a block (replays on CUDA, eager runs on the CPU)
+program_runs: Dict[str, int] = {"init": 0, "block": 0}
+#: seconds the last capture took, its eager warm-up included (CUDA only)
+last_capture_s = 0.0
 _WRAPPERS = {"spmv_ell": spmv_ell}
 
 # status codes carried on the device, mapped back to the host solvers'
@@ -131,6 +155,16 @@ _SCALARS = {"cg": ("rs", "best"), "bicgstab": ("rho", "alpha", "omega", "relprev
 _COUNTERS = ("it", "k", "best_it", "mvc")
 
 
+def _root(sq: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(sq, 0))`` of a 0-d float64 tensor, correctly rounded as the
+    host loops' ``math.sqrt`` is: CUDA's ``sqrt`` is, while torch's CPU
+    kernel is off by one ulp for about one input in a hundred, so on the CPU
+    (eager, no graph) the host takes the root."""
+    if sq.device.type == "cpu":
+        return sq.new_tensor(math.sqrt(max(float(sq), 0.0)))
+    return torch.sqrt(torch.clamp_min(sq, 0.0))
+
+
 def _read(t: torch.Tensor) -> np.ndarray:
     global host_reads
     host_reads += 1
@@ -162,25 +196,39 @@ class _Checkpoint(NamedTuple):
     mvc: int
 
 
+def _next_hop(steps, started: bool) -> Optional[Hop]:
+    """Run a hop generator to its next hop that moves something on this
+    rank (an empty one needs no stage: the capture goes on past it), or to
+    its end (``None``)."""
+    try:
+        hop = steps.send(None) if started else next(steps)
+        while hop.empty:
+            hop = steps.send(None)
+        return hop
+    except StopIteration:
+        return None
+
+
 class _FusedSolve:
     """One cache entry: an operator's static buffers, its init and block
     functions and, on CUDA, their captured graphs.
 
     It holds the operator, so the device blocks and plans the graphs read
-    stay alive (and two operators never share an entry).
+    stay alive (and two operators never share an entry).  The init, a step
+    and a block are hop generators; ``dot`` is :func:`fused_dot`'s.
     """
 
-    def __init__(self, op, top, solver: str, maxiter: int, dtype: torch.dtype, compressor,
+    def __init__(self, op, top, solver: str, maxiter: int, dtype: torch.dtype, dot,
                  checkpoint_every: Optional[int], capture: bool):
         self.op = op
         self.top = top
         self.solver = solver
         self.ce = checkpoint_every
         self.block = U
-        self.dot = traceable_dot(top.topo, compressor)
+        self.dot = dot
         self.hist_len = maxiter + 2
         dev = top.device
-        g, L = top.topo.nranks, top.local_size
+        g, L = top.ranks_held, top.local_size
 
         def scalar(dt):
             return torch.zeros((), dtype=dt, device=dev)
@@ -193,6 +241,9 @@ class _FusedSolve:
         for n in ("max_it", "status") + _COUNTERS:
             S[n] = scalar(torch.int64)
         S["done"], S["flag"] = scalar(torch.bool), scalar(torch.bool)
+        # replays of a grouped program's stretches, counted on the device:
+        # one op in each, so no stretch is an empty graph
+        S["beats"] = scalar(torch.int64)
         S["viols"] = torch.zeros(max(top.nviol, 1), dtype=torch.float64, device=dev)
         S["hist"] = torch.zeros(self.hist_len, dtype=torch.float64, device=dev)
         S["eps"].fill_(float(torch.finfo(dtype).eps))
@@ -213,19 +264,20 @@ class _FusedSolve:
             self.posted: List[torch.Tensor] = [S["flag"], S["flag"]]
 
     # -- the device program -------------------------------------------
-    def _init(self) -> None:
+    def _init(self):
         """``r = b - A x0`` and the state of iteration 0 (the reference's
         init section; its matvec has call index 0)."""
         S, dot = self.s, self.dot
-        Ax, vv = self.top.matvec(S["x0"], self.zero_idx)
+        Ax, vv = yield from self.top.matvec_steps(S["x0"], self.zero_idx)
         r = S["b"] - Ax
-        rs = dot(r, r)
-        rel0 = torch.sqrt(torch.clamp_min(rs, 0.0)) / S["bnorm"]
+        rs = yield from dot(r, r)
+        rel0 = _root(rs) / S["bnorm"]
         S["hist"].fill_(float("nan"))
         S["hist"][:1].copy_(rel0.view(1))
         S["viols"].zero_()
         if vv.numel():
             torch.maximum(S["viols"], vv, out=S["viols"])
+        yield from self._agree()
         torch.le(rel0, S["tol"], out=S["done"])
         S["status"].copy_(torch.where(S["done"], _CONV, _MAXITER))
         for n in ("x", "best_x"):
@@ -270,20 +322,32 @@ class _FusedSolve:
             v = self.s["viols"]
             torch.where(live, torch.maximum(v, vv), v, out=v)
 
-    def _cg_step(self) -> None:
+    def _agree(self):
+        """Over a process group with checked hops: every rank's violations
+        so far reduced to the world's MAX by one all-reduce (a NaN read as
+        inf, as :func:`~repro_torch.comm.strategies._agree_on_violations`
+        reads it), so the ranks keep the same checkpoints and raise the same
+        error.  Stacked ranks hold every hop already."""
+        if self.top.group is None or not self.top.nviol:
+            return
+        v = self.s["viols"]
+        v.masked_fill_(torch.isnan(v), float("inf"))
+        yield Hop("all_reduce", (v,), (v,), op="max")
+
+    def _cg_step(self):
         """One CG iteration, the host loop's ops in its order, its branches
         as selects (masked when the solve has ended)."""
         S, dot = self.s, self.dot
         x, r, p, rs = S["x"], S["r"], S["p"], S["rs"]
         live = ~S["done"] & (S["it"] < S["max_it"])
-        Ap, vv = self.top.matvec(p, S["mvc"])
-        pAp = dot(p, Ap)
+        Ap, vv = yield from self.top.matvec_steps(p, S["mvc"])
+        pAp = yield from dot(p, Ap)
         indef = pAp <= 0.0
         alpha = rs / torch.where(indef, 1.0, pAp)
         x1 = x + alpha * p
         r1 = r - alpha * Ap
-        rs_new = dot(r1, r1)
-        relres = torch.sqrt(torch.clamp_min(rs_new, 0.0)) / S["bnorm"]
+        rs_new = yield from dot(r1, r1)
+        relres = _root(rs_new) / S["bnorm"]
         step = live & ~indef
         it1 = S["it"] + step
         conv = step & (relres <= S["tol"])
@@ -309,7 +373,7 @@ class _FusedSolve:
         self._add_viols(live, vv)
         S["done"].logical_or_(ended)
 
-    def _bicgstab_step(self) -> None:
+    def _bicgstab_step(self):
         """One BiCGStab iteration (two matvecs), as :meth:`_cg_step` is CG's."""
         S, dot = self.s, self.dot
         x, r, p, v, rhat = S["x"], S["r"], S["p"], S["v"], S["rhat"]
@@ -320,32 +384,35 @@ class _FusedSolve:
             return torch.where(a == 0, 1.0, a)
 
         live = ~S["done"] & (S["it"] < S["max_it"])
-        rho_new = dot(rhat, r)
+        rho_new = yield from dot(rhat, r)
         r_nrm = S["relprev"] * bnorm
         bad_rho = live & (rho_new.abs() <= eps * S["rhat_nrm"] * r_nrm)
         bad_omega = live & ~bad_rho & (omega.abs() <= eps * alpha.abs())
         ok1 = live & ~bad_rho & ~bad_omega
         beta = (rho_new / nz(rho)) * (alpha / nz(omega))
         p1 = torch.where(ok1, r + beta * (p - omega * v), p)
-        v1, vva = self.top.matvec(p1, S["mvc"])
-        denom = dot(rhat, v1)
+        v1, vva = yield from self.top.matvec_steps(p1, S["mvc"])
+        denom = yield from dot(rhat, v1)
         bad_denom = ok1 & (denom.abs() <= eps * rho_new.abs())
         ok2 = ok1 & ~bad_denom
         alpha1 = torch.where(ok2, rho_new / nz(denom), alpha)
         s = torch.where(ok2, r - alpha1 * v1, r)
         it1 = S["it"] + ok2
-        snorm = torch.sqrt(torch.clamp_min(dot(s, s), 0.0))
+        ss = yield from dot(s, s)
+        snorm = _root(ss)
         rel_s = snorm / bnorm
         s_conv = ok2 & (rel_s <= tol)
-        t, vvb = self.top.matvec(s, S["mvc"] + ok1)
-        tt = dot(t, t)
+        t, vvb = yield from self.top.matvec_steps(s, S["mvc"] + ok1)
+        tt = yield from dot(t, t)
         bad_tt = ok2 & ~s_conv & (tt <= (eps * snorm) ** 2)
         ok3 = ok2 & ~s_conv & ~bad_tt
-        omega1 = torch.where(ok3, dot(t, s) / nz(tt), omega)
+        ts = yield from dot(t, s)
+        omega1 = torch.where(ok3, ts / nz(tt), omega)
         x_sc = x + alpha1 * p1
         x1 = x_sc + omega1 * s
         r1 = s - omega1 * t
-        relres = torch.sqrt(torch.clamp_min(dot(r1, r1), 0.0)) / bnorm
+        rr = yield from dot(r1, r1)
+        relres = _root(rr) / bnorm
         conv = ok3 & (relres <= tol)
         going = ok3 & ~conv
         improved = going & (relres < S["best"])
@@ -383,49 +450,85 @@ class _FusedSolve:
         self._add_viols(live, torch.maximum(vva, vvb))
         S["done"].logical_or_(ended)
 
-    def _block(self) -> None:
-        """:attr:`block` iterations, each followed by the masked checkpoint."""
+    def _block(self):
+        """:attr:`block` iterations, each followed by the masked checkpoint;
+        over a group the violations are agreed after each checkpointed
+        iteration, else once at the block's end."""
         S = self.s
         for _ in range(self.block):
             prev_it = S["it"].clone() if self.ce is not None else None
-            self._step()
+            yield from self._step()
             if self.ce is not None:
+                yield from self._agree()
                 take = (~S["done"] & (S["it"] % self.ce == 0) & (S["it"] > prev_it)
                         & (S["viols"].max() <= 0.0))
                 for n in self.ck_names:
                     torch.where(take, S[n], S["ck_" + n], out=S["ck_" + n])
                 S["ck_valid"].logical_or_(take)
+        if self.ce is None:
+            yield from self._agree()
         self._flag()
 
     # -- capture and replay --------------------------------------------
     def _capture(self) -> None:
-        """Warm up eagerly on a side stream, then capture init and block."""
+        """Warm up eagerly on a side stream (over a group its hops run: every
+        rank builds the entry at once), then capture init and block: one
+        graph each, or over a group one graph per stretch between two hops,
+        all in one pool."""
+        global last_capture_s
         dev = self.top.device
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._init()
-            self._step()
+            run_hops(self._init())
+            run_hops(self._step())
         current.wait_stream(side)
-        graphs, pool = {}, None
-        for name, fn in (("init", self._init), ("block", self._block)):
-            before = {k: w.captured for k, w in _WRAPPERS.items()}
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                fn()
-            pool = graph.pool()
-            graphs[name] = (graph, {k: w.captured - before[k] for k, w in _WRAPPERS.items()})
+        # an entry held by its operator (over a group) and that operator
+        # are a reference cycle: were the collector to free an earlier one
+        # inside a capture, its graphs' teardown would void the capture.
+        # So collect now, and not until the capture has ended.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graphs, pool = {}, None
+            for name, fn in (("init", self._init), ("block", self._block)):
+                segments, steps, started = [], fn(), False
+                while True:
+                    before = {k: w.captured for k, w in _WRAPPERS.items()}
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool):
+                        if self.top.group is not None:
+                            self.s["beats"].add_(1)
+                        hop = _next_hop(steps, started)
+                    started = True
+                    pool = graph.pool()
+                    segments.append((graph, {k: w.captured - before[k] for k, w in _WRAPPERS.items()}, hop))
+                    if hop is None:
+                        break
+                graphs[name] = segments
+        finally:
+            if collecting:
+                gc.enable()
         self.graphs = graphs
+        torch.cuda.synchronize(dev)
+        last_capture_s = time.perf_counter() - t0
 
     def _run(self, name: str) -> None:
+        """The init or one block: eagerly, or its graphs replayed in their
+        capture order with each staged hop after its stretch."""
+        program_runs[name] += 1
         if self.graphs is None:
-            (self._init if name == "init" else self._block)()
+            run_hops(self._init() if name == "init" else self._block())
             return
-        graph, launches = self.graphs[name]
-        graph.replay()
-        for k, n in launches.items():
-            graph_launches[k] += n
+        for graph, launches, hop in self.graphs[name]:
+            graph.replay()
+            for k, n in launches.items():
+                graph_launches[k] += n
+            if hop is not None:
+                hop.run()
 
     def _post_flag(self, slot: int) -> None:
         if self.top.device.type == "cuda":
@@ -530,6 +633,11 @@ def _entry(op, solver: str, maxiter: int, dtype: torch.dtype, compressor, device
     checkpointing) plus the device, :data:`U` and the operator itself:
     two operators on one sparsity pattern hold different values, and a graph
     reads the blocks it was captured with.
+
+    Over a process group a miss is collective (the warm-up runs the hops),
+    so the entry lives on the operator, outside the LRU that other solves
+    evict from: every rank makes the same solves of its operator, so every
+    rank hits or misses alike, whatever else each rank has solved.
     """
     faults = op.faults
     key = (
@@ -543,10 +651,15 @@ def _entry(op, solver: str, maxiter: int, dtype: torch.dtype, compressor, device
 
     def build():
         top = traceable_operator(op, device)
-        return _FusedSolve(op, top, solver, maxiter, dtype, compressor, checkpoint_every,
+        return _FusedSolve(op, top, solver, maxiter, dtype, fused_dot(op, compressor), checkpoint_every,
                            capture)
 
-    return comm_strategies.fused_cached(key, build)
+    if getattr(op, "group", None) is None:
+        return comm_strategies.fused_cached(key, build)
+    held = vars(op).setdefault("_fused_entries", {})
+    if key not in held:
+        held[key] = build()
+    return held[key]
 
 
 def _viol_error(entry: _FusedSolve, viols: np.ndarray) -> Optional[ExchangeIntegrityError]:
@@ -590,20 +703,18 @@ def _fused_solve(op, b, x0, tol: float, maxiter: int, reductions, solver: str,
                  checkpoint_every: Optional[int] = None, device: DeviceLike = None,
                  capture: bool = True) -> SolveResult:
     global host_reads
-    refuse_group(op)
     host_reads = 0
     own = getattr(op, "device", None)
     dev = own if isinstance(own, torch.device) else resolve_device(device)
-    compressor = getattr(reductions, "compressor", None)
     b = as_device_tensor(b, dev)
-    g, L = op.topo.nranks, op.rows_per_rank
+    g, L = getattr(op, "ranks_held", op.topo.nranks), op.rows_per_rank
     if tuple(b.shape) != (g, L):
         raise ValueError(f"b must be [{g}, {L}], got {tuple(b.shape)}")
     if checkpoint_every is not None and checkpoint_every < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
     rc0 = _recovery_baseline(op)
-    dot = traceable_dot(op.topo, compressor)
-    bnorm = torch.sqrt(torch.clamp_min(dot(b, b), 0.0))
+    compressor = getattr(reductions, "compressor", None)
+    bnorm = _root(run_hops(fused_dot(op, compressor)(b, b)))
     if float(_read(bnorm)) == 0.0:
         # the host solvers' zero-rhs early return (same _finish_status)
         return SolveResult(x=torch.zeros_like(b), converged=True, iterations=0,
@@ -752,11 +863,16 @@ def fused_cg(op, b, x0=None, tol: float = 1e-6, maxiter: int = 500, reductions=N
     ``SolveResult`` fields, the same residual history); ``op`` may be a
     :class:`~repro_torch.sparse.spmv.DistributedSpMV` (solved on its device)
     or a :class:`~repro_torch.solve.operator.NumpySpMV` (lowered onto
-    ``device``: left out, the CUDA device).  The captured solve is cached
-    per operator, pattern, strategy, codec, dtype and ``maxiter`` -- see
-    ``repro_torch.comm.cache_stats().fused_*``.  ``reductions`` contributes
-    only its inter-pod compressor (the hierarchical tree runs on the
-    device); pass the one you would hand the host loop.
+    ``device``: left out, the CUDA device) or a ``DistributedSpMV(group=)``
+    (one rank of a process group: ``b`` is this rank's ``[1, L]``, every
+    rank calls at once, and its hops stage through the host between the
+    replayed graphs).  The captured solve is cached per operator, pattern,
+    strategy, codec, dtype and ``maxiter`` -- see
+    ``repro_torch.comm.cache_stats().fused_*`` (over a process group on the
+    operator itself).  ``reductions`` contributes only its inter-pod
+    compressor (the hierarchical tree runs on the device, over a group in
+    :class:`~repro_torch.solve.reductions.GroupReductions`' order); pass the
+    one you would hand the host loop.
 
     ``checkpoint_every=N`` arms fault tolerance: a checkpoint refreshed every
     ``N`` clean iterations, and an ``ExchangeIntegrityError`` from a

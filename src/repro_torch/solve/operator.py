@@ -41,6 +41,7 @@ from repro_torch.comm import faults as faults_mod
 from repro_torch.comm import strategies as comm_strategies
 from repro_torch.comm import wire as wire_mod
 from repro_torch.comm.exchange import execute_numpy, merge_split_phase
+from repro_torch.comm.hops import run_hops
 from repro_torch.comm.topology import PodTopology
 from repro_torch.core.device import DeviceLike, as_device_tensor, resolve_device
 from repro_torch.core.split_plan import split_rows
@@ -226,11 +227,16 @@ def build_numpy(matrix, topo: PodTopology, strategy: str = "standard", **kw) -> 
 
 
 def _program_on(pattern, strategy: str, message_cap_bytes: int, fuse_program: bool,
-                device: torch.device):
-    """The exec-cache program of ``pattern`` planned under ``strategy``."""
+                device: torch.device, group=None):
+    """The exec-cache program of ``pattern`` planned under ``strategy``: of
+    the stacked ranks, or of this rank of ``group`` (the on-pod phase's
+    messages tagged apart, as :class:`~repro_torch.comm.strategies.IrregularExchange`
+    tags them)."""
     key = comm_strategies._plan_key(pattern, strategy, message_cap_bytes, 4, fuse_program)
     sp = comm_strategies.planned(pattern, strategy, message_cap_bytes, 4, fuse_program)
-    return comm_strategies._program(sp, key, device)
+    if group is None:
+        return comm_strategies._program(sp, key, device)
+    return comm_strategies._rank_program(sp, key, device, group, tag=int(strategy == "local"))
 
 
 @dataclasses.dataclass(eq=False)
@@ -242,7 +248,11 @@ class TraceableOperator:
     ``overlap``: every tile of the diag block, the boundary tiles of the off
     block).  ``checked`` is the program whose inter-pod hops carry the wire,
     the checks and the faults (the unsplit program, or the inter-pod
-    sub-program under ``overlap``).
+    sub-program under ``overlap``).  Over a process group (``group``) the
+    operands are this rank's ``[1, L]``, the programs its
+    :class:`~repro_torch.comm.strategies._RankProgram` programs, and a split
+    phase runs its two sub-exchanges one after the other (their hops are
+    staged through the host, so nothing overlaps).
 
     Build with :func:`traceable_operator`.
     """
@@ -269,9 +279,17 @@ class TraceableOperator:
     #: schedule; None: the faults, if any, hit every call)
     active: Optional[torch.Tensor] = None
     side_stream: Optional[object] = None
+    #: the :class:`~repro_torch.comm.topology.ExchangeGroup` of an operator
+    #: over a process group (None: stacked ranks)
+    group: Optional[object] = None
 
     def __post_init__(self) -> None:
         self._no_viols = torch.zeros(0, dtype=torch.float64, device=self.device)
+
+    @property
+    def ranks_held(self) -> int:
+        """The leading dim of the operands: every rank, or 1 under a group."""
+        return self.topo.nranks if self.group is None else 1
 
     @property
     def nviol(self) -> int:
@@ -282,17 +300,25 @@ class TraceableOperator:
     def strategy(self) -> str:
         return self.checked.sp.strategy
 
+    def _run(self, prog, v: torch.Tensor, *args):
+        """Hop generator of one program on ``v``: a rank program's
+        :meth:`~repro_torch.comm.strategies._RankProgram.segments`, or a
+        stacked program's run, which yields no hop."""
+        if self.group is None:
+            return prog.run(v, *args)
+        return (yield from prog.segments(v, *args))
+
     def _exchange(self, v: torch.Tensor, call_idx: torch.Tensor):
         prog = self.checked
         if self.injections is None:
-            out, viols = prog.run(v, self.wire, self.verify)
+            out, viols = yield from self._run(prog, v, self.wire, self.verify)
         elif self.active is None:
-            out, viols = prog.run(v, self.wire, self.verify, self.injections)
+            out, viols = yield from self._run(prog, v, self.wire, self.verify, self.injections)
         else:
             # a call-gated fault schedule: both the faulted and the clean
             # exchange run, and the call index picks one on the device
-            out_f, vf = prog.run(v, self.wire, self.verify, self.injections)
-            out_c, vc = prog.run(v, self.wire, self.verify)
+            out_f, vf = yield from self._run(prog, v, self.wire, self.verify, self.injections)
+            out_c, vc = yield from self._run(prog, v, self.wire, self.verify)
             use = self.active.index_select(0, call_idx.clamp(max=self.active.numel() - 1).view(1))
             out = torch.where(use.view((1,) * out_f.ndim), out_f, out_c)
             viols = None if vf is None else torch.where(use, vf, vc)
@@ -303,12 +329,25 @@ class TraceableOperator:
 
         ``call_idx`` (a 0-d int64 tensor on the device) is the matvec's call
         index, which a call-gated fault schedule reads; ``viols`` holds each
-        checked hop's worst violation (``> 0`` failed).
+        checked hop's worst violation (``> 0`` failed).  Over a process
+        group ``g = 1`` and the hops run here (:meth:`matvec_steps`).
         """
+        return run_hops(self.matvec_steps(v, call_idx))
+
+    def matvec_steps(self, v: torch.Tensor, call_idx: torch.Tensor):
+        """:meth:`matvec` as a hop generator (:mod:`repro_torch.comm.hops`):
+        it yields the hops of a process group's exchange (none for stacked
+        ranks) and returns ``(w, viols)``."""
         dd, dc, od, oc = self.blocks
         if not self.overlap:
-            halo, viols = self._exchange(v, call_idx)
+            halo, viols = yield from self._exchange(v, call_idx)
             return spmv_ell(dd, dc, v) + spmv_ell(od, oc, halo), viols
+        if self.group is not None:
+            remote, viols = yield from self._exchange(v, call_idx)
+            local, _ = yield from self._run(self.local, v, "none")
+            w = spmv_ell(dd, dc, v, self.all_tiles)
+            halo = self.merge(local, remote, self.group.rank)
+            return w + spmv_ell(od, oc, halo, self.bnd_tiles), viols
         # split phase: the inter-pod sub-exchange on the side stream while
         # the on-pod one and the whole diag pass run on this one; the side
         # stream waits for this one first, so it reads only finished data
@@ -318,9 +357,9 @@ class TraceableOperator:
             current = torch.cuda.current_stream(self.device)
             side.wait_stream(current)
             with torch.cuda.stream(side):
-                remote, viols = self._exchange(v, call_idx)
+                remote, viols = run_hops(self._exchange(v, call_idx))
         else:
-            remote, viols = self._exchange(v, call_idx)
+            remote, viols = run_hops(self._exchange(v, call_idx))
         local, _ = self.local.run(v)
         w = spmv_ell(dd, dc, v, self.all_tiles)
         if side is not None:
@@ -348,17 +387,6 @@ class TraceableOperator:
         )
 
 
-def refuse_group(op) -> None:
-    """Raise for an operator over a process group: its captured solve is
-    ROADMAP A.6.3b item 6 (a gloo hop copies through the host, which a CUDA
-    graph cannot capture), and nothing falls back to another path."""
-    if getattr(op, "group", None) is not None:
-        raise NotImplementedError(
-            "the fused solve over a process group is ROADMAP A.6.3b item 6; solve a grouped "
-            "operator with repro_torch.solve.cg / bicgstab"
-        )
-
-
 def traceable_operator(op, device: DeviceLike = None) -> TraceableOperator:
     """Lower either SpMV operator flavor to a :class:`TraceableOperator`.
 
@@ -367,12 +395,13 @@ def traceable_operator(op, device: DeviceLike = None) -> TraceableOperator:
     A :class:`NumpySpMV` is lowered onto ``device``: left out, the CUDA
     device, and a machine without one raises.  Plans come from the module
     caches, so lowering an operator that already ran re-plans nothing.  An
-    operator over a process group raises (:func:`refuse_group`).
+    operator over a process group (``DistributedSpMV(group=)``) keeps its
+    rank's blocks and lowers its rank programs.
     """
-    refuse_group(op)
     part = op.partition
     topo, L = part.topo, part.rows_per_rank
-    g = topo.nranks
+    group = getattr(op, "group", None)
+    g = topo.nranks if group is None else 1
     own = getattr(op, "device", None)
     if isinstance(own, torch.device):
         if device is not None and resolve_device(device) != own:
@@ -390,24 +419,26 @@ def traceable_operator(op, device: DeviceLike = None) -> TraceableOperator:
     cap = op.message_cap_bytes
     faults = op.faults
     common = dict(topo=topo, local_size=L, device=device, wire=op.wire, verify=op.verify,
-                  blocks=blocks)
+                  blocks=blocks, group=group)
     if not op.overlap:
-        checked = _program_on(part.pattern, op.strategy, cap, fuse_program, device)
+        checked = _program_on(part.pattern, op.strategy, cap, fuse_program, device, group)
         extra = dict(overlap=False, checked=checked, local=None, merge=None,
                      all_tiles=None, bnd_tiles=None)
     else:
         sp, merge = comm_strategies._split_phase_cached(part.pattern)
         merge._on(device)  # the merge maps go to the device now, not mid-capture
-        checked = _program_on(sp.remote, op.strategy, cap, fuse_program, device)
-        split = split_rows(part.off_row_nnz.reshape(g, L) > 0, TILE_R)
+        checked = _program_on(sp.remote, op.strategy, cap, fuse_program, device, group)
+        row_nnz = part.off_row_nnz if group is None else op._off_row_nnz
+        split = split_rows(row_nnz.reshape(g, L) > 0, TILE_R)
         bnd = split.boundary_tiles.astype(np.int32)
         extra = dict(
             overlap=True, checked=checked,
-            local=_program_on(sp.local, "local", cap, fuse_program, device),
+            local=_program_on(sp.local, "local", cap, fuse_program, device, group),
             merge=merge,
             all_tiles=torch.ones(bnd.shape, dtype=torch.int32, device=device),
             bnd_tiles=as_device_tensor(bnd, device),
-            side_stream=torch.cuda.Stream(device) if device.type == "cuda" else None,
+            side_stream=(torch.cuda.Stream(device) if device.type == "cuda" and group is None
+                         else None),
         )
     if faults is not None:
         injections, _delay = checked.faults_on_device(op.wire, faults)

@@ -12,14 +12,18 @@ inter-pod hop once per pod.
   (:class:`repro_torch.comm.compression.Compressor`); one ``.item()`` per
   dot.  :func:`traceable_dot` is the same tree with no host read, for
   solvers that keep their scalars on the device.
-* :class:`NumpyReductions` -- the same tree in numpy on the host.
+* :class:`NumpyReductions` -- the same tree on the host, in numpy's order.
 * :class:`GroupReductions` -- the tree over a process group of one rank
   per process (:func:`repro_torch.comm.hierarchical.dot_hierarchical_group`):
   each rank's float64 partial (taken on the host) is summed over its pod's
   ``local`` group, and one scalar per pod crosses the ``pod`` groups
-  (int8-quantized with a ``compressor``).  Both levels sum in
-  :class:`NumpyReductions`' order, so every rank holds the same bits and
+  (int8-quantized with a ``compressor``).  The partial and both levels sum
+  in :class:`NumpyReductions`' order, so every rank holds the same bits and
   takes the same branch in the solver.
+
+:func:`fused_dot` is the dot a fused solve carries on the device: over a
+process group in :class:`GroupReductions`' order, so the fused solve's
+scalars are the grouped host loop's, bitwise.
 
 All are deterministic, so residual histories are bitwise reproducible
 across strategies and barrier-vs-overlap execution.
@@ -34,7 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.comm.compression import Compressor
-from repro_torch.comm.hierarchical import dot_hierarchical, dot_hierarchical_group
+from repro_torch.comm.hierarchical import (
+    dot_hierarchical,
+    dot_hierarchical_group,
+    dot_tree_steps,
+    ordered_sum,
+)
+from repro_torch.comm.hops import no_hops
 from repro_torch.comm.topology import PodTopology
 
 
@@ -43,20 +53,32 @@ def _tree_sum(part: np.ndarray, topo: PodTopology) -> float:
     return float(part.reshape(topo.npods, topo.ppn).sum(axis=1).sum())
 
 
+def _host64(a) -> torch.Tensor:
+    """``a`` (an array, or a tensor on any device) as a float64 host tensor."""
+    t = a.detach().cpu() if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.double()
+
+
 @dataclasses.dataclass(frozen=True)
 class NumpyReductions:
-    """Hierarchical dot products in numpy (rank -> pod -> world order).
+    """Hierarchical dot products on the host in numpy's order (rank -> pod
+    -> world).
 
-    Partials are accumulated in float64 regardless of the vector dtype.
+    Partials are accumulated in float64 regardless of the vector dtype; a
+    tensor on a device is copied to the host first.  Each rank's partial
+    is summed by :func:`~repro_torch.comm.hierarchical.ordered_sum`, numpy
+    2.0's row sum (the reference's ``NumpyReductions``) pinned: numpy 2.3
+    sums a row longer than 8192 elements in another order, so the port's
+    stacked, grouped and fused solves share these bits on any numpy.
     """
 
     topo: PodTopology
 
     def dot(self, x: np.ndarray, y: np.ndarray) -> float:
         """``<x, y>`` for ``[nranks, L]`` operands, hierarchical order."""
-        x = np.asarray(x, dtype=np.float64)
-        y = np.asarray(y, dtype=np.float64)
-        part = (x * y).reshape(self.topo.nranks, -1).sum(axis=1)  # per rank
+        x = _host64(x)
+        y = x if y is x else _host64(y)
+        part = ordered_sum((x * y).reshape(self.topo.nranks, -1)).numpy()  # per rank
         return _tree_sum(part, self.topo)
 
     def norm(self, x: np.ndarray) -> float:
@@ -110,9 +132,10 @@ class GroupReductions:
     Each :meth:`dot` copies this rank's ``[1, L]`` operands to the host
     (gloo's collectives take host tensors, so the partial goes there
     anyway; one copy is one operation on the card, where the float64 casts,
-    product and sum were four, and a card shared by every rank's process
-    pays per operation), takes its float64 partial in numpy, and reduces it
-    on-pod, then over the pods
+    product and sum are ~35, and a card shared by every rank's process pays
+    per operation), takes its float64 partial there in
+    :class:`NumpyReductions`' order, and reduces it on-pod, then over the
+    pods
     (:func:`~repro_torch.comm.hierarchical.dot_hierarchical_group`): without
     a ``compressor`` bitwise :class:`NumpyReductions` of the stacked
     operands; with one, the pod sums int8-quantized on the inter-pod hop
@@ -125,16 +148,48 @@ class GroupReductions:
     compressor: Optional[Compressor] = None
 
     def partial(self, x: torch.Tensor, y: torch.Tensor) -> float:
-        """This rank's float64 share of ``<x, y>`` (``[1, L]`` operands)."""
-        xs = x.detach().cpu().numpy().astype(np.float64)
-        ys = xs if y is x else y.detach().cpu().numpy().astype(np.float64)
-        return float((xs * ys).sum())
+        """This rank's float64 share of ``<x, y>`` (``[1, L]`` operands), in
+        :class:`NumpyReductions`' order (:func:`~repro_torch.comm.hierarchical.ordered_sum`,
+        which the fused solve takes on the device)."""
+        x = _host64(x)
+        return float(ordered_sum(x * (x if y is x else _host64(y)))[0])
 
     def dot(self, x: torch.Tensor, y: torch.Tensor) -> float:
         return dot_hierarchical_group(self.partial(x, y), self.group, self.compressor)
 
     def norm(self, x: torch.Tensor) -> float:
         return float(np.sqrt(max(self.dot(x, x), 0.0)))
+
+
+def fused_dot(op, compressor: Optional[Compressor] = None):
+    """The hierarchical dot a fused solve of ``op`` carries, as a hop
+    generator function (:mod:`repro_torch.comm.hops`) ``dot(x, y)`` that
+    returns a 0-d float64 tensor on the operands' device (int8-quantized on
+    the inter-pod hop with a ``compressor``).
+
+    * an operator over a process group: this rank's partial in numpy's
+      order (:func:`~repro_torch.comm.hierarchical.ordered_sum`) on the
+      device, then the tree over the group
+      (:func:`~repro_torch.comm.hierarchical.dot_tree_steps`): the order of
+      :class:`GroupReductions`, so the fused scalars are the grouped host
+      loop's bitwise;
+    * stacked ranks: :func:`traceable_dot`, which yields no hop.
+    """
+    group = getattr(op, "group", None)
+    if group is not None:
+        def dot(x: torch.Tensor, y: torch.Tensor):
+            xd = x.double()
+            yd = xd if y is x else y.double()
+            part = ordered_sum((xd * yd).reshape(1, -1))
+            return (yield from dot_tree_steps(part, group, compressor))
+
+        return dot
+    tree = traceable_dot(op.topo, compressor)
+
+    def dot(x: torch.Tensor, y: torch.Tensor):
+        return (yield from no_hops(tree(x, y)))
+
+    return dot
 
 
 def default_reductions(op) -> "TorchReductions | NumpyReductions | GroupReductions":

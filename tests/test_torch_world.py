@@ -28,10 +28,21 @@ own ``[1, L]`` block, and the test holds what every rank delivered to:
   ``repro.solve.NumpySpMV(verify=, faults=)``'s status with its
   ``+exchange:`` suffix, iterations within one, ``x`` within 1e-4, the
   clean history bitwise;
+* the fused whole-solve on the group (``fused_cg`` / ``fused_bicgstab`` on
+  ``DistributedSpMV(group=)``; on the host the init and block run their
+  segments eagerly), every strategy x codecs ``none`` / ``int8`` barrier
+  and ``none`` split-phase: bitwise the grouped host loop of the same
+  operator and the port's stacked host loop in the group tree's order
+  (``reductions=NumpyReductions``), and within the reference's own
+  host-vs-fused tolerances (1e-5 CG, 1e-2 BiCGStab) of
+  ``repro.solve.fused_cg`` / ``fused_bicgstab`` on the same seeded system;
+  a checked solve, a persistent fault that every rank raises as the stacked
+  fused solve does, and a transient fault that every rank resumes from the
+  same checkpoint on the same rung;
 * the world's own gates (rank 0's stacked checks, launch counts, the
-  reductions, the MoE exchange dispatch on the world's ``("pod", "local")``
-  mesh, narrowed for the host) and its guards: NCCL and the fused solve raise
-  naming ROADMAP A.6.3b items 5 and 6, and a rank planning another strategy
+  reductions, the fused solves, the MoE exchange dispatch on the world's
+  ``("pod", "local")`` mesh, narrowed for the host) and its guards: NCCL
+  raises naming ROADMAP A.6.3b item 5, and a rank planning another strategy
   or holding another fault plan makes every rank raise naming it.
 
 In-process worlds at ``2x2`` and ``2x4`` hold the reduction tree bitwise to
@@ -71,10 +82,21 @@ from repro.sparse import partition_csr as ref_partition_csr
 from repro.sparse.matrices import GENERATORS as REF_GENERATORS
 from repro.sparse.spmv import reference as ref_spmv
 from repro.sparse.spmv import reference_mm as ref_spmm
-from repro_torch.comm import STRATEGY_NAMES, IrregularExchange, PodTopology, make_exchange_group
-from repro_torch.comm.hierarchical import _row_sum
+from repro_torch.comm import (
+    STRATEGY_NAMES,
+    ExchangeIntegrityError,
+    FaultPlan,
+    FaultSpec,
+    IrregularExchange,
+    PodTopology,
+    make_exchange_group,
+)
+from repro_torch.comm.hierarchical import ordered_sum
 from repro_torch.core.device import device_for_rank
 from repro_torch.launch import world
+from repro_torch.solve import FUSED_SOLVERS
+from repro_torch.solve import bicgstab as port_bicgstab
+from repro_torch.solve import cg as port_cg
 from repro_torch.solve.reductions import NumpyReductions, _tree_sum
 from repro_torch.sparse import DistributedSpMV, partition_csr, rank_slice
 
@@ -202,7 +224,7 @@ def test_solve_matches_reference(worlds, topo, solver, strategy):
 
 
 @pytest.mark.parametrize("part", ["exchange", "stacked", "spmv", "cg", "bicgstab", "launches", "faults",
-                                  "reductions", "moe"])
+                                  "reductions", "fused", "moe"])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_world_gates(worlds, topo, part):
     gates = {f"rank {r['rank']}: {k}": ok for r in worlds[topo] for k, ok in r["gates"].items()
@@ -211,8 +233,7 @@ def test_world_gates(worlds, topo, part):
 
 
 @pytest.mark.parametrize("guard, names", [("nccl", "A.6.3b item 5"), ("mesh_backend", "unknown backend 'fake'"),
-                                          ("fused", "A.6.3b item 6"), ("mismatch", "ranks [1]"),
-                                          ("fault_mismatch", "ranks [1]")])
+                                          ("mismatch", "ranks [1]"), ("fault_mismatch", "ranks [1]")])
 @pytest.mark.parametrize("topo", sorted(WORLDS))
 def test_guards_raise_under_a_group(worlds, topo, guard, names):
     for r in worlds[topo]:
@@ -438,12 +459,29 @@ def test_group_compressed_tree_is_one_quantum_from_the_reference(group_dots, ref
         assert abs(value - ref_compressed_dots[topo][i]) <= quantum, (i, value, ref_compressed_dots[topo][i], quantum)
 
 
+@pytest.mark.parametrize("rows", [1, 3, 16])
+def test_ordered_sum_is_numpy_sum(rows):
+    """The partials' and levels' order on the card (:func:`ordered_sum`,
+    elementwise adds only) is numpy's float64 row sum, bitwise: lengths
+    below 8, within a pairwise block (128), across uneven halves, and over
+    several of numpy's 8192-element buffers (the case study's 65,536)."""
+    rng = np.random.default_rng(rows)
+    for n in (0, 1, 7, 8, 9, 63, 64, 127, 128, 129, 250, 256, 1000, 8191, 8192, 8193, 12345, 65536):
+        a = rng.normal(size=(rows, n)) * 10.0 ** rng.integers(-8, 9, size=(rows, n))
+        got = ordered_sum(torch.as_tensor(a)).numpy()
+        np.testing.assert_array_equal(got.view(np.int64), a.sum(axis=1).view(np.int64), err_msg=f"n={n}")
+
+
 @pytest.mark.parametrize("ppn", [4, 8, 16])
 def test_tree_levels_sum_in_numpy_reductions_order(ppn):
-    """The group tree's two levels (:func:`_row_sum` over the pod's
+    """The group tree's two levels (:func:`ordered_sum` over the pod's
     partials, then over the pod sums) are bitwise ``_tree_sum``; from ppn 8
     numpy's pairwise order differs from a left-to-right sum, so the pin
     matters there."""
+
+    def _row_sum(values) -> float:
+        return float(ordered_sum(torch.as_tensor(np.asarray(values, dtype=np.float64)).view(1, -1))[0])
+
     rng = np.random.default_rng(ppn)
     differs = 0
     for npods in (1, 2, 3, 4):
@@ -454,3 +492,152 @@ def test_tree_levels_sum_in_numpy_reductions_order(ppn):
             assert _row_sum(np.asarray(pods)) == _tree_sum(p, t)
             differs += functools.reduce(lambda a, b: a + b, p[:ppn].tolist()) != _row_sum(p[:ppn])
     assert (differs > 0) == (ppn >= 8), differs
+
+
+# ---------------------------------------------------------------------------
+# The fused whole-solve on a group
+# ---------------------------------------------------------------------------
+
+#: (solver, strategy, codec, mode) of the world's fused section on the host
+FUSED_CASES = [(solver, strategy, codec, mode) for solver in sorted(SOLVERS) for strategy in STRATEGY_NAMES
+               for codec in world.FUSED_CODECS for mode in ("barrier", "overlap")
+               if world._fused_case(torch.device("cpu"), solver, strategy, codec, mode)]
+#: the port's host loops
+HOST_SOLVERS = {"cg": port_cg, "bicgstab": port_bicgstab}
+#: the reference's own host-vs-fused tolerances (its tests/test_fused.py)
+REF_FUSED_TOL = {"cg": 1e-5, "bicgstab": 1e-2}
+
+
+def _fused_key(solver, strategy, codec, mode) -> str:
+    return f"{solver}|{strategy}|{codec}|{mode}"
+
+
+def _rhs(topo: str, solver: str) -> np.ndarray:
+    _, _, part, _ = _port(topo)
+    return world.inputs(_topo(topo), part.rows_per_rank, SEED, MM_COLS)[SOLVERS[solver][2]]
+
+
+@pytest.fixture(scope="module")
+def ref_fused(tmp_path_factory):
+    """The reference's ``fused_cg`` / ``fused_bicgstab`` on each world's
+    systems, every strategy: one child per topology on as many forced host
+    devices as it has ranks, both at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(topo: str) -> dict:
+        d = tmp_path_factory.mktemp(f"ref_fused_{topo}")
+        np.savez(d / "rhs.npz", **{s: _rhs(topo, s) for s in SOLVERS})
+        matrix, rows = WORLDS[topo]
+        npods, ppn = (int(v) for v in topo.split("x"))
+        run_devices(
+            f"""
+            import json
+            import numpy as np
+            from repro.comm import PodTopology
+            from repro.solve import fused_bicgstab, fused_cg, shifted_system, spd_system
+            from repro.sparse import build
+            from repro.sparse.matrices import GENERATORS
+
+            topo = PodTopology(npods={npods}, ppn={ppn})
+            gen = GENERATORS[{matrix!r}]
+            systems = {{"cg": (spd_system(gen({rows}, np.random.default_rng({SEED}))), fused_cg),
+                       "bicgstab": (shifted_system(gen({rows}, np.random.default_rng({SEED + 1}))), fused_bicgstab)}}
+            rhs = np.load({str(d / "rhs.npz")!r})
+            out = {{}}
+            for solver, (M, fn) in systems.items():
+                for strategy in {list(STRATEGY_NAMES)!r}:
+                    r = fn(build(M, topo, strategy=strategy), rhs[solver], tol={world.TOL_SOLVE}, maxiter={world.MAXITER})
+                    out[f"{{solver}}|{{strategy}}"] = dict(status=r.status, iterations=r.iterations,
+                                                          residuals=[float(v) for v in r.residuals],
+                                                          x=np.asarray(r.x).ravel().tolist())
+            with open({str(d / "out.json")!r}, "w") as f:
+                json.dump(out, f)
+            """,
+            devices=npods * ppn,
+        )
+        return json.loads((d / "out.json").read_text())
+
+    with ThreadPoolExecutor(len(WORLDS)) as pool:
+        return dict(zip(sorted(WORLDS), pool.map(one, sorted(WORLDS))))
+
+
+def _fused_runs(worlds, topo, key) -> list:
+    return [r["fused_runs"][key] for r in worlds[topo]]
+
+
+@pytest.mark.parametrize("solver, strategy, codec, mode", FUSED_CASES)
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_fused_equals_grouped_host_loop(worlds, topo, solver, strategy, codec, mode):
+    runs = _fused_runs(worlds, topo, _fused_key(solver, strategy, codec, mode))
+    for r, run in enumerate(runs):
+        assert run["status"] == "converged", (r, run["status"])
+        assert run["residuals"] == run["host_residuals"], r
+        np.testing.assert_array_equal(_bits(run["x"]), _bits(run["host_x"]), err_msg=f"rank {r}")
+        assert run["residuals"] == runs[0]["residuals"], r
+    if codec == "none":  # the host loop that the world's solve section ran
+        host = worlds[topo][0]["solves"][solver][f"{strategy}|{mode == 'overlap'}"]
+        assert runs[0]["host_residuals"] == host["residuals"]
+
+
+@pytest.mark.parametrize("solver, strategy, codec, mode", FUSED_CASES)
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_fused_equals_stacked_host_loop_in_the_tree_order(worlds, topo, solver, strategy, codec, mode):
+    runs = _fused_runs(worlds, topo, _fused_key(solver, strategy, codec, mode))
+    _, _, part, part_b = _port(topo)
+    op = DistributedSpMV(part if solver == "cg" else part_b, strategy=strategy, device="cpu", wire=codec,
+                         overlap=mode == "overlap")
+    want = HOST_SOLVERS[solver](op, _rhs(topo, solver), tol=world.TOL_SOLVE, maxiter=world.MAXITER,
+                                reductions=NumpyReductions(_topo(topo)))
+    assert runs[0]["residuals"] == list(want.residuals)
+    x = np.concatenate([np.asarray(run["x"], np.float32) for run in runs])
+    np.testing.assert_array_equal(_bits(x), _bits(want.x.numpy()))
+
+
+@pytest.mark.parametrize("strategy", STRATEGY_NAMES)
+@pytest.mark.parametrize("solver", sorted(SOLVERS))
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_fused_matches_reference_fused(worlds, ref_fused, topo, solver, strategy):
+    want = ref_fused[topo][f"{solver}|{strategy}"]
+    runs = _fused_runs(worlds, topo, _fused_key(solver, strategy, "none", "barrier"))
+    got = runs[0]
+    assert got["status"] == want["status"], (got["status"], want["status"])
+    # the two packages round a row's sum in different orders: the solves
+    # may end one iteration apart, as the host loops do
+    assert abs(got["iterations"] - want["iterations"]) <= 1, (got["iterations"], want["iterations"])
+    common = min(len(got["residuals"]), len(want["residuals"]))
+    rel = max(abs(a - c) / max(abs(c), 1e-30) for a, c in zip(got["residuals"][:common], want["residuals"][:common]))
+    assert rel < REF_FUSED_TOL[solver], rel
+    x = np.concatenate([np.asarray(run["x"], np.float32) for run in runs]).reshape(-1)
+    np.testing.assert_allclose(x, want["x"], rtol=X_TOL, atol=X_TOL)
+
+
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_fused_checks_agree_on_every_rank(worlds, topo):
+    """A checked fused CG equals the clean host loop on every rank; a
+    persistent fault makes every rank raise the stacked fused raise (hop and
+    violation); a transient one is resumed once on every rank, on the
+    stacked solve's rung, with the clean history.  The stacked fused solve
+    sums its dots in its own order, which the hop, the violation and the
+    rung do not depend on."""
+    ranks = worlds[topo]
+    strat = world.FAULT_SOLVE_STRATEGY
+    clean = ranks[0]["solves"]["cg"][f"{strat}|False"]
+    checks = [r["fused_checks"] for r in ranks]
+    assert all(c["verify"]["residuals"] == clean["residuals"] for c in checks)
+    for c, r in zip(checks, ranks):
+        np.testing.assert_array_equal(_bits(c["verify"]["x"]), _bits(r["solves"]["cg"][f"{strat}|False"]["x"]))
+    _, _, part, _ = _port(topo)
+    b = _rhs(topo, "cg")
+    persistent = FaultPlan(seed=SEED + 15, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0),))
+    op = DistributedSpMV(part, strategy=strat, device="cpu", verify=True, faults=persistent)
+    with pytest.raises(ExchangeIntegrityError) as info:
+        FUSED_SOLVERS["cg"](op, b, tol=world.TOL_SOLVE, maxiter=world.FUSED_DETECT_MAXITER)
+    want = {**info.value.diagnostics(), "violation": info.value.violation}
+    assert all(c["detect"] == want for c in checks), ([c["detect"] for c in checks], want)
+    transient = FaultPlan(seed=SEED + 16, specs=(FaultSpec(kind="perturb", prob=1.0, frac=1.0,
+                                                                       strategies=(strat,)),), active_calls=(7,))
+    st = FUSED_SOLVERS["cg"](DistributedSpMV(part, strategy=strat, device="cpu", verify=True, faults=transient), b,
+                             tol=world.TOL_SOLVE, maxiter=world.MAXITER, checkpoint_every=5)
+    assert "+resume:1" in st.status and st.converged, st.status
+    assert all(c["resume"]["status"] == st.status for c in checks), [c["resume"]["status"] for c in checks]
+    assert all(c["resume"]["residuals"] == clean["residuals"] for c in checks)
