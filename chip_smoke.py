@@ -453,28 +453,47 @@ def ell_as_csr(torch, data, cols, N: int):
         )
 
 
+def device_events(prof) -> dict:
+    """``{name: [count, device µs]}`` of the device-side events (kernels,
+    copies, sets) of a finished ``torch.profiler`` session, read straight
+    from its kineto results as ``key_averages()`` reads them (hidden and
+    asynchronous events left out, each event's span from its start to its
+    end), but without building its tree of host ops: that took 14-45 s for
+    a window of ten decode steps at full size (PERF.md §6)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CPU or getattr(e, "is_hidden_event", lambda: False)() or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        if us > 0:
+            row = out.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += us
+    return out
+
+
 def device_profile(fn, steps: int, top_n: int = 8) -> tuple:
     """Device ms per step and the top kernels of ``fn()`` (``steps`` steps)
-    under ``torch.profiler``.  Device-side events only (kernels, copies): an
-    aten op's self device time repeats that of the kernels it launched.  A
-    profiler that records no device time fails the phase."""
+    under ``torch.profiler``.  Device-side events only (kernels, copies,
+    :func:`device_events`): an aten op's self device time repeats that of
+    the kernels it launched.  A profiler that records no device time fails
+    the phase."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0]
+    events = device_events(prof)
     if not events:
         raise AssertionError("torch.profiler recorded no device time")
-    device_ms = sum(device_us(e) for e in events) / 1e3 / steps
+    device_ms = sum(us for _, us in events.values()) / 1e3 / steps
     top = [
-        {"name": e.key[:80], "calls_per_step": e.count / steps, "us_per_step": device_us(e) / steps}
-        for e in sorted(events, key=device_us, reverse=True)[:top_n]
+        {"name": name[:80], "calls_per_step": count / steps, "us_per_step": us / steps}
+        for name, (count, us) in sorted(events.items(), key=lambda kv: -kv[1][1])[:top_n]
     ]
     return device_ms, top
 
@@ -525,6 +544,19 @@ def device_split(fn, op_classes: dict, kernel_classes: dict = None) -> dict:
     return out
 
 
+class Lap:
+    """Host seconds between successive calls (the first from its making),
+    for a phase's record of where its own time goes."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self) -> float:
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        return dt
+
+
 def median_ms(torch, fn, reps: int = 7) -> float:
     """Median ms of ``reps`` calls of ``fn`` between CUDA events, after one
     warm call (each call may read the device from the host)."""
@@ -547,8 +579,19 @@ def median_ms(torch, fn, reps: int = 7) -> float:
 
 
 def phase_build(ctx) -> None:
+    """Build the three CUDA libraries, one ``nvcc`` each, all at once.  In a
+    whole run (``ctx["whole_run"]``, set by :func:`main`) phase
+    fused_profile's child starts first and runs beside the build
+    (:func:`start_fused_profile`: it imports torch and builds its operator on
+    the host before it needs B1's library, the quickest to compile), and so
+    does the fork server of this process's worlds (it imports torch and the
+    port once, and never touches the card)."""
     from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.world import start_rank_server
 
+    if ctx.get("whole_run"):
+        start_rank_server()
+        start_fused_profile(ctx)
     t0 = time.perf_counter()
     built = kbuild.build()
     seconds = time.perf_counter() - t0
@@ -561,7 +604,9 @@ def phase_build(ctx) -> None:
     ctx["details"]["build_s"] = seconds
 
 
-def phase_setup(ctx) -> None:
+def build_case_study() -> dict:
+    """The case study's two systems and their partitions, built on the host:
+    ``topo``, ``A``, ``part``, ``B``, ``part_b`` and the ``seconds`` it took."""
     from repro_torch.comm import PodTopology
     from repro_torch.solve import shifted_system, spd_system
     from repro_torch.sparse import partition_csr, thermal_like
@@ -572,12 +617,31 @@ def phase_setup(ctx) -> None:
     part = partition_csr(A, topo)
     B = shifted_system(thermal_like(SIDE * SIDE, np.random.default_rng(SEED + 1)))
     part_b = partition_csr(B, topo)
-    ctx.update(topo=topo, A=A, part=part, B=B, part_b=part_b)
+    return dict(topo=topo, A=A, part=part, B=B, part_b=part_b, seconds=time.perf_counter() - t0)
+
+
+def start_setup(ctx) -> None:
+    """Start :func:`build_case_study` on a thread of this process, so that
+    host work runs while phase examples waits for its children; phase setup
+    takes its result."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    ctx["setup_future"] = pool.submit(build_case_study)
+    pool.shutdown(wait=False)
+
+
+def phase_setup(ctx) -> None:
+    future = ctx.pop("setup_future", None)
+    built = future.result() if future is not None else build_case_study()
+    seconds = built.pop("seconds")
+    ctx.update(built)
+    A, part, topo = built["A"], built["part"], built["topo"]
     log(
         f"[setup] n={A.n} nnz={A.nnz} ranks={topo.nranks} L={part.rows_per_rank} "
         f"diag K={part.diag.data.shape[1]} off K={part.off.data.shape[1]} "
         f"halo H={part.halo_width} needs={len(part.pattern.needs)} "
-        f"({time.perf_counter() - t0:.1f} s on the host)"
+        f"({seconds:.1f} s on the host{', beside phase examples' if future is not None else ''})"
     )
 
 
@@ -1143,7 +1207,6 @@ def fused_profile() -> dict:
     device ms per iteration, busy share, top kernels, and B1's kernels in the
     trace beside the launches counted from the graph replays."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.comm import PodTopology
@@ -1160,9 +1223,6 @@ def fused_profile() -> dict:
     fused_cg(op, b, tol=0.0, maxiter=FUSED_TIMED_ITERS)  # warm-up and capture
     torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
     # the launch count derived from the replays, held to the profiler's
     # count of B1 kernels in the same solve
     spmv_ell.launches = 0
@@ -1172,42 +1232,60 @@ def fused_profile() -> dict:
         r = fused_cg(op, b, tol=0.0, maxiter=FUSED_TIMED_ITERS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and device_us(e) > 0]
-    device_ms = sum(device_us(e) for e in events) / 1e3
+    events = device_events(prof)
+    device_ms = sum(us for _, us in events.values()) / 1e3
     return {
         "strategy": op.strategy,
         "iterations": r.iterations,
         "wall_ms_per_iteration": wall / r.iterations,
         "device_ms_per_iteration": device_ms / r.iterations,
         "device_busy_share": device_ms / wall,
-        "b1_kernels_in_trace": sum(e.count for e in events if "spmv_ell" in e.key),
+        "b1_kernels_in_trace": sum(count for name, (count, _) in events.items() if "spmv_ell" in name),
         "b1_launches_counted": spmv_ell.launches + F.graph_launches["spmv_ell"],
         "top_kernels": [
-            {"name": e.key[:80], "calls_per_iteration": e.count / r.iterations,
-             "us_per_iteration": device_us(e) / r.iterations}
-            for e in sorted(events, key=device_us, reverse=True)[:10]
+            {"name": name[:80], "calls_per_iteration": count / r.iterations, "us_per_iteration": us / r.iterations}
+            for name, (count, us) in sorted(events.items(), key=lambda kv: -kv[1][1])[:10]
         ],
     }
 
 
-def phase_fused_profile(ctx) -> None:
-    """:func:`fused_profile` in a child process, started right after the
-    build, before any other process has used the card: after many graph
-    replays, or with other processes on the card before it, a profiler in
-    one process has recorded no device activity or lost B1 records
-    (ROADMAP §C).  The B1 kernels in its trace must equal the launches
-    counted from the replays, exactly."""
+def start_fused_profile(ctx) -> None:
+    """Start :func:`fused_profile` in a child process (``python3
+    chip_smoke.py --fused-profile OUT``), unless it runs already; its output
+    goes to files, and a child still running when this script exits is
+    killed then."""
+    import atexit
+    import tempfile
+
+    if "fused_profile_child" in ctx:
+        return
     out = os.path.join(HERE, "chiprun_out", "fused_profile.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--fused-profile", out], capture_output=True,
-                          text=True, timeout=600, cwd=HERE, env=env)
+    files = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fused-profile", out], stdout=files[0],
+                            stderr=files[1], text=True, cwd=HERE, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    ctx["fused_profile_child"] = {"proc": proc, "files": files, "out": out, "t0": time.perf_counter()}
+
+
+def phase_fused_profile(ctx) -> None:
+    """:func:`fused_profile` in a child process, started beside the build
+    (:func:`start_fused_profile`, from phase build), before any other
+    process has used the card: after many graph replays, or with
+    other processes on the card before it, a profiler in one process has
+    recorded no device activity or lost B1 records (ROADMAP §C).  The B1
+    kernels in its trace must equal the launches counted from the replays,
+    exactly."""
+    start_fused_profile(ctx)
+    child = ctx.pop("fused_profile_child")
+    proc = child["proc"]
+    stdout, stderr = _finish_child(proc, child["files"], timeout_s=600.0)
     if proc.returncode != 0:
-        raise AssertionError(f"fused_profile: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    with open(out) as f:
+        raise AssertionError(f"fused_profile: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    with open(child["out"]) as f:
         prof = json.load(f)
-    prof["child_s"] = time.perf_counter() - t0
+    prof["child_s"] = time.perf_counter() - child["t0"]
     ctx["fused_profile"] = prof
     log("[fused_profile] " + json.dumps(prof))
     if prof["b1_kernels_in_trace"] == 0:
@@ -1863,6 +1941,7 @@ def phase_serve(ctx) -> None:
 
     dev = torch.device("cuda")
     B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    lap, seconds = Lap(), {}
     model, p32 = build(LM_ARCH, "full", seed=SEED, device=dev, dtype=torch.float32)
     L = model.cfg.n_layers
     prompts = torch.as_tensor(make_prompts(model.cfg.vocab_size, B, S, SEED), device=dev)
@@ -1908,6 +1987,7 @@ def phase_serve(ctx) -> None:
     }
     del p32, k_out, c_out, full
     torch.cuda.empty_cache()
+    seconds["float32_check"] = lap()
 
     # ---- bfloat16: the main path, counts reset just before, read just after ----
     model, p16 = build(LM_ARCH, "full", seed=SEED, device=dev)
@@ -1919,6 +1999,7 @@ def phase_serve(ctx) -> None:
     launches = {"flash_attention": FA.flash_attention.launches, "ssd_chunked": SSD.ssd_chunked.launches}
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path ----
+    seconds["bfloat16_build_warm_and_main_path"] = lap()
     bf16_finite = all(bool(torch.isfinite(lg).all()) for lg in out["logits"])
 
     cache, token, pos = out["cache"], out["tokens"][:, -1:], S + G - 1
@@ -1938,9 +2019,13 @@ def phase_serve(ctx) -> None:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 10 * 1e3
     decode_extra = (FA.flash_attention.launches - n0[0], SSD.ssd_chunked.launches - n0[1])
+    seconds["decode_timed"] = lap()
     device_ms, top = device_profile(lambda: decode(10), 10)
+    seconds["decode_profiled"] = lap()
     with torch.inference_mode():
         prefill_device_ms, prefill_top = device_profile(lambda: model.prefill(p16, prompts, impl="kernel"), 1, 10)
+    seconds["prefill_profiled"] = lap()
+    summary["seconds"] = seconds
     summary["bfloat16"] = {
         "prefill_ms": out["prefill_s"] * 1e3,
         "prefill_tokens_per_s": B * S / out["prefill_s"],
@@ -2384,6 +2469,7 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
+    lap, seconds = Lap(), {}
 
     def inputs(model, b, s):
         p, c = make_context(model.cfg.vocab_size, b, s, model.ctx_len(), model.cfg.d_model, SEED)
@@ -2430,6 +2516,7 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
     log(f"[{tag}] float32 check: " + json.dumps(f32))
     del model, p32, k_out, c_out, full, prompts, cx
     torch.cuda.empty_cache()
+    seconds["float32_check"] = lap()
 
     # ---- bfloat16: the main path, counts reset just before, read just after ----
     model, p16 = build(arch, "full", seed=SEED, device=dev, dtype=torch.bfloat16, layers=layers)
@@ -2440,7 +2527,8 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
     summary = {"arch": arch, "parameters": model.param_count(), "layers": L,
                "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0, "ctx_len": model.ctx_len(),
                "head_pairs": sorted(model.attention_head_pairs), "batch": batch, "prompt": prompt, "gen": gen,
-               "float32": f32}
+               "float32": f32, "seconds": seconds}
+    seconds["bfloat16_build"] = lap()
     log(f"[{tag}] {arch}: {summary['parameters']:,} parameters, {L} layers "
         f"(+{summary['encoder_layers']} encoder), batch {batch}, prompt {prompt}, context {model.ctx_len()}, "
         f"{gen} greedy tokens")
@@ -2459,6 +2547,7 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
     by_route = dict(FA.flash_attention.by_route)
     peak = torch.cuda.max_memory_allocated()
     # ---- end of the main path ----
+    seconds["bfloat16_warm_and_main_path"] = lap()
     # B3's launches at each of this path's shapes in serve_b3_shapes
     per_shape = {line: by_shape.get(tuple(case), 0)
                  for line, (phase, *case) in serve_b3_shapes().items() if phase == tag}
@@ -2485,12 +2574,15 @@ def serve_family(ctx, tag: str, arch: str, layers, batch: int, prompt: int, gen:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 10 * 1e3
     decode_extra = FA.flash_attention.launches - n0
+    seconds["decode_timed"] = lap()
     device_ms, top = device_profile(lambda: decode(10), 10)
+    seconds["decode_profiled"] = lap()
     if tally is not None:
         tally.reset()
     with torch.inference_mode():
         split = device_split(lambda: model.prefill(p16, prompts, cx, impl="kernel"), OP_CLASSES,
                              {"flash_attention": "flash_fwd"})
+    seconds["prefill_profiled"] = lap()
     summary["bfloat16"] = {
         "prefill_ms": out["prefill_s"] * 1e3,
         "prefill_tokens_per_s": batch * prompt / out["prefill_s"],
@@ -2654,6 +2746,7 @@ def phase_train(ctx) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     FA.flash_attention.launches = SSD.ssd_chunked.launches = 0
+    lap, seconds = Lap(), {}
 
     def adamw_opt(steps):  # the launcher's
         return AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(steps // 10, 1), total_steps=steps)
@@ -2676,9 +2769,11 @@ def phase_train(ctx) -> None:
 
     trainer.step_fn = timed
     torch.cuda.reset_peak_memory_stats()
+    seconds["stablelm_build"] = lap()
     t0 = time.perf_counter()
     out = trainer.run()
     run_s = time.perf_counter() - t0
+    seconds["stablelm_run"] = lap()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in out["history"]]
     state = out["state"]
@@ -2709,7 +2804,9 @@ def phase_train(ctx) -> None:
     finally:
         trainer_mod.adamw_update = plain_update
         del inner.cast
+    seconds["stablelm_profiled_steps"] = lap()
     split = train_split(prof, S, 2)
+    seconds["stablelm_profile_read"] = lap()
     launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
     main = {
         "arch": TRAIN_ARCH, "parameters": n_params, "layers": cfg.n_layers, "batch": B, "seq": S,
@@ -2757,8 +2854,11 @@ def phase_train(ctx) -> None:
 
     recording(cpu, "cpu")
     recording(on_card, "card")
+    seconds["float32_setup"] = lap()
     card_out = on_card.run()
+    seconds["float32_card_steps"] = lap()
     cpu_out = cpu.run()
+    seconds["float32_cpu_steps"] = lap()
     noisy = None
     for t, ((mu_card, _), (mu_cpu, nu_cpu)) in enumerate(zip(moments["card"], moments["cpu"]), start=1):
         noisy = noisy_steps(noisy, mu_card, mu_cpu, nu_cpu, t)
@@ -2795,8 +2895,9 @@ def phase_train(ctx) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = (FA.flash_attention.launches, SSD.ssd_chunked.launches)
+    seconds["float32_compare_and_resume"] = lap()
     check = {
-        "preset": c["preset"], "parameters": n_small,
+        "preset": c["preset"], "parameters": n_small, "seconds": seconds,
         "card_losses": card_losses, "cpu_losses": cpu_losses, "loss_rel_err": loss_rel,
         "masters": cmp, "resume": resume,
     }
@@ -3029,7 +3130,8 @@ def phase_examples(ctx) -> None:
     runs go at once (the two train_lm runs one after the other), so a run's
     wall seconds, in ``chip_smoke.json``, include the others' contention;
     each run's output goes to ``chiprun_out/examples/``.  Phase mesh's
-    children start first and run beside them (:func:`start_mesh_children`).
+    children start first and run beside them (:func:`start_mesh_children`),
+    and so does phase setup's host build (:func:`start_setup`).
     """
     import shutil
     import tempfile
@@ -3041,6 +3143,7 @@ def phase_examples(ctx) -> None:
     ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_examples_"), "ckpt")
     runs = {}
     start_mesh_children(ctx)
+    start_setup(ctx)
 
     def run(name, args, expect, gate) -> None:
         args = [a.format(ckpt=ckpt) for a in args]
@@ -3234,8 +3337,9 @@ def start_mesh_children(ctx) -> dict:
 
 
 def _finish_child(proc, files, timeout_s: float = 900.0) -> tuple:
-    """``(stdout, stderr)`` of a child of :func:`start_mesh_children`, once
-    it has ended."""
+    """``(stdout, stderr)`` of a child whose output goes to ``files``
+    (:func:`start_mesh_children`, :func:`start_fused_profile`), once it has
+    ended."""
     proc.wait(timeout=timeout_s)
     out = []
     for f in files:
@@ -3362,9 +3466,9 @@ LAUNCH_SERVE_F32 = ["--preset", "full", "--layers", "2", "--batch", "4", "--prom
 #: max |logits| of one process (the serve phases' float32 tolerance)
 TOL_LAUNCH_F32 = 1e-3
 LAUNCH_TRAIN = ["--arch", "stablelm-3b", "--preset", "100m", "--batch", "8", "--seq", "512"]
-LAUNCH_TRAIN_STEPS = 5
+LAUNCH_TRAIN_STEPS = 4
 #: the checkpoint of the mesh run resumed on one process to this step
-LAUNCH_RESUME_STEPS = 7
+LAUNCH_RESUME_STEPS = 6
 
 
 def _losses_agree(got: list, want: list, lr: float) -> dict:
@@ -3448,10 +3552,14 @@ def world_launchers(ctx) -> dict:
     checks, out = {}, {"worlds": {}}
 
     def world(tag: str, main, argv: list) -> dict:
-        t1 = time.perf_counter()
+        t1, started = time.perf_counter(), time.time()
         res = main([*argv, "--mesh", LAUNCH_MESH])  # rank 0 prints the launcher's lines
         ranks = res["ranks"]
         rec = {"seconds": time.perf_counter() - t1, "launches": [r["launches"] for r in ranks],
+               # the slowest rank's seconds from the world's start to each
+               # step of its start, and of the launcher's run
+               "start_steps_s": {k: max(r["timeline"][k] for r in ranks) - started for k in ranks[0]["timeline"]},
+               "run_s": max(r["run_s"] for r in ranks),
                "b3_routes": [r["b3_routes"] for r in ranks], "b3_shapes": [r["b3_shapes"] for r in ranks],
                "device_peak_bytes": [r["device_peak_bytes"] for r in ranks], "staged": ranks[0]["staged"]}
         if "prefill_s" in ranks[0]:
@@ -3462,8 +3570,10 @@ def world_launchers(ctx) -> dict:
         staged_ms = {k: f"{v['calls']} calls {v['seconds'] * 1e3:.1f} ms {v['bytes'] / 1e6:.1f} MB"
                      for k, v in sorted(rec["staged"].items(), key=lambda kv: -kv[1]["seconds"])}
         log(f"[world] {tag} --mesh {LAUNCH_MESH} on {[r['device'] for r in ranks]}: world {rec['seconds']:.2f} s"
-            f"{timing}; launches per rank {rec['launches']}, B3 routes {rec['b3_routes']}, B3 shapes on rank 0 "
-            f"{rec['b3_shapes'][0]}; device peak allocated per rank {rec['device_peak_bytes']} B; rank 0's staged "
+            f" (start by step {json.dumps({k: round(v, 2) for k, v in rec['start_steps_s'].items()})}, the "
+            f"launcher's run {rec['run_s']:.2f} s){timing}; launches per rank {rec['launches']}, B3 routes "
+            f"{rec['b3_routes']}, B3 shapes on rank 0 {rec['b3_shapes'][0]}; device peak allocated per rank "
+            f"{rec['device_peak_bytes']} B; rank 0's staged "
             f"collectives {json.dumps(staged_ms)} ({card}, torch {torch.__version__})")
         return res
 
@@ -3560,10 +3670,13 @@ def phase_world(ctx) -> None:
     ``spd_system(thermal_like(1 << 20))`` on ``PodTopology(4, 4)``, 16
     processes of 65,536 rows each, all on this card, joined by gloo (NCCL
     refuses two ranks of one communicator on one card, so every hop stages
-    through host memory).  One child process (``python -m
-    repro_torch.launch.world``) spawns the ranks; every rank builds the
-    matrix and its plans from the seed.  The child checks, and this phase
-    re-reads, every gate of every rank (``chiprun_out/world/world.json``):
+    through host memory).  The world's CLI (``python -m
+    repro_torch.launch.world``, its ``main``) runs in this process on phase
+    setup's systems (``--problem``, written by ``write_problem``: rank 0
+    loads them whole, every other rank its own rows and the pattern); its
+    ranks fork from this process's fork server, started in phase build.
+    ``main`` checks, and this phase re-reads, every gate of every rank
+    (``chiprun_out/world/world.json``):
 
     * each rank's halo, for the four strategies x barrier/split-phase x
       codecs none/bf16/int8 on a ``[1, L, 3]`` payload, bitwise row ``r``
@@ -3572,13 +3685,15 @@ def phase_world(ctx) -> None:
     * ``DistributedSpMV(group=)``: overlap == barrier, ``matmat`` (k = 8) ==
       ``matmat_looped``, ``w`` equal across strategies and bitwise the
       stacked operator's row, and within 1e-5 of a float64 CSR product;
-    * CG and BiCGStab (``shifted_system``) with each strategy and ``auto``,
-      barrier, and CG on two_step also overlapped: converged to 1e-6,
-      histories bitwise across them
-      and across ranks, true residual under 1e-5, and the stacked host loop's
-      status, iterations within one and ``x`` within 1e-4;
-    * checks, faults and the recovery ladder (every strategy x barrier/split
-      x codecs none/int8 on a ``[1, L]`` payload): checked clean calls raise
+    * CG with each strategy and ``auto``, barrier, and on two_step also
+      overlapped, and BiCGStab (``shifted_system``) on standard and two_step
+      (``world.CARD_BICGSTAB``): converged to 1e-6, histories bitwise
+      across them and across ranks, true residual under 1e-5, and the
+      stacked host loop's status, iterations within one and ``x`` within
+      1e-4;
+    * checks, faults and the recovery ladder (every strategy barrier, and
+      two_step split-phase, x codecs none/int8 on a ``[1, L]`` payload):
+      checked clean calls raise
       nothing and equal the unchecked halo; a transient corruption (retry),
       an int8-only corruption (demote) and a persistent perturbation of the
       strategy (re-advise) give each rank's halo bitwise row ``r`` of the
@@ -3594,9 +3709,10 @@ def phase_world(ctx) -> None:
       tree with one history on every rank and the stacked loop's status;
     * the fused whole-solve on the group (after the host loops, so after
       ``fused_profile`` too, and profiling nothing): ``fused_cg`` and
-      ``fused_bicgstab`` on ``DistributedSpMV(group=)`` for each strategy
-      (barrier, codec none; CG also split-phase on two_step and with the
-      int8 wire on two_step and three_step), a first solve that warms up
+      ``fused_bicgstab`` on ``DistributedSpMV(group=)`` for each strategy of
+      CG and ``CARD_BICGSTAB`` of BiCGStab (barrier, codec none; CG also
+      split-phase on two_step and with the int8 wire on two_step and
+      three_step), a first solve that warms up
       and captures one CUDA graph per stretch of device work between two
       staged hops (the split phase: the on-pod sub-exchange's too), on
       two_step a second that replays them: history, ``x``, status,
@@ -3634,40 +3750,49 @@ def phase_world(ctx) -> None:
     host loop's per strategy and the capture seconds, the world's start and
     total seconds, memory per rank.  It runs last, after
     ``fused``: placed right after ``mesh`` it cost ``fused``'s profiler two
-    B1 records (ROADMAP §C).  The child runs in a session of its own, so a
-    timeout kills every rank with it.
+    B1 records (ROADMAP §C).  A world that outlives its timeout has every
+    rank killed (``run_world``).  The combinations of the host worlds of
+    ``tests/test_torch_world.py`` that are not run here (BiCGStab on
+    three_step, split and ``auto``; the split-phase faults of the other
+    strategies) are held there on CPU gloo.
     """
-    import signal
+    import contextlib
+    import io
+    import shutil
+    import tempfile
     from collections import Counter
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.world import MOE_TIMED
+    from repro_torch.launch import world as W
 
     card = ctx["details"]["card"]
     out_dir = os.path.join(HERE, "chiprun_out", "world")
-    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
-    cmd = [sys.executable, "-m", "repro_torch.launch.world", "--topo", WORLD_TOPO, "--rows", str(SIDE * SIDE),
-           "--seed", str(SEED), "--mm-cols", str(MM_COLS), "--timeout", str(WORLD_TIMEOUT_S - 60), "--out", out_dir]
+    # the CLI's own build of these systems is phase setup's, bit for bit
+    problem = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    argv = ["--topo", WORLD_TOPO, "--rows", str(SIDE * SIDE), "--seed", str(SEED), "--mm-cols", str(MM_COLS),
+            "--timeout", str(WORLD_TIMEOUT_S), "--problem", problem, "--out", out_dir]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE, env=env,
-                            start_new_session=True)
+    printed = io.StringIO()
     try:
-        stdout, stderr = proc.communicate(timeout=WORLD_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        stdout, stderr = proc.communicate()
-        raise AssertionError(f"world: no end within {WORLD_TIMEOUT_S} s\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        W.write_problem(problem, ctx["A"], ctx["B"], ctx["part"], ctx["part_b"])
+        with contextlib.redirect_stdout(printed):
+            code = W.main(argv)
+    finally:
+        shutil.rmtree(problem, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"world: exit {proc.returncode}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    lines = printed.getvalue().strip().splitlines()
+    if code != 0:
+        raise AssertionError("world: exit " + str(code) + "\n" + "\n".join(lines[-40:]))
     with open(os.path.join(out_dir, "world.json")) as f:
         rec = json.load(f)
     ranks = rec["ranks"]
     r0 = ranks[0]
-    log(f"[world] {stdout.strip().splitlines()[-1]}")
+    log(f"[world] {lines[-1]}")
     log(f"[world] {len(ranks)} processes on one card over gloo, n={r0['n']} nnz={r0['nnz']} L={r0['rows_per_rank']} "
-        f"H={r0['halo_width']}: start {rec['start_s']:.2f} s, world {rec['total_s']:.2f} s, phase {seconds:.2f} s "
-        f"({card})")
+        f"H={r0['halo_width']}: systems built once in {rec['build_s']:.2f} s, start {rec['start_s']:.2f} s (by step "
+        f"{json.dumps({k: round(v, 2) for k, v in rec['start_steps_s'].items()})}), each rank's setup "
+        f"{max(x['setup_s'] for x in ranks):.2f} s at most, world {rec['total_s']:.2f} s, phase {seconds:.2f} s; "
+        f"sections (rank 0) {json.dumps({k: round(v, 2) for k, v in r0['phase_s'].items()})} ({card})")
     for key, ms in r0["exchange_ms"].items():
         log(f"[world] staged exchange {key}: {ms:.4f} ms (slowest rank, host wall, mean of 10) ({card})")
     for key, ms in r0["fault_ms"].items():
@@ -3698,7 +3823,8 @@ def phase_world(ctx) -> None:
     log(f"[world] recoveries over every rank and case: {dict(recoveries)}")
     mem = [x["memory"] for x in ranks]
     log(f"[world] memory per rank: device peak allocated {[m['device_peak_allocated_bytes'] for m in mem]} B, "
-        f"reserved {[m['device_reserved_bytes'] for m in mem]} B, host max RSS "
+        f"reserved {[m['device_reserved_bytes'] for m in mem]} B, host max RSS after the setup "
+        f"{[m['host_max_rss_after_setup_bytes'] for m in mem]} B and at the end "
         f"{[m['host_max_rss_bytes'] for m in mem]} B (shared library pages included), private at the end "
         f"{[m.get('host_private_bytes') for m in mem]} B ({card})")
     log(f"[world] launches per rank {[x['launches'] for x in ranks]}, predicted "
@@ -3707,7 +3833,7 @@ def phase_world(ctx) -> None:
     log(f"[world] moe: {MOE_ARCH} layer at full width on the 4x4 (pod, local) mesh, d_model {moe['d_model']}, "
         f"{moe['experts']} experts of {moe['d_ff_expert']}, top-{moe['top_k']}, batch {moe['batch']}, bf16")
     for key, ms in moe["ms"].items():
-        log(f"[world] moe {key}: {ms:.4f} ms per call (slowest rank, host wall, mean of {MOE_TIMED} calls, the "
+        log(f"[world] moe {key}: {ms:.4f} ms per call (slowest rank, host wall, mean of {W.MOE_TIMED} calls, the "
             f"count all-gather of 50; stacked: rank 0 alone) ({card})")
     log(f"[world] moe vs the stacked exchange on rank 0: {json.dumps(moe['stacked'])}; int8 wire max abs err "
         f"against full precision {moe['int8_max_abs_err']}; cache [after call 1, after call 5] "
@@ -3734,14 +3860,17 @@ def phase_world(ctx) -> None:
             for x in ranks),
         f"{gates_of('moe')} moe gates ran, the full-width layer": gates_of("moe") > 0 and all(
             x["moe"]["d_model"] == get_config(MOE_ARCH).d_model for x in ranks),
-        f"{gates_of('fused')} fused gates ran, CG and BiCGStab of every strategy, B1 by replays on every rank": (
+        f"{gates_of('fused')} fused gates ran, CG of every strategy and BiCGStab of {list(W.CARD_BICGSTAB)}, "
+        f"B1 by replays on every rank": (
             gates_of("fused") > 0 and all(
                 x["fused"][f"{solver}|{s}|none|barrier"]["b1_replayed"] > 0
                 and x["fused"][f"{solver}|{s}|none|barrier"]["b1_eager"] == 0
-                for x in ranks for solver in ("cg", "bicgstab") for s in STRATEGIES)),
+                for x in ranks for solver, strategies in (("cg", STRATEGIES), ("bicgstab", W.CARD_BICGSTAB))
+                for s in strategies)),
     }
     ctx["details"]["world"] = {
-        "seconds": seconds, "start_s": rec["start_s"], "total_s": rec["total_s"],
+        "seconds": seconds, "build_s": rec["build_s"], "start_s": rec["start_s"],
+        "start_steps_s": rec["start_steps_s"], "total_s": rec["total_s"],
         "exchange_ms": r0["exchange_ms"], "solves": r0["solves"], "fault_ms": r0["fault_ms"],
         "fault_solves": r0["fault_solves"], "fused": fused, "reductions": r0["reductions"], "memory": mem,
         "launches": [x["launches"] for x in ranks], "setup_s": [x["setup_s"] for x in ranks],
@@ -3811,7 +3940,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    ctx = {"details": {"card": smi}}
+    ctx = {"details": {"card": smi}, "whole_run": True}
     t_all = time.perf_counter()
     for name, fn in PHASES:
         t0 = time.perf_counter()

@@ -2,9 +2,11 @@
 study on a real process group.
 
 The counterpart of the reference's forced host devices feeding
-``make_exchange_mesh``: :func:`run_world` spawns ``topo.nranks`` processes
-(``spawn``, never ``fork``: a child forked after CUDA is initialised cannot
-use it), joins them through a ``file://`` store in a fresh temporary
+``make_exchange_mesh``: :func:`run_world` starts ``topo.nranks`` processes
+(forked by a fork server that has imported torch and :data:`RANK_PRELOAD`
+once, and never CUDA: a child forked after CUDA is initialised cannot use
+it, and one forked from a process that ran torch's CPU ops may inherit its
+thread pools), joins them through a ``file://`` store in a fresh temporary
 directory (two worlds on one machine never share a TCP port), builds each
 rank's :class:`~repro_torch.comm.topology.ExchangeGroup` and calls
 ``fn(group, device, *args)`` there.  Each rank uses one CPU thread.  The
@@ -17,9 +19,11 @@ the world: the others are killed and :class:`WorldError` carries that
 rank's number and traceback, within ``timeout_s``.
 
 ``python -m repro_torch.launch.world --topo 4x4 --rows 1048576 --out DIR``
-runs :func:`case_study` on the card (``--device cpu`` on the host): every
-rank builds ``spd_system(thermal_like(rows))`` and its plans from the seed,
-then holds its own ``[1, L]`` block and runs
+runs :func:`case_study` on the card (``--device cpu`` on the host): it
+builds ``spd_system(thermal_like(rows))`` and its partition from the seed
+once (:func:`build_problem`, :func:`write_problem`; ``--problem`` takes
+them ready-made), every rank loads its rows and plans from them, then
+holds its own ``[1, L]`` block and runs
 
 * the exchange of every strategy, barrier and split-phase, codecs ``none``,
   ``bf16`` and ``int8``: each rank's halo bitwise row ``r`` of the stacked
@@ -30,10 +34,12 @@ then holds its own ``[1, L]`` block and runs
   operator's row;
 * CG (``spd_system``) and BiCGStab (``shifted_system``) with every strategy
   and ``auto``, barrier and overlap (on CUDA ranks overlap for CG on
-  ``FAULT_SOLVE_STRATEGY`` only): converged, histories bitwise equal
-  across them and across ranks, the true residual, and the stacked host
-  loop's status, iterations (within one) and ``x`` (within 1e-4);
-* checks, faults and the recovery ladder: every strategy x barrier/split x
+  ``FAULT_SOLVE_STRATEGY`` only, and BiCGStab on :data:`CARD_BICGSTAB`
+  only): converged, histories bitwise equal across them and across ranks,
+  the true residual, and the stacked host loop's status, iterations
+  (within one) and ``x`` (within 1e-4);
+* checks, faults and the recovery ladder: every strategy x barrier/split
+  (on CUDA ranks the split phase on ``FAULT_SOLVE_STRATEGY`` only) x
   codecs ``none`` and ``int8`` with ``verify=True`` on a normal payload
   (clean: no raise, bitwise the unchecked halo), a transient corruption
   (retry), a lossy-codec corruption (demote, ``int8``) and a persistent
@@ -86,7 +92,9 @@ import hashlib
 import json
 import math
 import multiprocessing.connection
+import multiprocessing.forkserver
 import os
+import pickle
 import resource
 import sys
 import tempfile
@@ -115,7 +123,7 @@ from repro_torch.solve.krylov import bicgstab, cg
 from repro_torch.solve.problems import shifted_system, spd_system
 from repro_torch.solve.reductions import GroupReductions, NumpyReductions, TorchReductions, _tree_sum
 from repro_torch.sparse.matrices import GENERATORS
-from repro_torch.sparse.partition import partition_csr
+from repro_torch.sparse.partition import partition_csr, rank_partition
 from repro_torch.sparse.spmv import DistributedSpMV
 
 #: the case study's tolerances (PERF.md §2): CG/BiCGStab to 1e-6, a true
@@ -135,6 +143,11 @@ MAXITER = 1000
 #: compressed-reduction CG
 FAULT_CODECS = ("none", "int8")
 FAULT_SOLVE_STRATEGY = "two_step"
+#: the strategies whose BiCGStab runs on CUDA ranks, host loop and fused:
+#: the advisor's pick on the case study and :data:`FAULT_SOLVE_STRATEGY`
+#: (the histories are bitwise equal across strategies; the host worlds of
+#: ``tests/test_torch_world.py`` hold the others and ``auto``)
+CARD_BICGSTAB = ("standard", FAULT_SOLVE_STRATEGY)
 #: the fused section's codecs (:func:`_fused_case`), the strategies of its
 #: int8 cases on CUDA ranks, and the iterations of its persistent-fault
 #: solve (it raises after its dispatch, whatever its length)
@@ -240,14 +253,44 @@ def _nranks(topo: Union[PodTopology, int]) -> int:
     return topo if isinstance(topo, int) else topo.nranks
 
 
+#: the modules the fork server imports before it forks any rank: torch,
+#: DTensor and the port's packages that the ranks' programs import.  None
+#: of them initialises CUDA or runs a torch op on import, so each rank forks
+#: with them loaded and sets up its own device and threads.  No module run
+#: as ``python -m`` (this one, the launchers, the examples) is among them:
+#: a rank runs its parent's main module again, and runpy warns when that
+#: module is loaded already.
+RANK_PRELOAD = ("torch", "torch.distributed", "torch.distributed.tensor", "repro_torch.comm", "repro_torch.solve",
+                "repro_torch.sparse", "repro_torch.models.lm")
+
+
+def rank_context():
+    """The multiprocessing context :func:`run_world` starts its ranks from:
+    ``forkserver`` with :data:`RANK_PRELOAD`, so a world pays one import of
+    torch and the port per process that starts worlds (the server's), not
+    one per rank."""
+    ctx = torch.multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(RANK_PRELOAD))
+    return ctx
+
+
+def start_rank_server() -> None:
+    """Start :func:`run_world`'s fork server now: it imports
+    :data:`RANK_PRELOAD` while this process goes on, so the first world
+    need not wait for it.  A rank inherits the server's environment, as it
+    was when the server started."""
+    rank_context()
+    multiprocessing.forkserver.ensure_running()
+
+
 def run_world(fn: Callable, topo: Union[PodTopology, int], *, device: Optional[str] = None,
               backend: str = "gloo", timeout_s: float = 600.0, args: Sequence = (),
               kwargs: Optional[dict] = None) -> list:
-    """Spawn ``topo.nranks`` processes and return ``fn(group, device,
-    *args, **kwargs)`` of each rank (JSON values), in rank order.  ``topo``
-    an ``int`` spawns that many processes joined in a plain world, with no
-    exchange group: ``fn`` then takes the rank's number as ``group`` (the
-    launchers build their own mesh on it).
+    """Start ``topo.nranks`` processes (:func:`rank_context`) and return
+    ``fn(group, device, *args, **kwargs)`` of each rank (JSON values), in
+    rank order.  ``topo`` an ``int`` starts that many processes joined in a
+    plain world, with no exchange group: ``fn`` then takes the rank's
+    number as ``group`` (the launchers build their own mesh on it).
 
     ``fn`` must be importable by name (a module-level function).  A dict
     result gains ``"timeline"``: the epoch seconds at which the rank
@@ -262,7 +305,7 @@ def run_world(fn: Callable, topo: Union[PodTopology, int], *, device: Optional[s
     :class:`WorldError`.
     """
     check_backend(backend)
-    ctx = torch.multiprocessing.get_context("spawn")
+    ctx = rank_context()
     with tempfile.TemporaryDirectory(prefix="repro_world_") as d:
         procs = [
             ctx.Process(target=_rank_main, args=(r, fn, topo, device, backend, timeout_s,
@@ -329,8 +372,9 @@ def run_launcher(module: str, argv: Optional[Sequence[str]] = None) -> dict:
 
 
 def _launcher_rank(rank: int, device: torch.device, module: str, argv: list) -> dict:
-    """One rank of a launcher's spawned world: its ``summary``, its kernel
-    launches, B3's by route and by shape (``flash_attention.by_route``,
+    """One rank of a launcher's spawned world: its ``summary``, the seconds
+    of the launcher's ``run`` (``run_s``), its kernel launches, B3's by
+    route and by shape (``flash_attention.by_route``,
     ``by_shape``: ``[q, k, v shapes, causal, window, launches]``), its
     staged collectives (``staged.stats``: calls, host seconds and bytes per
     collective) and its device's peak allocated bytes (``None`` on the
@@ -346,9 +390,11 @@ def _launcher_rank(rank: int, device: torch.device, module: str, argv: list) -> 
     before, routes, shapes = launch_counts(), Counter(flash_attention.by_route), Counter(flash_attention.by_shape)
     collectives = staged.stats()
     args = mod.parse_args(argv)
+    t0 = time.perf_counter()
     out = mod.run(args, device, make_host_mesh(*parse_mesh(args.mesh), device.type))
+    run_s = time.perf_counter() - t0
     was = lambda name: Counter(collectives.get(name, {}))
-    return {"rank": rank, "device": str(device), **mod.summary(out),
+    return {"rank": rank, "device": str(device), **mod.summary(out), "run_s": run_s,
             "launches": {k: v - before[k] for k, v in launch_counts().items()},
             "b3_routes": dict(Counter(flash_attention.by_route) - routes),
             "b3_shapes": [[*key, n] for key, n in (Counter(flash_attention.by_shape) - shapes).items()],
@@ -518,6 +564,33 @@ def systems(matrix: str, rows: int, seed: int):
             shifted_system(gen(rows, np.random.default_rng(seed + 1))))
 
 
+def build_problem(topo: PodTopology, matrix: str, rows: int, seed: int) -> tuple:
+    """``(A, B, part, part_b)``: :func:`systems` and their partitions over
+    ``topo``."""
+    A, B = systems(matrix, rows, seed)
+    return A, B, partition_csr(A, topo), partition_csr(B, topo)
+
+
+def write_problem(directory: str, A, B, part, part_b) -> None:
+    """Write what each rank of a world holds of :func:`build_problem`'s
+    systems to ``directory``, so a world builds them once: rank 0 the
+    systems and partitions whole (its stacked checks need them), every
+    other rank its :func:`~repro_torch.sparse.partition.rank_partition` of
+    each (its rows, the pattern whole)."""
+    sizes = {"n": A.n, "nnz": A.nnz}
+    for r in range(part.topo.nranks):
+        held = (A, B, part, part_b) if r == 0 else (None, None, rank_partition(part, r), rank_partition(part_b, r))
+        with open(os.path.join(directory, f"problem{r}.pkl"), "wb") as f:
+            pickle.dump((sizes, *held), f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_problem(directory: str, rank: int) -> tuple:
+    """Rank ``rank``'s share of :func:`write_problem`: ``(sizes, A, B, part,
+    part_b)``, ``A`` and ``B`` ``None`` off rank 0."""
+    with open(os.path.join(directory, f"problem{rank}.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
 def product64(A, v: np.ndarray, absolute: bool = False) -> np.ndarray:
     """``A @ v`` (or ``|A| @ |v|``, the scale of its rounding) in float64 on
     the host (``v: [n]``)."""
@@ -681,8 +754,9 @@ def _spmv(group, device, A, part, data: dict, keep: bool, gates: dict, out: dict
 def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict, out: dict,
             launches: _Launches, predicted: dict, histories: dict, host_runs: dict) -> dict:
     """CG on ``spd_system`` and BiCGStab on ``shifted_system`` with every
-    strategy and ``auto``, barrier and overlap (on CUDA ranks overlap for
-    CG on :data:`FAULT_SOLVE_STRATEGY` only: :func:`_overlapped`); rank 0 holds
+    strategy and ``auto`` (:func:`_solved`), barrier and overlap (on CUDA
+    ranks overlap for CG on :data:`FAULT_SOLVE_STRATEGY` only:
+    :func:`_overlapped`); rank 0 holds
     the result to the stacked host loop.  Returns each run's summary;
     ``histories`` gets each solver's (common) residual history,
     ``host_runs`` each run's result by ``(solver, strategy, overlap)``."""
@@ -693,6 +767,8 @@ def _solves(group, device, systems_, parts, data: dict, keep: bool, gates: dict,
         b = torch.as_tensor(data[rhs][r : r + 1], device=device)
         runs = {}
         for strat in STRATEGY_NAMES + ("auto",):
+            if not _solved(device, solver, strat):
+                continue
             for overlap in (False, True) if _overlapped(device, solver, strat) else (False,):
                 op = DistributedSpMV(part, strategy=strat, device=device, overlap=overlap, group=group)
                 _sync(device)
@@ -762,7 +838,8 @@ def _from_rank0(value, group):
 
 def _faults(group, device, part, seed: int, keep: bool, gates: dict, out: dict) -> dict:
     """Checks, faults and the recovery ladder under the group: every
-    :func:`fault_cases` case x strategy x codec x barrier/split on a ``[1,
+    :func:`fault_cases` case x strategy x codec x barrier/split
+    (:func:`_fault_mode`) on a ``[1,
     L]`` payload, held to the stacked guarded exchange that rank 0 runs
     under the same plan and to ``execute_numpy``; then ms per checked vs
     unchecked barrier exchange per strategy."""
@@ -775,6 +852,8 @@ def _faults(group, device, part, seed: int, keep: bool, gates: dict, out: dict) 
         for case, (codecs, kw) in fault_cases(strat, seed).items():
             for codec in codecs:
                 for mode in MODES:
+                    if not _fault_mode(device, strat, mode):
+                        continue
                     key = f"{case}|{strat}|{mode}|{codec}"
                     ex = IrregularExchange(part.pattern, strat, device=device, wire=codec, group=group, **kw)
                     halo, rec = _guarded(ex, mine, mode)
@@ -892,6 +971,22 @@ def _fault_solves(group, device, A, part, data: dict, seed: int, clean: tuple, k
     return summary
 
 
+def _solved(device: torch.device, solver: str, strategy: str) -> bool:
+    """Whether the host-loop solves run ``(solver, strategy)``: on the host
+    every strategy and ``auto``; on CUDA ranks all of them for CG and
+    :data:`CARD_BICGSTAB` for BiCGStab (the phase's time on the card)."""
+    return device.type != "cuda" or solver == "cg" or strategy in CARD_BICGSTAB
+
+
+def _fault_mode(device: torch.device, strategy: str, mode: str) -> bool:
+    """Whether the faults section runs ``strategy`` in ``mode``: on the
+    host both modes of every strategy; on CUDA ranks barrier for every
+    strategy and the split phase on :data:`FAULT_SOLVE_STRATEGY` (the
+    phase's time on the card; the host worlds of
+    ``tests/test_torch_world.py`` hold every pair)."""
+    return device.type != "cuda" or mode == "barrier" or strategy == FAULT_SOLVE_STRATEGY
+
+
 def _overlapped(device: torch.device, solver: str, strategy: str) -> bool:
     """Whether the host-loop solves run ``(solver, strategy)`` split-phase
     too: on the host all of them; on CUDA ranks CG on
@@ -904,11 +999,13 @@ def _fused_case(device: torch.device, solver: str, strategy: str, codec: str, mo
     """Whether the fused section runs ``(solver, strategy, codec, mode)``:
     barrier with every codec and the split phase (``"overlap"``) with
     ``none`` on the host; on CUDA ranks barrier with ``none`` for every
-    strategy, and for CG the split phase on :data:`FAULT_SOLVE_STRATEGY`
-    and the int8 wire on :data:`FUSED_CARD_INT8` (the phase's time on the
-    card)."""
+    strategy of CG and :data:`CARD_BICGSTAB` of BiCGStab, and for CG the
+    split phase on :data:`FAULT_SOLVE_STRATEGY` and the int8 wire on
+    :data:`FUSED_CARD_INT8` (the phase's time on the card)."""
     if device.type != "cuda":
         return mode == "barrier" or codec == "none"
+    if not _solved(device, solver, strategy):
+        return False
     if codec == "none":
         return mode == "barrier" or (solver == "cg" and strategy == FAULT_SOLVE_STRATEGY)
     return mode == "barrier" and solver == "cg" and strategy in FUSED_CARD_INT8
@@ -1415,19 +1512,22 @@ def _timed_one(fn, device, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix: str = "thermal_like",
-               mm_cols: int = 8, keep: bool = False) -> dict:
-    """The paper's case study on this rank (see the module docstring);
-    returns its gates, times, launch counts and memory."""
+def case_study(group, device: torch.device, *, problem: str, seed: int = 0, mm_cols: int = 8,
+               keep: bool = False) -> dict:
+    """The paper's case study on this rank (see the module docstring) over
+    the systems :func:`write_problem` wrote to ``problem``; returns its
+    gates, times, launch counts and memory."""
     started = time.time()
     topo, r = group.topo, group.rank
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    A, B = systems(matrix, rows, seed)
-    part, part_b = partition_csr(A, topo), partition_csr(B, topo)
+    sizes, A, B, part, part_b = load_problem(problem, r)
+    if part.topo != topo:
+        raise ValueError(f"the problem in {problem} is partitioned over {part.topo}, the world is {topo}")
     data = inputs(topo, part.rows_per_rank, seed, mm_cols)
     setup_s = time.perf_counter() - t0
+    setup_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     gates, out = {}, {}
     launches, predicted = _Launches(), {"spmv_ell": 0, "spmm_ell": 0}
     histories = {}
@@ -1450,7 +1550,7 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     reductions = _reductions(group, device, part, data, keep, gates, out, launches, predicted)
     t6 = time.perf_counter()
     guards = _guards(group, device, part)
-    sizes = {"n": A.n, "nnz": A.nnz, "rows_per_rank": part.rows_per_rank, "halo_width": part.halo_width}
+    sizes.update(rows_per_rank=part.rows_per_rank, halo_width=part.halo_width)
     del A, B, part, part_b, data  # the MoE section's memory
     moe_out = _moe(group, device, seed, gates)
     t7 = time.perf_counter()
@@ -1462,7 +1562,7 @@ def case_study(group, device: torch.device, *, rows: int, seed: int = 0, matrix:
     for name, text in expect.items():
         gates[f"guard {name} raises naming {text!r}"] = text in guards[name]
     memory = {"host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-              **_host_memory()}
+              "host_max_rss_after_setup_bytes": setup_rss, **_host_memory()}
     if device.type == "cuda":
         memory.update(device_peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
                       device_reserved_bytes=torch.cuda.memory_reserved(device))
@@ -1508,6 +1608,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None, help="'cpu' runs on the host; left out, the CUDA device")
     ap.add_argument("--timeout", type=float, default=540.0, help="seconds for the whole world")
     ap.add_argument("--keep-arrays", action="store_true", help="write each rank's halos, w and x too")
+    ap.add_argument("--problem", default=None,
+                    help="a directory write_problem filled with build_problem's systems of --matrix, --rows and "
+                         "--seed over --topo (left out: built here)")
     ap.add_argument("--out", required=True, help="directory for world.json")
     args = ap.parse_args(argv)
     topo = parse_topo(args.topo)
@@ -1515,22 +1618,30 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass --device cpu to run on the host")
         kbuild.build(["spmv_ell"])  # once here, not in every rank
-    t0 = time.time()
-    ranks = run_world(case_study, topo, device=args.device, timeout_s=args.timeout, kwargs=dict(
-        rows=args.rows, seed=args.seed, matrix=args.matrix, mm_cols=args.mm_cols, keep=args.keep_arrays))
-    total = time.time() - t0
+    start_rank_server()  # it imports while the problem is built
+    with tempfile.TemporaryDirectory(prefix="repro_problem_") as built:
+        t_build = time.time()
+        problem = args.problem
+        if problem is None:
+            problem = built
+            write_problem(problem, *build_problem(topo, args.matrix, args.rows, args.seed))
+        t0 = time.time()
+        ranks = run_world(case_study, topo, device=args.device, timeout_s=args.timeout, kwargs=dict(
+            problem=problem, seed=args.seed, mm_cols=args.mm_cols, keep=args.keep_arrays))
+        total = time.time() - t0
     failed = [f"rank {x['rank']}: {k}" for x in ranks for k, ok in x["gates"].items() if not ok]
     # the world's start, by step: the slowest rank's seconds since the spawn
     start = {k: max(x["timeline"][k] for x in ranks) - t0 for k in ranks[0]["timeline"]}
     record = {"topo": args.topo, "rows": args.rows, "matrix": args.matrix, "device": args.device or "cuda",
-              "start_s": max(x["started_at"] for x in ranks) - t0, "start_steps_s": start, "total_s": total,
+              "build_s": t0 - t_build, "start_s": max(x["started_at"] for x in ranks) - t0, "start_steps_s": start,
+              "total_s": total,
               "failed_gates": failed, "ranks": ranks}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "world.json"), "w") as f:
         json.dump(record, f)
     r0 = ranks[0]
     print(f"world {args.topo}: {len(ranks)} processes, n={r0['n']} L={r0['rows_per_rank']} "
-          f"H={r0['halo_width']}, start {record['start_s']:.2f} s "
+          f"H={r0['halo_width']}, build {record['build_s']:.2f} s, start {record['start_s']:.2f} s "
           f"({', '.join(f'{k} {v:.2f}' for k, v in start.items())}), total {total:.2f} s; "
           f"{sum(len(x['gates']) for x in ranks)} gates, {len(failed)} failed", flush=True)
     for line in failed:

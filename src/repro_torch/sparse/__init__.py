@@ -14,6 +14,7 @@ from repro_torch.sparse.partition import (
     SpmvPartition,
     partition_csr,
     partition_from_arrays,
+    rank_partition,
     rank_slice,
 )
 from repro_torch.sparse.spmv import DistributedSpMV, build, reference, reference_mm
@@ -30,6 +31,7 @@ __all__ = [
     "SpmvPartition",
     "partition_csr",
     "partition_from_arrays",
+    "rank_partition",
     "rank_slice",
     "DistributedSpMV",
     "build",

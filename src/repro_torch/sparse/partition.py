@@ -17,7 +17,7 @@ loop; it produces bitwise the same arrays and pattern.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +52,9 @@ class SpmvPartition:
     #: interior/boundary classifier for split-phase compute (a row with 0
     #: has a pure-padding off-ELL row, including explicitly stored zeros)
     off_row_nnz: np.ndarray
+    #: ``None``: the arrays above hold every rank's rows; a rank's number:
+    #: they hold that rank's ``L`` rows alone (:func:`rank_partition`)
+    held: Optional[int] = None
 
     @property
     def n(self) -> int:
@@ -75,14 +78,32 @@ def rank_slice(part: SpmvPartition, rank: int) -> RankSlice:
     """World rank ``rank``'s rows of ``part`` (see :class:`RankSlice`)."""
     if not 0 <= rank < part.topo.nranks:
         raise ValueError(f"rank {rank} is not in {part.topo}")
+    if part.held not in (None, rank):
+        raise ValueError(f"the partition holds rank {part.held}'s rows alone, not rank {rank}'s")
     L = part.rows_per_rank
-    rows = slice(rank * L, (rank + 1) * L)
+    first = 0 if part.held is not None else rank * L
+    rows = slice(first, first + L)
 
     def block(b: EllBlock) -> EllBlock:
         return EllBlock(data=b.data[rows][None], cols=b.cols[rows][None])
 
     return RankSlice(rank=rank, diag=block(part.diag), off=block(part.off),
                      off_row_nnz=part.off_row_nnz[rows][None])
+
+
+def rank_partition(part: SpmvPartition, rank: int) -> SpmvPartition:
+    """``part`` as a process that holds rank ``rank`` alone needs it: the
+    topology, pattern and widths whole, the ELL blocks and off-rank counts
+    of its own rows only (``held=rank``).  :func:`rank_slice` of it is
+    bitwise that of ``part``; it serves ``DistributedSpMV(group=)`` of that
+    rank, and no stacked operator."""
+    s = rank_slice(part, rank)
+
+    def block(b: EllBlock) -> EllBlock:
+        return EllBlock(data=np.ascontiguousarray(b.data[0]), cols=np.ascontiguousarray(b.cols[0]))
+
+    return dataclasses.replace(part, diag=block(s.diag), off=block(s.off),
+                               off_row_nnz=np.ascontiguousarray(s.off_row_nnz[0]), held=rank)
 
 
 def _slot_in_row(sel: np.ndarray, rows: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:

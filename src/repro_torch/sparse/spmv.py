@@ -165,6 +165,8 @@ class DistributedSpMV:
     group: Optional[object] = None
 
     def __post_init__(self) -> None:
+        if self.group is None and self.partition.held is not None:
+            raise ValueError(f"the partition holds rank {self.partition.held}'s rows alone: it needs group=")
         if self.group is not None and self.device is None:
             self.device = device_for_rank(self.group.rank)
         self.device = resolve_device(self.device)

@@ -51,7 +51,10 @@ equal on every rank and within one quantum of the reference's
 ``dot_hierarchical(..., compressor=Compressor())`` under ``shard_map``; the
 tree's two levels are pinned to numpy's summation order at ``ppn`` 4, 8
 and 16.  A world whose rank 1 raises before a collective ends with rank 1's
-traceback within its timeout.
+traceback within its timeout.  The world builds its systems once and hands
+each rank its share, bitwise ``rank_slice(partition_csr(A, topo), r)``
+with the same pattern and plans; its ranks fork from a fork server that
+imported torch and the port once, and give the stacked oracles' bits.
 """
 
 import dataclasses
@@ -98,7 +101,7 @@ from repro_torch.solve import FUSED_SOLVERS
 from repro_torch.solve import bicgstab as port_bicgstab
 from repro_torch.solve import cg as port_cg
 from repro_torch.solve.reductions import NumpyReductions, _tree_sum
-from repro_torch.sparse import DistributedSpMV, partition_csr, rank_slice
+from repro_torch.sparse import DistributedSpMV, partition_csr, rank_partition, rank_slice
 
 REPO = Path(__file__).resolve().parents[1]
 #: topology -> (matrix, rows)
@@ -278,6 +281,93 @@ def test_rank_slice_is_the_stacked_rows(topo):
                           (s.off.data, part.off.data), (s.off.cols, part.off.cols)):
             np.testing.assert_array_equal(got, full.reshape(t.nranks, L, -1)[r : r + 1])
         np.testing.assert_array_equal(s.off_row_nnz, part.off_row_nnz.reshape(t.nranks, L)[r : r + 1])
+
+
+def _same_array(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_handed_in_problem_is_each_ranks_slice_bitwise(tmp_path, topo):
+    """The world builds its systems once (``world.build_problem``,
+    ``write_problem``) and hands each rank its share: rank 0 both systems
+    and partitions whole, every other rank a partition of its own rows,
+    whose ``rank_slice`` is bitwise ``rank_slice(partition_csr(A, topo),
+    r)`` with the whole pattern, its fingerprint and every strategy's plan
+    key and plan."""
+    matrix, rows = WORLDS[topo]
+    t = _topo(topo)
+    A, B, part, part_b = _port(topo)
+    world.write_problem(str(tmp_path), *world.build_problem(t, matrix, rows, SEED))
+    for r in range(t.nranks):
+        sizes, got_a, got_b, got, got_b_part = world.load_problem(str(tmp_path), r)
+        assert sizes == {"n": A.n, "nnz": A.nnz}
+        if r == 0:
+            for mine, whole in ((got_a, A), (got_b, B)):
+                assert all(_same_array(getattr(mine, k), getattr(whole, k)) for k in ("indptr", "indices", "data"))
+            assert got.held is None and got_b_part.held is None
+        else:
+            assert got_a is None and got_b is None and got.held == r and got_b_part.held == r
+        for mine, whole in ((got, part), (got_b_part, part_b)):
+            s, w = rank_slice(mine, r), rank_slice(whole, r)
+            for a, b in ((s.diag.data, w.diag.data), (s.diag.cols, w.diag.cols), (s.off.data, w.off.data),
+                         (s.off.cols, w.off.cols), (s.off_row_nnz, w.off_row_nnz)):
+                assert _same_array(np.ascontiguousarray(a), np.ascontiguousarray(b)), r
+            assert (mine.topo, mine.rows_per_rank, mine.halo_width) == (whole.topo, whole.rows_per_rank,
+                                                                         whole.halo_width)
+            assert mine.pattern == whole.pattern and mine.pattern.fingerprint() == whole.pattern.fingerprint()
+            for strategy in STRATEGY_NAMES:
+                assert _plan_key(mine.pattern, strategy) == _plan_key(whole.pattern, strategy)
+                assert _plan_bytes(mine.pattern, strategy) == _plan_bytes(whole.pattern, strategy)
+
+
+def _plan_key(pattern, strategy: str) -> tuple:
+    from repro_torch.comm.strategies import _plan_key as key
+
+    return key(pattern, strategy, 16384, 4, True)
+
+
+def _plan_bytes(pattern, strategy: str) -> bytes:
+    """The fused stage plan of ``strategy``, built afresh (not from the
+    plan cache, which is keyed by the fingerprint), pickled."""
+    import pickle
+
+    from repro_torch.comm.exchange import plan
+    from repro_torch.comm.fusion import fuse
+
+    return pickle.dumps(fuse(plan(strategy, pattern)))
+
+
+@pytest.mark.parametrize("other", [0, 2, 3])
+def test_a_partition_of_one_ranks_rows_serves_that_rank_alone(other):
+    _, _, part, _ = _port("2x2")
+    held = rank_partition(part, 1)
+    assert held.diag.data.shape == (part.rows_per_rank, part.diag.data.shape[1])
+    with pytest.raises(ValueError, match="rank 1's rows alone"):
+        rank_slice(held, other)
+    with pytest.raises(ValueError, match="needs group="):
+        DistributedSpMV(held, strategy="standard", device="cpu")
+
+
+@pytest.mark.parametrize("topo", sorted(WORLDS))
+def test_ranks_fork_from_the_preloaded_server_and_match_the_stacked_oracle(topo):
+    """``run_world`` forks its ranks from a fork server that has imported
+    torch and the port once: two worlds in a row (the second from the warm
+    server) each give every rank's tree dot bitwise ``NumpyReductions`` of
+    the stacked operands, and each rank's timeline holds its four steps in
+    order."""
+    assert world.rank_context().get_start_method() == "forkserver"
+    t = _topo(topo)
+    want = [NumpyReductions(t).dot(x, y) for x, y in world.dot_operands(t, DOTS_LEN, SEED + 1)]
+    for _ in range(2):
+        ranks = world.run_world(world.dots, t, device="cpu", timeout_s=120.0,
+                                kwargs=dict(length=DOTS_LEN, seed=SEED + 1))
+        assert [r["rank"] for r in ranks] == list(range(t.nranks))
+        for r in ranks:
+            assert [float.fromhex(d["tree"]) for d in r["dots"]] == want, r["rank"]
+            steps = r["timeline"]
+            assert list(steps) == ["entered", "joined", "grouped", "device"]
+            assert sorted(steps.values()) == list(steps.values())
 
 
 # ---------------------------------------------------------------------------
