@@ -74,6 +74,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm import compression
 from repro_torch.comm import faults as faults_mod
 from repro_torch.comm import wire as wire_mod
@@ -1070,9 +1071,10 @@ class IrregularExchange:
         the program, with no host synchronisation.
         """
         local = self._checked(local)
-        if not self.guarded:
-            return self._program.run(local, self.wire)[0]
-        return self._guarded_call(local)
+        with tracing.span("repro_torch.exchange.run"), tracing.stream_interval("exchange", self.device):
+            if not self.guarded:
+                return self._program.run(local, self.wire)[0]
+            return self._guarded_call(local)
 
     def _checked(self, local) -> torch.Tensor:
         local = as_device_tensor(local, self.device)

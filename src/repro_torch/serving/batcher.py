@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+from repro_torch import tracing
 from repro_torch.core.advisor import EXECUTABLE_STRATEGY, Advice, advise_stats
 
 from .queue import RequestQueue
@@ -172,6 +173,11 @@ class ContinuousBatcher:
         if not ripe:
             return None
         _, fp = min(ripe)
+        with tracing.span("repro_torch.serve.batch"):
+            return self._take(fp, now)
+
+    def _take(self, fp: str, now: float) -> Batch:
+        """Take lane ``fp``'s batch at ``now``: its FIFO prefix, advised."""
         cls = self.classes[fp]
         reqs = tuple(self.queue.take(fp, self.width_cap(fp)))
         adv = self.advise(fp, len(reqs))
@@ -185,6 +191,8 @@ class ContinuousBatcher:
         self.batches += 1
         if len(reqs) >= 2:
             self.coalesced += len(reqs)
+        if tracing.active():
+            tracing.count("serve.queue_wait_s", sum(now - r.arrival for r in reqs))
         return Batch(
             fp=fp,
             requests=reqs,

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm.faults import ExchangeIntegrityError, HealthTracker, run_ladder
 from repro_torch.core.errors import detached
 
@@ -193,6 +194,10 @@ class BatchExecutor:
         """Run one batch through the recovery ladder; never raises on an
         integrity failure -- an exhausted ladder becomes a failed outcome
         that sheds exactly this batch's requests."""
+        with tracing.span("repro_torch.serve.execute"):
+            return self._execute_resilient(batch, payload)
+
+    def _execute_resilient(self, batch: Batch, payload) -> BatchOutcome:
         maker = self._variant_makers.get(batch.fp)
         plain = self._handlers.get(batch.fp)
         if maker is None and plain is None:

@@ -63,6 +63,9 @@ kernel wrappers count no launch while a graph is captured, so
 :data:`program_runs` the runs of the init and of a block.  The fused scalars
 equal the host loop's bitwise: on the CPU the roots are taken on the host
 (:func:`_root`), as torch's CPU ``sqrt`` is not always correctly rounded.
+Under a profiler session a solve records the spans ``repro_torch.solve.*``
+(the whole solve, its rhs norm, entry, init, blocks and unpack) and the
+counter ``solve.host_reads`` (:mod:`repro_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm import strategies as comm_strategies
 from repro_torch.comm.faults import (
     ExchangeIntegrityError,
@@ -165,9 +169,14 @@ def _root(sq: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp_min(sq, 0.0))
 
 
-def _read(t: torch.Tensor) -> np.ndarray:
+def _count_read() -> None:
     global host_reads
     host_reads += 1
+    tracing.count("solve.host_reads")
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    _count_read()
     return t.cpu().numpy()
 
 
@@ -538,8 +547,7 @@ class _FusedSolve:
             self.posted[slot] = self.s["flag"].clone()
 
     def _read_flag(self, slot: int) -> bool:
-        global host_reads
-        host_reads += 1
+        _count_read()
         if self.top.device.type == "cuda":
             self.events[slot].synchronize()
             return bool(self.pinned[slot])
@@ -554,11 +562,12 @@ class _FusedSolve:
         is not read.
         """
         nblocks = -(-max_it // self.block)
-        for j in range(nblocks):
-            self._run("block")
-            self._post_flag(j % 2)
-            if j and self._read_flag((j - 1) % 2):
-                break
+        with tracing.span("repro_torch.solve.blocks"):
+            for j in range(nblocks):
+                self._run("block")
+                self._post_flag(j % 2)
+                if j and self._read_flag((j - 1) % 2):
+                    break
 
     # -- dispatches ----------------------------------------------------
     def _load(self, b: torch.Tensor, bnorm: torch.Tensor, tol: float, max_it: int) -> None:
@@ -572,7 +581,8 @@ class _FusedSolve:
         """One solve from ``x0``: the init section, then blocks."""
         self._load(b, bnorm, tol, max_it)
         self.s["x0"].copy_(x0)
-        self._run("init")
+        with tracing.span("repro_torch.solve.init"):
+            self._run("init")
         self._blocks(max_it)
         return self._unpack()
 
@@ -594,21 +604,22 @@ class _FusedSolve:
 
     def _unpack(self) -> _Out:
         S = self.s
-        parts = [S["hist"], torch.stack([S[n].double() for n in ("it", "k", "status", "mvc")]),
-                 S["viols"]]
-        if self.ce is not None:
-            parts.append(torch.stack(
-                [S[n].double() for n in ("ck_valid", "ck_it", "ck_k", "ck_mvc")]))
-        host = _read(torch.cat(parts))
-        hist, rest = host[: self.hist_len], host[self.hist_len:]
-        it, k, status, mvc = (int(v) for v in rest[:4])
-        nviol = S["viols"].numel()
-        ck = rest[4 + nviol:] if self.ce is not None else (0, -1, 0, 0)
-        return _Out(
-            x=S["x"].clone(), best_x=S["best_x"].clone(), hist=[float(h) for h in hist[:k]],
-            it=it, status=status, mvc=mvc, viols=rest[4: 4 + nviol], ck_valid=bool(ck[0]),
-            ck_it=int(ck[1]), ck_k=int(ck[2]), ck_mvc=int(ck[3]),
-        )
+        with tracing.span("repro_torch.solve.unpack"):
+            parts = [S["hist"], torch.stack([S[n].double() for n in ("it", "k", "status", "mvc")]),
+                     S["viols"]]
+            if self.ce is not None:
+                parts.append(torch.stack(
+                    [S[n].double() for n in ("ck_valid", "ck_it", "ck_k", "ck_mvc")]))
+            host = _read(torch.cat(parts))
+            hist, rest = host[: self.hist_len], host[self.hist_len:]
+            it, k, status, mvc = (int(v) for v in rest[:4])
+            nviol = S["viols"].numel()
+            ck = rest[4 + nviol:] if self.ce is not None else (0, -1, 0, 0)
+            return _Out(
+                x=S["x"].clone(), best_x=S["best_x"].clone(), hist=[float(h) for h in hist[:k]],
+                it=it, status=status, mvc=mvc, viols=rest[4: 4 + nviol], ck_valid=bool(ck[0]),
+                ck_it=int(ck[1]), ck_k=int(ck[2]), ck_mvc=int(ck[3]),
+            )
 
     def harvest(self, prev: Optional[_Checkpoint], out: _Out) -> Optional[_Checkpoint]:
         """Keep the newest valid checkpoint across dispatches (a failed
@@ -702,6 +713,12 @@ def _restart(entry: _FusedSolve, out: _Out, b, bnorm, tol: float, maxiter: int, 
 def _fused_solve(op, b, x0, tol: float, maxiter: int, reductions, solver: str,
                  checkpoint_every: Optional[int] = None, device: DeviceLike = None,
                  capture: bool = True) -> SolveResult:
+    with tracing.span("repro_torch.solve.fused"):
+        return _solve(op, b, x0, tol, maxiter, reductions, solver, checkpoint_every, device, capture)
+
+
+def _solve(op, b, x0, tol: float, maxiter: int, reductions, solver: str,
+           checkpoint_every: Optional[int], device: DeviceLike, capture: bool) -> SolveResult:
     global host_reads
     host_reads = 0
     own = getattr(op, "device", None)
@@ -714,8 +731,10 @@ def _fused_solve(op, b, x0, tol: float, maxiter: int, reductions, solver: str,
         raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
     rc0 = _recovery_baseline(op)
     compressor = getattr(reductions, "compressor", None)
-    bnorm = _root(run_hops(fused_dot(op, compressor)(b, b)))
-    if float(_read(bnorm)) == 0.0:
+    with tracing.span("repro_torch.solve.rhs_norm"):
+        bnorm = _root(run_hops(fused_dot(op, compressor)(b, b)))
+        zero_rhs = float(_read(bnorm)) == 0.0
+    if zero_rhs:
         # the host solvers' zero-rhs early return (same _finish_status)
         return SolveResult(x=torch.zeros_like(b), converged=True, iterations=0,
                            residuals=(0.0,), matvecs=0,
@@ -725,8 +744,9 @@ def _fused_solve(op, b, x0, tol: float, maxiter: int, reductions, solver: str,
     init_mv_adjust = 1 if x0 is None else 0
     x0 = torch.zeros_like(b) if x0 is None else as_device_tensor(x0, dev, b.dtype)
     def entry_for(vop) -> _FusedSolve:
-        return _entry(vop, solver, maxiter, b.dtype, compressor, dev, checkpoint_every,
-                      capture)
+        with tracing.span("repro_torch.solve.entry"):
+            return _entry(vop, solver, maxiter, b.dtype, compressor, dev, checkpoint_every,
+                          capture)
 
     entry = entry_for(op)
     resumes = 0

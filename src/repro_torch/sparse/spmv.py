@@ -51,6 +51,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm import strategies as comm_strategies
 from repro_torch.comm.strategies import IrregularExchange
 from repro_torch.comm.topology import PodTopology
@@ -269,14 +270,19 @@ class DistributedSpMV:
         if v.ndim == 3:
             return self.matmat(v)
         dd, dc, od, oc = self._blocks
-        if not self.overlap:
-            return self._compute(v, self.exchange(v), dd, dc, od, oc)
-        handle = self.exchange.start(v)
-        # the whole halo-independent diag block runs while the inter-pod
-        # phase is in flight; only boundary tiles' off block waits on it
-        w_diag = self._phase_fn(dd, dc, v)
-        halo = handle.finish()
-        return w_diag + self._phase_fn(od, oc, halo, self._bnd_v)
+        with tracing.span("repro_torch.spmv.matvec"):
+            if not self.overlap:
+                halo = self.exchange(v)
+                with tracing.span("repro_torch.spmv.compute"):
+                    return self._compute(v, halo, dd, dc, od, oc)
+            handle = self.exchange.start(v)
+            # the whole halo-independent diag block runs while the inter-pod
+            # phase is in flight; only boundary tiles' off block waits on it
+            with tracing.span("repro_torch.spmv.compute"):
+                w_diag = self._phase_fn(dd, dc, v)
+            halo = handle.finish()
+            with tracing.span("repro_torch.spmv.compute"):
+                return w_diag + self._phase_fn(od, oc, halo, self._bnd_v)
 
     def matmat(self, V) -> torch.Tensor:
         """``V [nranks, L, k] -> W [nranks, L, k]`` under ONE exchange.
@@ -295,12 +301,17 @@ class DistributedSpMV:
                 self._fingerprint, self.device, k, self.overlap
             )
         dd, dc, od, oc = self._blocks
-        if not self.overlap:
-            return fn(V, self.exchange(V), dd, dc, od, oc)
-        handle = self.exchange.start(V)
-        w_diag = fn(dd, dc, V)
-        halo = handle.finish()
-        return w_diag + fn(od, oc, halo, self._bnd_mm)
+        with tracing.span("repro_torch.spmv.matmat"):
+            if not self.overlap:
+                halo = self.exchange(V)
+                with tracing.span("repro_torch.spmv.compute"):
+                    return fn(V, halo, dd, dc, od, oc)
+            handle = self.exchange.start(V)
+            with tracing.span("repro_torch.spmv.compute"):
+                w_diag = fn(dd, dc, V)
+            halo = handle.finish()
+            with tracing.span("repro_torch.spmv.compute"):
+                return w_diag + fn(od, oc, halo, self._bnd_mm)
 
     def matmat_looped(self, V) -> torch.Tensor:
         """Per-column baseline: ``k`` exchanges + ``k`` local SpMVs."""
